@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` (K1 `route_kernels.cu`, K2 `rspmv_kernels.cu`)
-each expose a plain `extern "C"` launcher that returns
+The sources under `csrc/` (K1 `route_kernels.cu`, K2 `rspmv_kernels.cu`,
+K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`) each expose a plain `extern "C"` launcher that returns
 `cudaGetLastError()`.  They are compiled by `nvcc` for Hopper (`sm_90a`)
 into one shared library, loaded with ctypes, at first use: nothing is
 built or imported when the package is imported, so the CPU tests never
@@ -30,7 +30,8 @@ from .utils.errors import KernelError, ShapeError, require
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("route_kernels.cu", "rspmv_kernels.cu")
+SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
+           "bsr_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -80,14 +81,18 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        for sfx in SUFFIX.values():
-            fn = getattr(lib, f"sblas_lane_shuffle_{sfx}")
-            fn.argtypes = [p, p, p, i64, p]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"sblas_slab_gather_{sfx}")
-            fn.argtypes = [p, p, p, p, p, i64, p]
-            fn.restype = ctypes.c_int
+        p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        argtypes = {
+            "lane_shuffle": [p, p, p, i64, p],
+            "slab_gather": [p, p, p, p, p, i64, p],
+            "window_reduce": [p] * 8 + [i64] * 4 + [p],
+            "bell_spmm": [p] * 5 + [i64] * 5 + [f64, f64, p],
+        }
+        for name, types in argtypes.items():
+            for sfx in SUFFIX.values():
+                fn = getattr(lib, f"sblas_{name}_{sfx}")
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import sys
 
-from .common import finish, flag_value, positional
+from .common import (cuda_missing, ensure_dtype, finish, flag_value,
+                     positional, run_ms)
 
 USAGE = ("usage: python -m sblas_tpu_torch.cli.spmv_test "
          "<A.mtx> <alpha> <beta> <n_devices> [f32|f64] "
@@ -53,27 +54,22 @@ def main(argv=None) -> int:
         if flag in rest:
             raise NotPortedError(f"{flag} is not ported to sblas_tpu_torch "
                                  f"yet")
-    if device not in ("cuda", "cpu") or dtype_name not in ("f32", "f64"):
+    if device not in ("cuda", "cpu"):
         print(USAGE, file=sys.stderr)
         raise SystemExit(2)
+    np_dtype, torch_dtype = ensure_dtype(dtype_name, USAGE)
+    if cuda_missing(device):
+        return 2
 
     import numpy as np
     import torch
 
-    if device == "cuda" and not torch.cuda.is_available():
-        print("[sblas] --device cuda but no CUDA device is available",
-              file=sys.stderr)
-        return 2
-
     from ..containers import CsrMatrix, DenseVector
     from ..ops import make_plan, spmv
     from ..ops.cpu_reference import spmv_cpu
-    from ..utils.timing import (device_time_ms, host_time_ms, nnz_per_s,
-                                timed, wall_time_ms)
+    from ..utils.timing import nnz_per_s, timed
     from ..utils.verify import check_equal
 
-    np_dtype = np.float64 if dtype_name == "f64" else np.float32
-    torch_dtype = torch.float64 if dtype_name == "f64" else torch.float32
     times: dict = {}
 
     with timed("Load time", times, device=device):
@@ -92,14 +88,7 @@ def main(argv=None) -> int:
         return spmv(plan, xd, alpha, beta, yd)
 
     got = run()
-    if device == "cuda":
-        ms = wall_time_ms(run, device=device)
-        times["1-device run time (cuda, wall per call, median)"] = ms
-        times["1-device busy time (cuda events, median)"] = device_time_ms(
-            run, device=device)
-    else:
-        ms = host_time_ms(run)
-        times["1-device run time (cpu host clock, median)"] = ms
+    ms = run_ms(run, device, times)
     print(f"nnz/s = {nnz_per_s(A.nnz, ms):.3e}")
 
     with timed("CPU run time", times):

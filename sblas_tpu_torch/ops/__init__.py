@@ -1,34 +1,39 @@
-"""Ops layer of the port: plans, SpMV, and the CPU oracle.
+"""Ops layer of the port: plans, SpMV, SpMM, and the CPU oracle.
 
-Port of `sblas_tpu/ops/__init__.py`.  `make_plan` carries the JAX
-package's layout chooser over branch for branch, so both packages pick
-the same kind for the same matrix; this slice builds two of the six
-kinds:
+Port of `sblas_tpu/ops/__init__.py`.  Six device layouts, chosen by
+`make_plan` branch for branch as the JAX package chooses them:
 
+* DIA diagonal (shift-and-FMA) — banded structure;
 * Routed (gather/route/stack engine, kernels K1 and K2) — large
   unstructured matrices, SpMV planning;
+* BELL block-sparse (batched matmuls; kernel K4 for SpMM at K >= 256) —
+  block-friendly structure;
+* ELL (gather + row sum) — balanced row occupancy;
+* windowed COO (kernel K3 for SpMM) — unstructured;
 * padded COO (gather + `index_add_`) — the universal fallback and tier-0
   baseline.
 
-A kind not yet ported (`dia`, `bsr`, `ell`, `wcoo`) raises `PlanError`
-naming it.  The chooser's thresholds were calibrated on a TPU v5e by the
-JAX package; re-calibrating them for the H100 is later work.
+The chooser's thresholds were calibrated on a TPU v5e by the JAX package;
+re-calibrating them for the H100 is later work.
 """
 
 import torch
 
 from . import cpu_reference  # noqa: F401
-from .bsr import bell_stats
-from .dia import dia_profitable
-from .plans import CooPlan, ell_profitable
+from .bsr import BsrPlan, bell_stats, spmm_bsr, spmv_bsr
+from .bsr_pallas import spmm_bsr_pallas
+from .dia import DiaPlan, dia_stats, spmm_dia, spmv_dia  # noqa: F401
+from .elementwise import axpby, plus_scalar  # noqa: F401
+from .plans import CooPlan, EllPlan
 from .rspmv import RoutedPlan, spmv_routed
-from .spmv import spmv_coo
-from .wcoo import wcoo_fill_ratio
+from .spmm import spmm as _spmm_tier0
+from .spmm import spmm_coo, spmm_ell  # noqa: F401
+from .spmv import spmv_coo, spmv_ell
+from .wcoo import WcooPlan, spmm_wcoo, spmv_wcoo, wcoo_fill_ratio
 
 from ..config import DEFAULT
-from ..utils.errors import PlanError
 
-# The JAX package's chooser constants (sblas_tpu/ops/__init__.py:27-56),
+# The JAX package's chooser constants (sblas_tpu/ops/__init__.py:27-63),
 # kept equal so both packages choose alike; their rationale there is
 # TPU-measured.
 _WCOO_FILL_LIMIT = 8.0
@@ -36,8 +41,11 @@ _BSR_SPMM_BLOWUP_LIMIT = 512.0
 _BSR_SPMM_BYTES_CAP = 1 << 30
 _BSR_DIA_SPMM_BYTES = 256 << 20
 _BSR_SPMV_BLOWUP = 8.0
-
-NOT_PORTED = ("dia", "bsr", "ell", "wcoo")
+# B width from which BELL SpMM takes kernel K4.  The JAX package gates
+# its Pallas kernel on K >= 256 and a TPU backend; the port gates K4 on
+# K >= 256 and B on CUDA, so the CPU takes `spmm_bsr`, as the JAX
+# package's CPU backend does.
+_BSR_PALLAS_MIN_K = 256
 
 
 def _choose_kind(A, dtype, config, op) -> str:
@@ -50,24 +58,24 @@ def _choose_kind(A, dtype, config, op) -> str:
         # tiny matrix: the dense forms win outright
         kind = "dia" if op == "spmv" else "bsr"
     elif op == "spmv":
-        if dia_profitable(A, config):
+        if DiaPlan.is_profitable(A, config):
             kind = ("bsr" if bst["blowup"] <= _BSR_SPMV_BLOWUP else "dia")
         elif (RoutedPlan.is_profitable(A, config)
               and bst["blowup"] > config.bsr_blowup_limit):
             kind = "routed"
         elif bst["blowup"] <= config.bsr_blowup_limit:
             kind = "bsr"
-        elif ell_profitable(A, config):
+        elif EllPlan.is_profitable(A, config):
             kind = "ell"
     else:  # spmm / mixed use
         if (bst["blowup"] <= _BSR_SPMM_BLOWUP_LIMIT
                 and bsr_bytes <= _BSR_SPMM_BYTES_CAP):
             kind = ("dia" if (bsr_bytes > _BSR_DIA_SPMM_BYTES
-                              and dia_profitable(A, config))
+                              and DiaPlan.is_profitable(A, config))
                     else "bsr")
-        elif dia_profitable(A, config):
+        elif DiaPlan.is_profitable(A, config):
             kind = "dia"
-        elif ell_profitable(A, config):
+        elif EllPlan.is_profitable(A, config):
             kind = "ell"
     if kind is None:
         kind = "wcoo" if wcoo_fill_ratio(A) <= _WCOO_FILL_LIMIT else "coo"
@@ -85,31 +93,58 @@ def make_plan(A, dtype=None, config=DEFAULT, force=None, op=None, *,
     float dtype (default float32)."""
     dtype = dtype or torch.float32
     kind = force if force is not None else _choose_kind(A, dtype, config, op)
-    if kind == "routed":
-        return RoutedPlan.from_csr(A, dtype=dtype, config=config,
-                                   device=device)
-    if kind == "coo":
-        return CooPlan.from_csr(A, dtype=dtype, config=config, device=device)
-    if kind in NOT_PORTED:
-        raise PlanError(f"plan kind {kind!r} is not ported to "
-                        f"sblas_tpu_torch yet (ported: 'routed', 'coo')")
-    raise ValueError(f"unknown plan kind {kind!r}")
+    kw = dict(dtype=dtype, config=config, device=device)
+    if kind == "bsr":
+        return BsrPlan.from_csr(A, block=config.bsr_block, **kw)
+    cls = {"dia": DiaPlan, "routed": RoutedPlan, "ell": EllPlan,
+           "wcoo": WcooPlan, "coo": CooPlan}.get(kind)
+    if cls is None:
+        raise ValueError(f"unknown plan kind {kind!r}")
+    return cls.from_csr(A, **kw)
+
+
+def make_plan_fast(A, dtype=None, config=DEFAULT, *, device):
+    """Plan with no analysis phase, for a first answer while `make_plan`
+    builds: ELL when the row distribution allows it, COO otherwise."""
+    cls = EllPlan if EllPlan.is_profitable(A, config) else CooPlan
+    return cls.from_csr(A, dtype=dtype or torch.float32, config=config,
+                        device=device)
+
+
+_SPMV = {DiaPlan: spmv_dia, RoutedPlan: spmv_routed, BsrPlan: spmv_bsr,
+         WcooPlan: spmv_wcoo, EllPlan: spmv_ell, CooPlan: spmv_coo}
 
 
 def spmv(plan, x, alpha=1.0, beta=1.0, y=None):
     """y' = beta*y + alpha*A@x, dispatched on plan type (`y=None` drops the
     beta term).  x and y are tensors on the plan's device."""
+    fn = _SPMV.get(type(plan))
+    if fn is None:
+        raise TypeError(f"unsupported plan type {type(plan).__name__}")
     if y is None:
         y = torch.zeros(plan.shape[0], dtype=plan.dtype, device=plan.device)
         beta = 0.0
-    if isinstance(plan, RoutedPlan):
-        return spmv_routed(plan, x, alpha, beta, y)
-    if isinstance(plan, CooPlan):
-        return spmv_coo(plan, x, alpha, beta, y)
-    raise TypeError(f"unsupported plan type {type(plan).__name__}")
+    return fn(plan, x, alpha, beta, y)
 
 
 def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
-    """C' = beta*C + alpha*A@B — not ported yet (the SpMM slice)."""
-    raise PlanError("spmm is not ported to sblas_tpu_torch yet; no SpMM "
-                    "plan kind exists in this package")
+    """C' = beta*C + alpha*A@B, dispatched on plan type (`C=None` drops the
+    beta term).  B and C are (rows, K) tensors on the plan's device."""
+    if isinstance(plan, RoutedPlan):
+        raise TypeError(
+            "RoutedPlan is SpMV-only (its contribution routing has no "
+            "K-wide analog); build an SpMM plan with make_plan(A) or "
+            "make_plan(A, op='spmm')")
+    if C is None:
+        C = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
+                        device=plan.device)
+        beta = 0.0
+    if isinstance(plan, DiaPlan):
+        return spmm_dia(plan, B, alpha, beta, C)
+    if isinstance(plan, BsrPlan):
+        if B.shape[1] >= _BSR_PALLAS_MIN_K and B.is_cuda:
+            return spmm_bsr_pallas(plan, B, alpha, beta, C)
+        return spmm_bsr(plan, B, alpha, beta, C)
+    if isinstance(plan, WcooPlan):
+        return spmm_wcoo(plan, B, alpha, beta, C)
+    return _spmm_tier0(plan, B, alpha, beta, C)

@@ -1,16 +1,17 @@
-"""Tier-0 SpMV over a `CooPlan`:  y' = beta*y + alpha*A@x.
+"""Tier-0 SpMV over a `CooPlan` or `EllPlan`:  y' = beta*y + alpha*A@x.
 
-Port of `sblas_tpu/ops/spmv.py::segment_spmv` / `spmv_coo`: gather x at
-the column ids, multiply, and sum per row.  The JAX package's sorted
-`segment_sum` becomes `index_add_`, which on CUDA adds with atomics in no
-fixed order.  This is the baseline the routed engine is measured against.
+Port of `sblas_tpu/ops/spmv.py`.  COO: gather x at the column ids,
+multiply, and sum per row; the JAX package's sorted `segment_sum` becomes
+`index_add_`, which on CUDA adds with atomics in no fixed order.  ELL:
+gather x into the (m_pad, L) slots and sum each row, no scatter.  COO is
+the baseline the other layouts are measured against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .plans import CooPlan
+from .plans import CooPlan, EllPlan
 
 
 def segment_spmv(rows, cols, vals, x, m: int) -> torch.Tensor:
@@ -23,4 +24,11 @@ def segment_spmv(rows, cols, vals, x, m: int) -> torch.Tensor:
 def spmv_coo(plan: CooPlan, x: torch.Tensor, alpha, beta,
              y: torch.Tensor) -> torch.Tensor:
     ax = segment_spmv(plan.rows, plan.cols, plan.vals, x, plan.shape[0])
+    return beta * y + alpha * ax
+
+
+def spmv_ell(plan: EllPlan, x: torch.Tensor, alpha, beta,
+             y: torch.Tensor) -> torch.Tensor:
+    gathered = x[plan.cols]                          # (m_pad, L)
+    ax = (plan.vals * gathered).sum(dim=1)[: plan.shape[0]]
     return beta * y + alpha * ax

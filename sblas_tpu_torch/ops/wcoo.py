@@ -1,19 +1,126 @@
-"""Windowed-COO tile count.
+"""Windowed-COO plan: unstructured SpMV/SpMM, SpMM through kernel K3.
 
-Only the greedy tiling count is ported so far (from
-`sblas_tpu/ops/wcoo.py::wcoo_tile_count`): `make_plan`'s chooser needs the
-layout's fill ratio to choose between windowed and plain COO.  The plan,
-its SpMV/SpMM and kernel K3 come with the WCOO slice.
+Port of `sblas_tpu/ops/wcoo.py`.  Entries are tiled 512 at a time in CSR
+order; each tile is assigned a 128-aligned row window of depth 256 that
+holds all its rows (tiles are split when empty-row gaps would overflow
+the window), so every entry's output row is `wb[t] * 128 + relrow`.  The
+layout builder is the JAX package's numpy code, carried over, so the plan
+arrays are byte-identical.
+
+The JAX package built this layout to avoid the TPU's slow elementwise
+gather and scatter (block gathers + one-hot picks, one-hot MXU window
+reduces).  The H100 gathers and scatters directly, so:
+
+* SpMV: `vals * x[col]`, then `index_add_` on the absolute row ids;
+* SpMM: kernel K3 (`window_reduce`, csrc/wcoo_kernels.cu) gathers the B
+  rows and reduces each output block in one launch per column chunk,
+  with the JAX package's chunk width, so the launch count is its chunk
+  count.
+
+`tstart` is a port-only plan field derived from `wb` (K3's per-block tile
+ranges); `visit0`/`visit1` stay for parity of the arrays, though no
+kernel here needs them.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+from typing import Tuple
 
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from .plans import Plan, _round_up, np_value_dtype
 
 TILE = 512          # nnz per tile
 WINDOW = 256        # row-window depth (two 128 blocks)
+
+# Transient budget of spmm_wcoo in elements, and the widest K-chunk: kept
+# equal to the JAX package's so the chunk count (K3's launch count) is
+# the same.
+_K_BUDGET_ELEMS = 256 * 1024 * 1024
+_K_CHUNK_MAX = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class WcooPlan(Plan):
+    """Windowed COO layout (see module docstring).
+
+    xblk: (T*TILE,) i32   column block id of each nnz (col // 128)
+    lane: (T*TILE,) i32   lane within the block (col % 128)
+    vals: (T*TILE,)       values (padding slots are 0)
+    relrow: (T, TILE) i32 row - window start, in [0, WINDOW)
+    half_ids: (2T,) i32   destination row-block id of each window half
+    wb: (T,) i32          window block id per tile (monotone)
+    visit0/visit1: (n_row_blocks,) {0,1} blocks a tile's first/second
+                          half visits
+    tstart: (n_row_blocks+1,) i32  first tile with wb >= j (port only)
+    """
+
+    xblk: torch.Tensor
+    lane: torch.Tensor
+    vals: torch.Tensor
+    relrow: torch.Tensor
+    half_ids: torch.Tensor
+    wb: torch.Tensor
+    visit0: torch.Tensor
+    visit1: torch.Tensor
+    tstart: torch.Tensor
+    shape: Tuple[int, int]
+    nnz: int
+    n_tiles: int
+    n_row_blocks: int
+
+    @property
+    def fill_ratio(self) -> float:
+        """Stored slots / true nnz (tile-split + padding overhead)."""
+        return self.vals.shape[0] / max(self.nnz, 1)
+
+    @classmethod
+    def from_numpy(cls, fields: dict, meta: dict, device) -> "WcooPlan":
+        """As `Plan.from_numpy`; `tstart` is derived from `wb` when the
+        fields (e.g. the JAX package's plan) lack it."""
+        if "tstart" not in fields:
+            fields = dict(fields, tstart=tile_starts(
+                np.asarray(fields["wb"]), int(meta["n_row_blocks"])))
+        return super().from_numpy(fields, meta, device)
+
+    @classmethod
+    def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
+                 config: SBlasConfig = DEFAULT, *,
+                 min_tiles: int = 0, device) -> "WcooPlan":
+        """`min_tiles` pads the tile count (pad tiles carry val=0 anchored
+        at the last window and contribute nothing)."""
+        arr = wcoo_plan_arrays(A, min_tiles=min_tiles,
+                               np_val=np_value_dtype(dtype))
+        meta = {k: arr.pop(k) for k in ("n_tiles", "n_row_blocks")}
+        arr["vals"] = arr["vals"].astype(np_value_dtype(dtype))
+        return cls.from_numpy(arr, dict(meta, shape=A.shape, nnz=A.nnz),
+                              device)
+
+
+def tile_starts(wb: np.ndarray, nb: int) -> np.ndarray:
+    """(nb+1,) int32: tstart[j] = first tile t with wb[t] >= j, so the
+    tiles touching output block b are [tstart[b-1], tstart[b+1])."""
+    return np.searchsorted(wb, np.arange(nb + 1), side="left").astype(
+        np.int32)
+
+
+def wcoo_plan_arrays(A, min_tiles: int = 0, np_val=np.float32):
+    """`wcoo_arrays` plus wb (each tile's first row block) and the
+    visit0/visit1 indicators."""
+    arr = wcoo_arrays(A, min_tiles=min_tiles)
+    wb = arr["half_ids"][0::2]
+    nb = arr["n_row_blocks"]
+    visit0 = np.zeros(nb, dtype=np_val)
+    visit1 = np.zeros(nb, dtype=np_val)
+    visit0[wb] = 1
+    visit1[np.minimum(wb + 1, nb - 1)] = 1
+    arr.update(wb=wb, visit0=visit0, visit1=visit1)
+    return arr
 
 
 def wcoo_tile_count(A: CsrMatrix) -> int:
@@ -36,3 +143,180 @@ def wcoo_fill_ratio(A: CsrMatrix) -> float:
     """`WcooPlan.fill_ratio` of the plan `WcooPlan.from_csr(A)` would
     build: stored slots / true nnz."""
     return wcoo_tile_count(A) * TILE / max(A.nnz, 1)
+
+
+def wcoo_arrays(A: CsrMatrix, min_tiles: int = 0) -> dict:
+    """Windowed-COO layout as host numpy arrays."""
+    coo = A.to_coo()  # CSR order: rows ascending
+    return _wcoo_layout(coo.row_idx, coo.col_idx, coo.values, A.shape[0],
+                        min_tiles)
+
+
+def _wcoo_layout(rows: np.ndarray, col_ids: np.ndarray,
+                 values: np.ndarray, m: int, min_tiles: int = 0) -> dict:
+    """Tile one entry class (rows must be ascending)."""
+    nnz = len(rows)
+
+    # --- greedy tiling: <= TILE nnz per tile, all rows inside the
+    # 128-aligned window of depth WINDOW anchored at the tile's first row
+    if nnz:
+        # limit[i]: first j whose row leaves the window anchored at i
+        anchors = ((rows >> 7) + WINDOW // 128) * 128
+        limit = np.searchsorted(rows, anchors, side="left")
+        starts = []
+        i = 0
+        while i < nnz:
+            starts.append(i)
+            i = min(i + TILE, int(limit[i]))
+        starts = np.asarray(starts, dtype=np.int64)
+    else:
+        starts = np.zeros(1, dtype=np.int64)
+    T_real = len(starts)
+    T = max(T_real, int(min_tiles))
+    ends = np.concatenate([starts[1:], [nnz]])
+    counts = np.pad(ends - starts, (0, T - T_real))
+
+    # --- scatter nnz into (T, TILE) slots
+    slot_tile = np.repeat(np.arange(T), counts)
+    slot_pos = np.arange(nnz) - np.repeat(starts, counts[:T_real])
+    vals = np.zeros((T, TILE), dtype=values.dtype)
+    xblk = np.zeros((T, TILE), dtype=np.int64)
+    lane = np.zeros((T, TILE), dtype=np.int64)
+    relrow = np.zeros((T, TILE), dtype=np.int64)
+    window = np.zeros(T, dtype=np.int64)
+    if nnz:
+        window[:T_real] = (rows[starts] // 128) * 128
+        # pad tiles (min_tiles) anchor at the LAST real window, keeping
+        # the tile->window sequence monotone
+        window[T_real:] = window[T_real - 1]
+        vals[slot_tile, slot_pos] = values
+        xblk[slot_tile, slot_pos] = col_ids >> 7
+        lane[slot_tile, slot_pos] = col_ids & 127
+        relrow[slot_tile, slot_pos] = rows - window[slot_tile]
+    assert relrow.max(initial=0) < WINDOW
+
+    # --- two 128-row halves per tile, in tile order
+    half_ids = np.stack([window // 128, window // 128 + 1],
+                        axis=1).reshape(-1)          # (2T,)
+    m_pad = _round_up(max(m, 1), 128)
+    n_row_blocks = m_pad // 128 + 1  # +1: windows may overhang the edge
+
+    return {
+        "xblk": xblk.reshape(-1).astype(np.int32),
+        "lane": lane.reshape(-1).astype(np.int32),
+        "vals": vals.reshape(-1),
+        "relrow": relrow.astype(np.int32),
+        "half_ids": half_ids.astype(np.int32),
+        "n_tiles": T,
+        "n_row_blocks": n_row_blocks,
+    }
+
+
+def _x_blocks(plan: WcooPlan, x: torch.Tensor) -> torch.Tensor:
+    """x zero-padded to whole 128-lane blocks, viewed (n_pad/128, 128)."""
+    n_pad = _round_up(plan.shape[1], 128)
+    return torch.nn.functional.pad(x, (0, n_pad - x.shape[0])).reshape(
+        -1, 128)
+
+
+def _gathered_contrib(plan: WcooPlan, x: torch.Tensor) -> torch.Tensor:
+    """contrib[i] = vals[i] * x[cols[i]], one (xblk, lane) gather."""
+    return plan.vals * _x_blocks(plan, x)[plan.xblk, plan.lane]
+
+
+def _row_ids(wb: torch.Tensor, relrow: torch.Tensor) -> torch.Tensor:
+    """(T*TILE,) absolute output row of every slot (int64)."""
+    return (wb.long()[:, None] * 128 + relrow).reshape(-1)
+
+
+def _window_reduce(plan: WcooPlan, contrib: torch.Tensor) -> torch.Tensor:
+    """(T*TILE,) contributions -> (n_row_blocks*128,) y."""
+    return torch.zeros(plan.n_row_blocks * 128, dtype=contrib.dtype,
+                       device=contrib.device).index_add_(
+                           0, _row_ids(plan.wb, plan.relrow), contrib)
+
+
+def spmv_wcoo(plan: WcooPlan, x: torch.Tensor, alpha, beta,
+              y: torch.Tensor) -> torch.Tensor:
+    m = plan.shape[0]
+    ax = _window_reduce(plan, _gathered_contrib(plan, x))[:m]
+    return beta * y + alpha * ax
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3 and the SpMM
+# ---------------------------------------------------------------------------
+
+def window_reduce_plain(tstart, wb, relrow, vals, xblk, lane, B, k0: int,
+                        width: int) -> torch.Tensor:
+    """Plain PyTorch K3: (nb*128, width) rows of A @ B[:, k0:k0+width]
+    on the plan's padded row grid, nb = len(tstart) - 1: every slot adds
+    vals * B[xblk*128 + lane, k0:k0+width] into row wb*128 + relrow."""
+    nb = tstart.shape[0] - 1
+    cols = xblk.long() * 128 + lane
+    contrib = vals[:, None] * torch.index_select(B[:, k0:k0 + width], 0,
+                                                 cols)
+    return torch.zeros((nb * 128, width), dtype=vals.dtype,
+                       device=vals.device).index_add_(
+                           0, _row_ids(wb, relrow), contrib)
+
+
+def window_reduce(tstart, wb, relrow, vals, xblk, lane, B, k0: int,
+                  width: int) -> torch.Tensor:
+    """Windowed reduce (see `window_reduce_plain`).  CPU tensors take the
+    plain version; CUDA tensors launch kernel K3 or raise."""
+    if vals.device.type == "cpu":
+        return window_reduce_plain(tstart, wb, relrow, vals, xblk, lane, B,
+                                   k0, width)
+    from ..utils.errors import KernelError, require
+    dev = vals.device
+    require(dev.type == "cuda", KernelError,
+            f"window_reduce runs on cpu or cuda, not {dev}")
+    sfx = _kernels.value_suffix(vals.dtype)
+    T = wb.shape[0]
+    nb = tstart.shape[0] - 1
+    require(B.dim() == 2 and 0 <= k0 and k0 + width <= B.shape[1],
+            KernelError, f"columns {k0}:{k0 + width} out of B "
+            f"{tuple(B.shape)}")
+    _kernels.check_operand(tstart, "tstart", torch.int32, (nb + 1,), dev)
+    _kernels.check_operand(wb, "wb", torch.int32, (T,), dev)
+    _kernels.check_operand(relrow, "relrow", torch.int32, (T, TILE), dev)
+    _kernels.check_operand(vals, "vals", vals.dtype, (T * TILE,), dev)
+    _kernels.check_operand(xblk, "xblk", torch.int32, (T * TILE,), dev)
+    _kernels.check_operand(lane, "lane", torch.int32, (T * TILE,), dev)
+    _kernels.check_operand(B, "B", vals.dtype, tuple(B.shape), dev)
+    out = torch.empty((nb * 128, width), dtype=vals.dtype, device=dev)
+    _kernels.launch(f"sblas_window_reduce_{sfx}", dev, tstart, wb, relrow,
+                    vals, xblk, lane, B, out, nb, B.shape[1], k0, width)
+    window_reduce.launches += 1
+    return out
+
+
+window_reduce.launches = 0   # K3 launches since the last reset
+
+
+def k_chunk_width(n_tiles: int, k: int) -> int:
+    """The JAX package's K-chunk width: bounded by `_K_CHUNK_MAX` and by
+    `_K_BUDGET_ELEMS` over the slot count."""
+    return max(min(k, _K_CHUNK_MAX,
+                   _K_BUDGET_ELEMS // max(n_tiles * TILE, 1)), 1)
+
+
+def _window_reduce_range(plan: WcooPlan, B: torch.Tensor, k0: int,
+                         k1: int) -> torch.Tensor:
+    """One K-chunk: (n_row_blocks*128, k1-k0) rows of A @ B[:, k0:k1]."""
+    return window_reduce(plan.tstart, plan.wb, plan.relrow, plan.vals,
+                         plan.xblk, plan.lane, B, k0, k1 - k0)
+
+
+def spmm_wcoo(plan: WcooPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
+              k_chunk: int = None) -> torch.Tensor:
+    """C' = beta*C + alpha*A@B: one K3 launch per K-chunk of width
+    `k_chunk` (default: the JAX package's choice)."""
+    m, k = plan.shape[0], B.shape[1]
+    B = B.to(plan.dtype).contiguous()
+    kc = k_chunk or k_chunk_width(plan.n_tiles, k)
+    outs = [_window_reduce_range(plan, B, k0, min(k0 + kc, k))[:m]
+            for k0 in range(0, max(k, 1), kc)]
+    ab = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return beta * C + alpha * ab

@@ -114,6 +114,16 @@ def host_time_ms(fn: Callable[[], object], *, warmup: int = 1,
     return float(np.median(ts))
 
 
+def spmv_flops(nnz: int) -> int:
+    """FLOPs of y = beta*y + alpha*A@x: 2 per nnz (the O(m) epilogue is
+    left out, as in common SpMV accounting)."""
+    return 2 * nnz
+
+
+def spmm_flops(nnz: int, k: int) -> int:
+    return 2 * nnz * k
+
+
 def gflops(flops: int, ms: float) -> float:
     return flops / (ms * 1e-3) / 1e9 if ms > 0 else float("inf")
 

@@ -1,0 +1,156 @@
+"""Port parity: the BELL plan and its ops, and kernel K4's plain version,
+against `sblas_tpu.ops.bsr` and `sblas_tpu.ops.bsr_pallas` (whose Pallas
+kernel runs in interpret mode on the CPU, as tests/test_bsr_pallas.py
+runs it).
+
+Plan arrays are byte-identical.  Sums run in another order (batched
+matmuls, einsum), so f64 results agree to 1e-12 relative; f32 results
+meet the numpy oracle at the reference's 1e-3."""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sblas_tpu.containers import DenseMatrix as JDenseMatrix
+from sblas_tpu.containers import DenseVector as JDenseVector
+from sblas_tpu.io import generate as jgen
+from sblas_tpu.ops import bsr as jb
+from sblas_tpu.ops.bsr_pallas import spmm_bsr_pallas as j_spmm_bsr_pallas
+from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
+import sblas_tpu_torch.ops as tops
+from sblas_tpu_torch.containers import CsrMatrix
+from sblas_tpu_torch.ops import bsr as tb
+from sblas_tpu_torch.ops import bsr_pallas as tbp
+from sblas_tpu_torch.utils.errors import KernelError
+from sblas_tpu_torch.utils.verify import check_equal
+
+MATRICES = {
+    "banded": lambda: jgen.fem_banded_like(n=700, half_band=9),
+    "blocky": lambda: jgen.uniform_random(300, 260, nnz_per_row=5, seed=3),
+    "tiny": lambda: jgen.uniform_random(5, 7, 2, seed=4),
+    "skew": lambda: jgen.adversarial_skew(m=96, n=96, heavy_rows=1,
+                                          heavy_nnz=64, light_nnz=1),
+}
+ALPHA, BETA = 3.0, 4.0
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix(name):
+    return MATRICES[name]()
+
+
+def _port(A):
+    return CsrMatrix(A.row_ptr, A.col_idx, A.values, A.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _plans(name, block=(128, 128)):
+    A = _matrix(name)
+    return (jb.BsrPlan.from_csr(A, dtype=jnp.float64, block=block),
+            tb.BsrPlan.from_csr(_port(A), dtype=torch.float64, block=block,
+                                device="cpu"))
+
+
+@pytest.mark.parametrize("block", [(128, 128), (8, 128), (16, 64)])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_plan_arrays_match_jax_and_round_trip(name, block):
+    jp, tp = _plans(name, block)
+    fields = {"vals": np.asarray(jp.vals), "bcol": np.asarray(jp.bcol)}
+    for f, want in fields.items():
+        got = getattr(tp, f).numpy()
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    assert tp.slots == jp.slots and tp.blowup == pytest.approx(jp.blowup)
+    assert tb.bell_stats(_port(_matrix(name)), block) == jb.bell_stats(
+        _matrix(name), block)
+    back = tb.BsrPlan.from_numpy(fields, dict(shape=jp.shape, nnz=jp.nnz,
+                                              block=jp.block), "cpu")
+    assert torch.equal(back.vals, tp.vals) and back.block == tuple(block)
+
+
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_spmm_spmv_bsr_match_jax_f64(name):
+    A = _matrix(name)
+    jp, tp = _plans(name)
+    B = JDenseMatrix.random(A.width, 12)
+    C = JDenseMatrix.constant(A.height, 12, 1.0)
+    x = JDenseVector.random(A.width)
+    y = JDenseVector.constant(A.height, 1.0)
+    want = np.asarray(jb.spmm_bsr(jp, jnp.asarray(B.values), ALPHA, BETA,
+                                  jnp.asarray(C.values)))
+    got = tb.spmm_bsr(tp, torch.from_numpy(B.values), ALPHA, BETA,
+                      torch.from_numpy(C.values)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert check_equal(got, spmm_cpu(A, B, ALPHA, BETA, C)).ok
+    wv = np.asarray(jb.spmv_bsr(jp, jnp.asarray(x.values), ALPHA, BETA,
+                                jnp.asarray(y.values)))
+    gv = tb.spmv_bsr(tp, torch.from_numpy(x.values), ALPHA, BETA,
+                     torch.from_numpy(y.values)).numpy()
+    np.testing.assert_allclose(gv, wv, rtol=1e-12, atol=1e-12)
+    assert check_equal(gv, spmv_cpu(A, x, ALPHA, BETA, y)).ok
+
+
+@pytest.mark.parametrize("name,k,alpha,beta", [
+    ("banded", 17, 3.0, 4.0), ("banded", 17, 2.5, 0.0),
+    ("blocky", 33, 3.0, 4.0)])
+def test_k4_plain_matches_pallas_kernel(name, k, alpha, beta):
+    """Kernel K4's plain version against the JAX package's Pallas kernel
+    (interpret mode), f64."""
+    A = _matrix(name)
+    jp, tp = _plans(name)
+    B = JDenseMatrix.random(A.width, k)
+    C = JDenseMatrix.random(A.height, k)
+    want = np.asarray(j_spmm_bsr_pallas(jp, jnp.asarray(B.values), alpha,
+                                        beta, jnp.asarray(C.values)))
+    tbp.bell_spmm.launches = 0
+    got = tbp.spmm_bsr_pallas(tp, torch.from_numpy(B.values), alpha, beta,
+                              torch.from_numpy(C.values)).numpy()
+    assert tbp.bell_spmm.launches == 0        # the CPU runs no kernel
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    plain = tbp.bell_spmm_plain(tp.vals, tp.bcol, torch.from_numpy(B.values),
+                                torch.from_numpy(C.values), alpha, beta)
+    np.testing.assert_array_equal(plain.numpy(), got)
+
+
+def test_k4_plain_f32_meets_oracle():
+    A = _matrix("banded").astype(np.float32)
+    plan = tb.BsrPlan.from_csr(_port(A), dtype=torch.float32, device="cpu")
+    B = JDenseMatrix.random(A.width, 256, dtype=np.float32)
+    C = JDenseMatrix.constant(A.height, 256, 1.0, dtype=np.float32)
+    got = tbp.spmm_bsr_pallas(plan, torch.from_numpy(B.values), ALPHA, BETA,
+                              torch.from_numpy(C.values))
+    assert got.dtype == torch.float32
+    assert check_equal(got.numpy(), spmm_cpu(A, B, ALPHA, BETA, C),
+                       relative=True).ok
+
+
+@pytest.mark.parametrize("k", [255, 256])
+def test_dispatcher_takes_bsr_on_cpu_at_any_k(k):
+    """The K4 gate is K >= 256 *and* B on CUDA, as the JAX package's is
+    K >= 256 and a TPU backend: on the CPU both take `spmm_bsr`."""
+    A = _matrix("banded")
+    plan = tops.make_plan(_port(A), dtype=torch.float64, op="spmm",
+                          device="cpu")
+    assert isinstance(plan, tops.BsrPlan)
+    B = JDenseMatrix.random(A.width, k)
+    tbp.bell_spmm.launches = 0
+    got = tops.spmm(plan, torch.from_numpy(B.values), 2.0).numpy()
+    assert tbp.bell_spmm.launches == 0
+    want = np.asarray(jb.spmm_bsr(_plans("banded")[0], jnp.asarray(B.values),
+                                  2.0, 0.0, jnp.zeros((A.height, k))))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_k4_wrapper_refuses_a_non_cuda_device():
+    _, tp = _plans("banded")
+    B = torch.zeros((tp.shape[1], 4), dtype=torch.float64)
+    C = torch.zeros((tp.shape[0], 4), dtype=torch.float64)
+    with pytest.raises(KernelError, match="cpu or cuda"):
+        tbp.bell_spmm(tp.vals.to("meta"), tp.bcol.to("meta"), B.to("meta"),
+                      C.to("meta"), 1.0, 0.0)
+
+
+def test_true_f32_check_is_for_cuda_only():
+    tb.require_true_f32(torch.zeros(2, dtype=torch.float32))   # no raise

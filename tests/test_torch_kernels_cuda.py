@@ -110,3 +110,156 @@ def test_spmv_routed_on_card_matches_cpu(dev, dtype, np_dtype):
     torch.testing.assert_close(spmv(coo, x.to(dev), 3.0, 4.0,
                                     y.to(dev)).cpu(), want,
                                rtol=tol, atol=tol)
+
+
+# ---- K3 (window_reduce) and K4 (bell_spmm) ----
+
+def _wcoo_plan(dev, dtype, n=20_000, seed=5):
+    from sblas_tpu_torch.ops.wcoo import WcooPlan
+    A = webbase_like(n=n, avg_deg=4.0, seed=seed,
+                     dtype=np.float64 if dtype == torch.float64 else
+                     np.float32)
+    return A, WcooPlan.from_csr(A, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k,k0,width", [(20_000, 64, 0, 64),
+                                          (3_000, 45, 13, 31),
+                                          (200_000, 64, 0, 64)])
+def test_window_reduce_kernel_matches_plain(dev, dtype, n, k, k0, width):
+    from sblas_tpu_torch.ops import wcoo as tw
+    _, plan = _wcoo_plan(dev, dtype, n=n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    B = torch.rand((plan.shape[1], k), generator=g, device=dev, dtype=dtype)
+    args = (plan.tstart, plan.wb, plan.relrow, plan.vals, plan.xblk,
+            plan.lane, B, k0, width)
+    before = tw.window_reduce.launches
+    got = tw.window_reduce(*args)
+    again = tw.window_reduce(*args)
+    torch.cuda.synchronize()
+    assert tw.window_reduce.launches == before + 2
+    assert torch.equal(got, again)            # deterministic: no atomics
+    want = tw.window_reduce_plain(*args)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 256),
+                                           (20_000, 36, 300)])
+def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=n, half_band=half_band)
+    plan = BsrPlan.from_csr(A, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    B = torch.rand((n, k), generator=g, device=dev, dtype=dtype)
+    C = torch.rand((n, k), generator=g, device=dev, dtype=dtype)
+    args = (plan.vals, plan.bcol, B, C, 3.0, 4.0)
+    before = tb.bell_spmm.launches
+    got = tb.bell_spmm(*args)
+    again = tb.bell_spmm(*args)
+    torch.cuda.synchronize()
+    assert tb.bell_spmm.launches == before + 2
+    assert torch.equal(got, again)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, tb.bell_spmm_plain(*args), rtol=tol,
+                               atol=tol)
+
+
+def test_bell_spmm_gate_on_k(dev):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops import spmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=1000, half_band=9)
+    plan = make_plan(A, dtype=torch.float64, op="spmm", device=dev)
+    for k, launches in ((255, 0), (256, 1)):
+        B = torch.rand((1000, k), device=dev, dtype=torch.float64)
+        tb.bell_spmm.launches = 0
+        out = spmm(plan, B, 2.0)
+        torch.cuda.synchronize()
+        assert tb.bell_spmm.launches == launches
+        want = spmm(plan.to("cpu"), B.cpu(), 2.0)
+        torch.testing.assert_close(out.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_bell_path_refuses_tf32(dev):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import spmm
+    A = fem_banded_like(n=1000, half_band=9)
+    plan = make_plan(A, dtype=torch.float32, op="spmm", device=dev)
+    B = torch.rand((1000, 8), device=dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(KernelError, match="TF32"):
+            spmm(plan, B)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_k3_k4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops import wcoo as tw
+    _, plan = _wcoo_plan(dev, torch.float32, n=3000)
+    B = torch.rand((plan.shape[1], 8), device=dev)
+    args = [plan.tstart, plan.wb, plan.relrow, plan.vals, plan.xblk,
+            plan.lane, B, 0, 8]
+    for i, bad in ((6, B.cpu()), (6, B.double()),
+                   (6, torch.rand((8, plan.shape[1]), device=dev).t()),
+                   (4, plan.xblk.long())):
+        with pytest.raises(KernelError):
+            tw.window_reduce(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(KernelError):
+        tw.window_reduce(*args[:7], 4, 8)          # columns past B's width
+    with pytest.raises(ShapeError):
+        tw.window_reduce(*args[:2], plan.relrow[:-1], *args[3:])
+    vals = torch.zeros((2, 1, 128, 128), device=dev)
+    bcol = torch.zeros((2, 1), device=dev, dtype=torch.int32)
+    Bb = torch.zeros((256, 4), device=dev)
+    Cb = torch.zeros((200, 4), device=dev)
+    for bad in ((vals, bcol, Bb.cpu(), Cb), (vals, bcol, Bb, Cb.double()),
+                (vals, bcol.long(), Bb, Cb),
+                (vals, bcol, torch.zeros((4, 256), device=dev).t(), Cb),
+                (vals[:, :, :64, :64].contiguous(), bcol, Bb, Cb),
+                (vals, bcol, Bb, Cb[:100])):
+        with pytest.raises((KernelError, ShapeError)):
+            tb.bell_spmm(*bad, 1.0, 0.0)
+
+
+@pytest.mark.parametrize("dtype,np_dtype", [(torch.float64, np.float64),
+                                            (torch.float32, np.float32)])
+def test_spmm_paths_on_card_match_cpu(dev, dtype, np_dtype):
+    """Each SpMM plan kind on the card against the same plan on the CPU
+    (plain versions), with the launch counts of the kernels on each."""
+    from sblas_tpu_torch.containers import DenseMatrix
+    from sblas_tpu_torch.io.generate import fem_banded_like, fem_shell_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops import spmm
+    from sblas_tpu_torch.ops import wcoo as tw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cases = [(webbase_like(n=50_000, avg_deg=4.0, dtype=np_dtype), "wcoo",
+              64, (1, 0)),
+             (fem_banded_like(n=5000, dtype=np_dtype), "bsr", 256, (0, 1)),
+             (fem_shell_like(nx=40, ny=20, n_target=4800, dtype=np_dtype), "dia", 64,
+              (0, 0)),
+             (webbase_like(n=5000, dtype=np_dtype), "ell", 16, (0, 0)),
+             (webbase_like(n=5000, dtype=np_dtype), "coo", 16, (0, 0))]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for A, kind, k, (k3, k4) in cases:
+        plan = make_plan(A, dtype=dtype, force=kind, device="cpu")
+        B = torch.from_numpy(DenseMatrix.random(A.width, k,
+                                                dtype=np_dtype).values)
+        C = torch.ones((A.height, k), dtype=dtype)
+        want = spmm(plan, B, 3.0, 4.0, C)
+        tw.window_reduce.launches = tb.bell_spmm.launches = 0
+        got = spmm(plan.to(dev), B.to(dev), 3.0, 4.0, C.to(dev)).cpu()
+        assert (tw.window_reduce.launches, tb.bell_spmm.launches) == (k3, k4)
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol * scale, kind

@@ -26,8 +26,7 @@ from sblas_tpu_torch.config import SBlasConfig as TConfig
 from sblas_tpu_torch.containers import CsrMatrix, DenseVector
 from sblas_tpu_torch.io import generate as tgen
 from sblas_tpu_torch.io.mmio import read_csr_arrays, write_mtx
-from sblas_tpu_torch.utils.errors import (KernelError, NotPortedError,
-                                          PlanError)
+from sblas_tpu_torch.utils.errors import KernelError, NotPortedError
 from sblas_tpu_torch.utils.timing import (device_time_ms, gflops, nnz_per_s,
                                           wall_time_ms)
 from sblas_tpu_torch.utils.verify import check_equal
@@ -53,18 +52,16 @@ def _port(A):
 
 
 @pytest.mark.parametrize("name", list(MATRICES))
-@pytest.mark.parametrize("op", ["spmv", None])
+@pytest.mark.parametrize("op", ["spmv", None, "spmm"])
 def test_make_plan_chooses_like_jax(name, op):
+    """Every kind is built now: the port's plan is the JAX package's
+    kind, on the CPU, in the requested dtype."""
     A = MATRICES[name]()
     kind = _KIND[type(jops.make_plan(A, dtype=jnp.float64, op=op)).__name__]
-    if kind in ("routed", "coo"):
-        plan = tops.make_plan(_port(A), dtype=torch.float64, op=op,
-                              device="cpu")
-        assert _KIND[type(plan).__name__] == kind
-    else:
-        with pytest.raises(PlanError, match=repr(kind)):
-            tops.make_plan(_port(A), dtype=torch.float64, op=op,
-                           device="cpu")
+    plan = tops.make_plan(_port(A), dtype=torch.float64, op=op,
+                          device="cpu")
+    assert _KIND[type(plan).__name__] == kind
+    assert plan.dtype == torch.float64 and plan.device.type == "cpu"
 
 
 def test_slice_matrix_plans_routed():
@@ -127,13 +124,6 @@ def test_coo_plan_to_moves_every_tensor():
     moved = tp.to("meta")
     assert moved.device.type == "meta" and moved.shape == tp.shape
     assert {t.device.type for t in (moved.rows, moved.cols)} == {"meta"}
-
-
-def test_spmm_not_ported():
-    tp = tops.make_plan(_port(MATRICES["tiny"]()), force="coo",
-                        device="cpu")
-    with pytest.raises(PlanError, match="spmm"):
-        tops.spmm(tp, torch.zeros(85, 4))
 
 
 @pytest.mark.parametrize("gen,kwargs", [
@@ -233,6 +223,8 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import sblas_tpu_torch, sblas_tpu_torch.ops\n"
             "import sblas_tpu_torch.cli.spmv_test\n"
+            "import sblas_tpu_torch.cli.spmm_test\n"
+            "import sblas_tpu_torch.tools.k3_skew\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'sblas_tpu.')) "
             "or m == 'sblas_tpu')\n"

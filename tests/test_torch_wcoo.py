@@ -1,0 +1,198 @@
+"""Port parity: the windowed-COO plan, its SpMV, and kernel K3's plain
+version, against `sblas_tpu.ops.wcoo` (whose Pallas reduce runs in
+interpret mode on the CPU, as tests/test_wcoo.py runs it).
+
+Plan arrays are byte-identical; `tstart`, the port's per-block tile
+ranges, is checked against `wb` directly.  The JAX package reduces with
+one-hot matmuls, the port with `index_add_`, so f64 results agree to
+1e-12 relative; f32 results meet the numpy oracle at the reference's
+1e-3."""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sblas_tpu.containers import CooMatrix as JCooMatrix
+from sblas_tpu.containers import DenseMatrix as JDenseMatrix
+from sblas_tpu.containers import DenseVector as JDenseVector
+from sblas_tpu.io import generate as jgen
+from sblas_tpu.ops import wcoo as jw
+from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
+import sblas_tpu_torch.ops as tops
+from sblas_tpu_torch.containers import CsrMatrix
+from sblas_tpu_torch.ops import wcoo as tw
+from sblas_tpu_torch.utils.verify import check_equal
+
+
+def _gappy():
+    """nnz separated by large empty-row gaps: forces tile splits."""
+    rng = np.random.RandomState(3)
+    m = 10_000
+    rows = np.sort(rng.choice(m, size=60, replace=False)).astype(np.int64)
+    cols = rng.randint(0, m, size=60).astype(np.int64)
+    return JCooMatrix(rows, cols, rng.randn(60), (m, m)).to_csr()
+
+
+def _one_window():
+    """~40 tiles, all in the first window: long accumulation runs."""
+    rng = np.random.RandomState(3)
+    rows = rng.randint(0, 128, size=5000).astype(np.int64)
+    cols = rng.randint(0, 2048, size=5000).astype(np.int64)
+    return JCooMatrix(rows, cols, rng.random_sample(5000),
+                      (256, 2048)).to_csr()
+
+
+MATRICES = {
+    "web": lambda: jgen.webbase_like(n=2000, avg_deg=3.0),
+    "uniform": lambda: jgen.uniform_random(300, 250, 4, seed=5),
+    "skew": lambda: jgen.adversarial_skew(m=256, n=200, heavy_rows=2,
+                                          heavy_nnz=300, light_nnz=1),
+    "gappy": _gappy,
+    "one_window": _one_window,
+}
+ALPHA, BETA = 3.0, 4.0
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix(name):
+    return MATRICES[name]()
+
+
+def _port(A):
+    return CsrMatrix(A.row_ptr, A.col_idx, A.values, A.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _plans(name, min_tiles=0):
+    A = _matrix(name)
+    return (jw.WcooPlan.from_csr(A, dtype=jnp.float64, min_tiles=min_tiles),
+            tw.WcooPlan.from_csr(_port(A), dtype=torch.float64,
+                                 min_tiles=min_tiles, device="cpu"))
+
+
+_FIELDS = ("xblk", "lane", "vals", "relrow", "half_ids", "wb", "visit0",
+           "visit1")
+
+
+@pytest.mark.parametrize("min_tiles", [0, 7])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_plan_arrays_match_jax_and_round_trip(name, min_tiles):
+    jp, tp = _plans(name, jw.wcoo_tile_count(_matrix(name)) + min_tiles
+                    if min_tiles else 0)
+    fields = {f: np.asarray(getattr(jp, f)) for f in _FIELDS}
+    for f, want in fields.items():
+        got = getattr(tp, f).numpy()
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
+    assert (tp.n_tiles, tp.n_row_blocks) == (jp.n_tiles, jp.n_row_blocks)
+    assert tp.fill_ratio == jp.fill_ratio
+    assert tw.wcoo_tile_count(_port(_matrix(name))) == jw.wcoo_tile_count(
+        _matrix(name))
+    # tstart: the tiles touching block b are exactly [tstart[b-1],
+    # tstart[b+1]) -- those whose window covers b
+    wb = fields["wb"]
+    ts = tp.tstart.numpy()
+    for b in range(tp.n_row_blocks):
+        touch = np.flatnonzero((wb == b) | (wb == b - 1))
+        lo = ts[b - 1] if b else 0
+        assert np.array_equal(touch, np.arange(lo, ts[b + 1]))
+    meta = dict(shape=jp.shape, nnz=jp.nnz, n_tiles=jp.n_tiles,
+                n_row_blocks=jp.n_row_blocks)
+    back = tw.WcooPlan.from_numpy(fields, meta, "cpu")
+    assert torch.equal(back.tstart, tp.tstart)
+    assert torch.equal(back.relrow, tp.relrow)
+
+
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_spmv_wcoo_matches_jax(name):
+    A = _matrix(name)
+    jp, tp = _plans(name)
+    x = JDenseVector.random(A.width)
+    y = JDenseVector.constant(A.height, 1.0)
+    want = np.asarray(jw.spmv_wcoo(jp, jnp.asarray(x.values), ALPHA, BETA,
+                                   jnp.asarray(y.values)))
+    got = tops.spmv(tp, torch.from_numpy(x.values), ALPHA, BETA,
+                    torch.from_numpy(y.values)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert check_equal(got, spmv_cpu(A, x, ALPHA, BETA, y)).ok
+
+
+@pytest.mark.parametrize("name,k,k_chunk,min_tiles", [
+    ("web", 10, 4, 0),           # ragged last chunk: 4, 4, 2
+    ("skew", 8, None, 0),
+    ("one_window", 16, None, 0),
+    ("uniform", 8, None, 7),     # min_tiles pad tiles at the last window
+])
+def test_spmm_wcoo_matches_jax(name, k, k_chunk, min_tiles):
+    """K3's plain version through `spmm_wcoo` against the JAX package's
+    Pallas window reduce (interpret mode), f64; chunking as the JAX
+    package chunks."""
+    A = _matrix(name)
+    extra = jw.wcoo_tile_count(A) + min_tiles if min_tiles else 0
+    jp, tp = _plans(name, extra)
+    B = JDenseMatrix.random(A.width, k)
+    C = JDenseMatrix.constant(A.height, k, 1.0)
+    want = np.asarray(jw.spmm_wcoo(jp, jnp.asarray(B.values), ALPHA, BETA,
+                                   jnp.asarray(C.values), k_chunk=k_chunk))
+    tw.window_reduce.launches = 0
+    got = tw.spmm_wcoo(tp, torch.from_numpy(B.values), ALPHA, BETA,
+                       torch.from_numpy(C.values), k_chunk=k_chunk).numpy()
+    assert tw.window_reduce.launches == 0        # the CPU runs no kernel
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert check_equal(got, spmm_cpu(A, B, ALPHA, BETA, C)).ok
+
+
+def test_k3_plain_matches_window_reduce_range():
+    """`window_reduce_plain` on one column chunk against the JAX package's
+    `_window_reduce_range` fed the gathered B rows it takes, f64."""
+    A = _matrix("one_window")
+    jp, tp = _plans("one_window")
+    k, k0, kc = 12, 5, 4
+    B = JDenseMatrix.random(A.width, k).values
+    cols = np.asarray(jp.xblk) * 128 + np.asarray(jp.lane)
+    gathered = jnp.asarray(B[cols, k0:k0 + kc])
+    want = np.asarray(jw._window_reduce_range(
+        jp.wb, jp.vals, jp.relrow, jp.visit0, jp.visit1, gathered, kc,
+        jp.n_row_blocks)).reshape(-1, kc)
+    got = tw.window_reduce_plain(tp.tstart, tp.wb, tp.relrow, tp.vals,
+                                 tp.xblk, tp.lane, torch.from_numpy(B), k0,
+                                 kc)
+    assert got.shape == (tp.n_row_blocks * 128, kc)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n_tiles,k", [(1, 64), (6417, 64), (6417, 4096),
+                                       (600_000, 64), (10, 2000)])
+def test_k_chunk_width_is_jax_choice(n_tiles, k):
+    """Same chunk width, so K3 launches as often as the JAX package's
+    Pallas reduce runs."""
+    want = max(min(k, jw._K_CHUNK_MAX,
+                   jw._K_BUDGET_ELEMS // max(n_tiles * jw.TILE, 1)), 1)
+    assert tw.k_chunk_width(n_tiles, k) == want
+
+
+def test_f32_meets_oracle_and_dispatch():
+    A = jgen.webbase_like(n=3000, avg_deg=3.0, dtype=np.float32)
+    plan = tops.make_plan(_port(A), dtype=torch.float32, device="cpu")
+    assert isinstance(plan, tops.WcooPlan) and plan.dtype == torch.float32
+    B = JDenseMatrix.random(A.width, 24, dtype=np.float32)
+    C = JDenseMatrix.constant(A.height, 24, 1.0, dtype=np.float32)
+    got = tops.spmm(plan, torch.from_numpy(B.values), ALPHA, BETA,
+                    torch.from_numpy(C.values))
+    assert got.dtype == torch.float32
+    assert check_equal(got.numpy(), spmm_cpu(A, B, ALPHA, BETA, C),
+                       relative=True).ok
+
+
+def test_empty_matrix():
+    A = CsrMatrix(np.zeros(11, np.int64), np.zeros(0, np.int64),
+                  np.zeros(0), (10, 10))
+    plan = tw.WcooPlan.from_csr(A, dtype=torch.float64, device="cpu")
+    got = tw.spmv_wcoo(plan, torch.ones(10, dtype=torch.float64), 3.0, 4.0,
+                       torch.full((10,), 2.0, dtype=torch.float64))
+    np.testing.assert_allclose(got.numpy(), 8.0)
+    out = tw.spmm_wcoo(plan, torch.ones((10, 3), dtype=torch.float64), 3.0,
+                       4.0, torch.full((10, 3), 2.0, dtype=torch.float64))
+    np.testing.assert_allclose(out.numpy(), 8.0)
