@@ -16,12 +16,26 @@ then runs every main path at full size, counting kernel launches on each:
         (batched matmuls, no K4)
     SpMV over DiaPlan (shell) and BsrPlan (band-73), after each SpMM
 
-each checked against the numpy oracle, and the single-device SpMV and
-SpMM CLIs on a 200k-row `.mtx`.  Each phase prints one line; any failure
-raises and the script exits non-zero.  The line before the last is the
-card's name and power limit, the one before that the kernels' JSON
-record; the last line is the device JSON.  Without a CUDA device it exits
-1 and prints no result.  Imports no JAX.
+and the distribution layer in a world-1 NCCL group:
+
+    [dist] webbase_like() -> partition_row_plans(A, 1, op="spmv") (routed
+        shards) -> spmv_dist_planned, psum and psum_scatter (K1, K2'),
+        spmv_dist over nnz-balanced COO segments, spmv_dist_hier at 1x1
+    [k2p] K2' against its plain version at the world-1 shard's tables and
+        at one 4-way shard's
+    [shards4] the same matrix cut 4 ways, each rank's compute run on the
+        card (K2' 4 times), partials placed and summed
+    [spmm-dist] webbase x K=64: spmm_mode2_planned over WCOO shards (K3)
+        and spmm_mode1 over the WcooPlan; shell x K=64: spmm_mode2_planned
+        over DIA shards, spmm_mode2, spmm_halo_planned, spmm_mode2_hier
+
+each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
+200k-row `.mtx` (single mode, method 1, --mode distp, method 2p).  Each
+phase prints one line; any failure raises and the script exits non-zero.
+The line before the last is the card's name and power limit, the one
+before that the kernels' JSON record, before that the script's seconds;
+the last line is the device JSON.  Without a CUDA device it exits 1 and
+prints no result.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -164,12 +178,16 @@ def sparse_csr(A, dev):
         device=dev, check_invariants=False)
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
               file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
     # true f32 for every float32 product (the BELL path raises otherwise)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -190,12 +208,13 @@ def main() -> int:
     from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
                                            lane_shuffle_plain)
     from sblas_tpu_torch.ops.rspmv import (SLAB, RoutedPlan, slab_gather,
-                                           slab_gather_plain)
+                                           slab_gather_plain, tile_gather)
     from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
                                           window_reduce_plain)
 
     counters = {"lane_shuffle": lane_shuffle, "slab_gather": slab_gather,
-                "window_reduce": window_reduce, "bell_spmm": bell_spmm}
+                "tile_gather": tile_gather, "window_reduce": window_reduce,
+                "bell_spmm": bell_spmm}
     none = {name: 0 for name in counters}
 
     # ---- build ----
@@ -291,7 +310,12 @@ def main() -> int:
     phase("tier0 coo", check=checked(
         "COO SpMV", spmv(coo, xd, ALPHA, BETA, yd), want),
           **call_times(lambda: spmv(coo, xd, ALPHA, BETA, yd), A.nnz))
-    del plan, coo, xd, yd, out
+    del plan, coo, out
+
+    # ---- the distribution layer in a world-1 NCCL group ----
+    mesh, mesh2 = nccl_world1(dev)
+    dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none, kernels)
+    del xd, yd
 
     # ---- WCOO SpMM: webbase x K=64 -> WcooPlan -> K3 ----
     K = 64
@@ -332,6 +356,7 @@ def main() -> int:
     phase("wcoo spmm", plan="WcooPlan", K=K, fill=f"{wplan.fill_ratio:.3f}",
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
+    spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
     del wplan, Bd, Cd, out, want, A
 
     # ---- SpMM headline: shell x K=64 -> DiaPlan; tier-0 COO beside it
@@ -355,6 +380,9 @@ def main() -> int:
     phase("tier0 coo spmm", check=checked(
         "COO SpMM", spmm(coo, Bd, ALPHA, BETA, Cd), want),
           **call_times(lambda: spmm(coo, Bd, ALPHA, BETA, Cd), S.nnz, K))
+    spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none)
+    import torch.distributed as dist
+    dist.destroy_process_group()   # the CLIs below make their own groups
     del coo, Bd, Cd, out, want
 
     # ---- SpMV over the DIA plan (shell) ----
@@ -416,7 +444,7 @@ def main() -> int:
     _spmv_phase("bsr spmv", F, fv, BsrPlan, counters, none)
     del bplan, fv, F
 
-    # ---- CLIs on the card: SpMV single mode, SpMM method 1 ----
+    # ---- CLIs on the card: SpMV single and distp, SpMM methods 1, 2p ----
     from sblas_tpu_torch.cli import spmm_test, spmv_test
     from sblas_tpu_torch.io.mmio import write_mtx
     W = webbase_like(n=200_000, dtype=np.float64)
@@ -437,13 +465,35 @@ def main() -> int:
         text, rc = _cli(spmm_test.main, ["1", path, str(K), str(ALPHA),
                                          str(BETA), "1", "f32", "--device",
                                          "cuda"])
+        if rc != 0 or "Validation = True" not in text:
+            raise AssertionError(f"spmm_test method 1 failed (rc={rc}):\n"
+                                 f"{text}")
+        lines = text.splitlines()
+        phase("cli spmm", rc=rc, nnz=W.nnz, K=K, validation=True,
+              plan=next(ln for ln in lines if "plan" in ln).split()[-1],
+              run=next(ln for ln in lines if "run time" in ln).strip(),
+              gflops=next(ln for ln in lines if "GFLOPS" in ln).split()[-1])
+        text, rc = _cli(spmv_test.main, [path, str(ALPHA), str(BETA), "1",
+                                         "f32", "--mode", "distp",
+                                         "--device", "cuda"])
+        if rc != 0 or "Validation = True" not in text or \
+                "kind=routed" not in text:
+            raise AssertionError(f"CLI --mode distp failed (rc={rc}):\n"
+                                 f"{text}")
+        phase("cli distp", rc=rc, nnz=W.nnz, kind="routed", validation=True,
+              run=next(ln for ln in text.splitlines()
+                       if "run time" in ln).strip())
+        text, rc = _cli(spmm_test.main, ["2p", path, str(K), str(ALPHA),
+                                         str(BETA), "1", "f32", "--device",
+                                         "cuda"])
     if rc != 0 or "Validation = True" not in text:
-        raise AssertionError(f"spmm_test method 1 failed (rc={rc}):\n{text}")
+        raise AssertionError(f"spmm_test method 2p failed (rc={rc}):\n{text}")
     lines = text.splitlines()
-    phase("cli spmm", rc=rc, nnz=W.nnz, K=K, validation=True,
-          plan=next(ln for ln in lines if "plan" in ln).split()[-1],
+    phase("cli spmm 2p", rc=rc, nnz=W.nnz, K=K, validation=True,
+          shards=next(ln for ln in lines if "kind=" in ln).strip(),
           run=next(ln for ln in lines if "run time" in ln).strip(),
           gflops=next(ln for ln in lines if "GFLOPS" in ln).split()[-1])
+    phase("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -454,6 +504,237 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def nccl_world1(dev):
+    """A world-1 NCCL group on `dev` (a failed initialisation raises), its
+    mesh and its 1x1 two-tier mesh, built once for every phase (each
+    group holds an NCCL communicator until the group is destroyed)."""
+    from sblas_tpu_torch.cli.common import free_port
+    from sblas_tpu_torch.parallel import (init_distributed, make_mesh,
+                                          make_mesh2)
+    init_distributed(backend="nccl",
+                     init_method=f"tcp://127.0.0.1:{free_port()}",
+                     rank=0, world_size=1, device_id=dev)
+    return make_mesh(1, device=dev), make_mesh2(1, 1, device=dev)
+
+
+def dist_timing(steps: dict, nnz: int) -> None:
+    """[dist timing]: the distributed routed SpMV's compute alone
+    (nocomm), the compute placed in its full-height partial, and the whole
+    call, timed in turns (A B C C B A) so a drift in host speed shows as
+    two readings of one step; then one profiled window of the whole call,
+    per op."""
+    from sblas_tpu_torch.utils.timing import device_time_ms, wall_time_ms
+    reads = {name: [] for name in steps}
+    for name in [*steps, *reversed(steps)]:
+        reads[name].append((wall_time_ms(steps[name], warmup=5, reps=30),
+                            device_time_ms(steps[name], warmup=5, reps=30)))
+    mean = {name: np.mean(r, axis=0) for name, r in reads.items()}
+    for name, r in reads.items():
+        phase("dist timing", step=name,
+              wall_ms=" / ".join(f"{w:.5f}" for w, _ in r),
+              device_ms=" / ".join(f"{d:.5f}" for _, d in r),
+              nnz_per_s=f"{nnz / (mean[name][0] * 1e-3):.4e}")
+    (wall0, dev0), (wall1, dev1), (wall2, dev2) = mean.values()
+    phase("dist timing", placement_device_ms=f"{dev1 - dev0:.5f}",
+          exposed_comm_device_ms=f"{dev2 - dev1:.5f}",
+          exposed_comm_wall_ms=f"{wall2 - wall0:.5f}",
+          idle_share=f"{max(1.0 - dev2 / wall2, 0.0):.3f}")
+    calls, run = 20, list(steps.values())[-1]
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ops = list(prof.key_averages())
+
+    def per_call(key):
+        return sorted(((ev.key, ev.self_cpu_time_total / calls,
+                        getattr(ev, "self_device_time_total", 0.0) / calls)
+                       for ev in ops), key=key)[:5]
+
+    for by, key in (("host", lambda r: -r[1]), ("device", lambda r: -r[2])):
+        phase("dist profile", top5_by=by, calls=calls, ops="; ".join(
+            f"{k}: host_us={h:.1f} device_us={d:.1f}"
+            for k, h, d in per_call(key)))
+
+
+def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
+                kernels) -> None:
+    """[dist], [k2p] and [shards4] on the webbase-1M proxy: the routed
+    per-shard SpMV through K2', the COO-segment mode 2 and the 1x1 hier
+    mode in the world-1 group, then the same matrix cut 4 ways."""
+    from sblas_tpu_torch.ops.rspmv import (SLAB, routed_shard_sizes,
+                                           tile_gather, tile_gather_plain)
+    from sblas_tpu_torch.parallel import (Mesh, partition_row_plans,
+                                          spmv_dist,
+                                          spmv_dist_hier, spmv_dist_planned,
+                                          spmv_dist_planned_nocomm)
+    from sblas_tpu_torch.parallel.planned import (_local_csr,
+                                                  _row_boundaries,
+                                                  full_height)
+    from sblas_tpu_torch.partition import partition_nnz_balanced
+    dev, f32 = mesh.device, torch.float32
+    t0 = time.perf_counter()
+    sh1 = partition_row_plans(A, 1, dtype=f32, op="spmv", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if sh1.kind != "routed":
+        raise AssertionError(f"world-1 shards are {sh1.kind}, expected "
+                             f"routed")
+    p1 = sh1.local(0)
+
+    # K2' against its plain version at the shard's tables
+    n_slabs = -(-A.shape[1] // SLAB)
+    x_slabs = torch.rand((n_slabs, 128, 128), generator=gen, device=dev)
+
+    def k2p(plan, title):
+        x_tiles = torch.index_select(x_slabs, 0, plan.gslab)
+        args = (x_tiles, plan.gidx, plan.gvals)
+        err, _, ms, plain_ms = compare(
+            "tile_gather", lambda: tile_gather(*args),
+            lambda: tile_gather_plain(*args), tile_gather)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound(nbytes(*args, plan.gvals), 0))
+        phase("k2p", shapes=title, n_gtiles=plan.n_gtiles,
+              bitwise_equal=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+              bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"])
+        return rec
+
+    kernels["tile_gather"] = dict(
+        name="tile_gather", route="cuda",
+        source="sblas_tpu_torch/csrc/rspmv_kernels.cu",
+        replaces="sblas_tpu/ops/rspmv.py:592", library_ms=None,
+        **k2p(p1, "world-1 shard of webbase-1M"))
+
+    routed = dict(none, lane_shuffle=p1.n_route_gathers, tile_gather=1)
+    for reduce in ("psum", "psum_scatter"):
+        out, counts = launches_of(counters, lambda: spmv_dist_planned(
+            sh1, xd, ALPHA, BETA, yd, mesh, reduce=reduce))
+        expect_launches(f"spmv_dist_planned {reduce}", counts, routed)
+        phase("dist", path=f"spmv_dist_planned {reduce}", kind=sh1.kind,
+              band_rows=sh1.band_rows, n_gtiles=p1.n_gtiles,
+              build_s=f"{build_s:.2f}", launches=counts,
+              check=checked(f"spmv_dist_planned {reduce}", out, want))
+    kernels["tile_gather"]["launches"] = counts["tile_gather"]
+    m_full = -(-(A.shape[0] + sh1.band_rows) // 128) * 128
+    dist_timing({
+        "nocomm": lambda: spmv_dist_planned_nocomm(sh1, xd, mesh),
+        "nocomm+placement": lambda: full_height(
+            spmv_dist_planned_nocomm(sh1, xd, mesh), 0, m_full),
+        "spmv_dist_planned psum": lambda: spmv_dist_planned(
+            sh1, xd, ALPHA, BETA, yd, mesh)}, A.nnz)
+
+    segs = partition_nnz_balanced(A, 1, dtype=f32, device=dev)
+    out, counts = launches_of(counters, lambda: spmv_dist(
+        segs, xd, ALPHA, BETA, yd, mesh))
+    expect_launches("spmv_dist", counts, none)
+    phase("dist", path="spmv_dist psum (COO segments)", launches=counts,
+          check=checked("spmv_dist", out, want),
+          **call_times(lambda: spmv_dist(segs, xd, ALPHA, BETA, yd, mesh),
+                       A.nnz))
+    del segs
+    out, counts = launches_of(counters, lambda: spmv_dist_hier(
+        sh1, xd, ALPHA, BETA, yd, mesh2))
+    expect_launches("spmv_dist_hier", counts, routed)
+    phase("dist", path="spmv_dist_hier 1x1", launches=counts,
+          check=checked("spmv_dist_hier", out, want))
+    del sh1, p1
+
+    # ---- [shards4]: four ranks' compute, one after another on the card
+    t0 = time.perf_counter()
+    sh4 = partition_row_plans(A, 4, dtype=f32, op="spmv", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bounds = _row_boundaries(A, 4)
+    natural = [routed_shard_sizes(_local_csr(A, int(bounds[s]),
+                                             int(bounds[s + 1]),
+                                             sh4.band_rows))[0]
+               for s in range(4)]
+    m = A.shape[0]
+    m_full = -(-(m + sh4.band_rows) // 512) * 512
+
+    def run4():
+        total = torch.zeros(m_full, dtype=f32, device=dev)
+        for s in range(4):
+            local = spmv_dist_planned_nocomm(sh4, xd, Mesh(None, s, 4, dev))
+            total += full_height(local, sh4.row_offsets[s], m_full)
+        return BETA * yd + ALPHA * total[:m]
+
+    out, counts = launches_of(counters, run4)
+    expect_launches("shards4", counts, dict(
+        none, tile_gather=4,
+        lane_shuffle=sum(p.n_route_gathers for p in sh4.plans)))
+    phase("shards4", kind=sh4.kind, band_rows=sh4.band_rows,
+          n_gtiles_shared=sh4.local(0).n_gtiles, n_gtiles_natural=natural,
+          build_s=f"{build_s:.2f}", launches=counts,
+          check=checked("shards4", out, want))
+    k2p(sh4.local(0), "shard 0 of 4")
+    del sh4
+
+
+def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:
+    """[spmm-dist] on webbase x K: mode 2 over WCOO shards (K3) and mode 1
+    over the WcooPlan (K3), world 1."""
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    from sblas_tpu_torch.parallel import (partition_row_plans, spmm_mode1,
+                                          spmm_mode2_planned)
+    K = Bd.shape[1]
+    wsh = partition_row_plans(A, 1, dtype=torch.float32, device=mesh.device)
+    if wsh.kind != "wcoo":
+        raise AssertionError(f"webbase SpMM shards are {wsh.kind}, "
+                             f"expected wcoo")
+    kc = k_chunk_width(wsh.local(0).n_tiles, K)
+    out, counts = launches_of(counters, lambda: spmm_mode2_planned(
+        wsh, Bd, ALPHA, BETA, Cd, mesh))
+    expect_launches("spmm_mode2_planned wcoo", counts,
+                    dict(none, window_reduce=-(-K // kc)))
+    phase("spmm-dist", path="spmm_mode2_planned psum (WCOO shards)", K=K,
+          launches=counts, check=checked("2p wcoo", out, want),
+          **call_times(lambda: spmm_mode2_planned(wsh, Bd, ALPHA, BETA, Cd,
+                                                  mesh), A.nnz, K))
+    del wsh
+    kc = k_chunk_width(wplan.n_tiles, K)
+    out, counts = launches_of(counters, lambda: spmm_mode1(
+        wplan, Bd, ALPHA, BETA, Cd, mesh))
+    expect_launches("spmm_mode1 wcoo", counts,
+                    dict(none, window_reduce=-(-K // kc)))
+    phase("spmm-dist", path="spmm_mode1 (WcooPlan)", K=K, launches=counts,
+          check=checked("mode1 wcoo", out, want))
+
+
+def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
+    """[spmm-dist] on the shell x K, world 1: mode 2 over DIA shards and
+    over COO segments, the halo SpMM and the 1x1 hier mode."""
+    from sblas_tpu_torch.parallel import (partition_halo_dia,
+                                          partition_row_plans,
+                                          spmm_halo_planned, spmm_mode2,
+                                          spmm_mode2_hier,
+                                          spmm_mode2_planned)
+    from sblas_tpu_torch.partition import partition_nnz_balanced
+    dev, K, f32 = mesh.device, Bd.shape[1], torch.float32
+    dia = partition_row_plans(S, 1, dtype=f32, kind="dia", device=dev)
+    segs = partition_nnz_balanced(S, 1, dtype=f32, device=dev)
+    halo = partition_halo_dia(S, 1, dtype=f32, device=dev)
+    runs = {
+        "spmm_mode2_planned psum (DIA shards)":
+            lambda: spmm_mode2_planned(dia, Bd, ALPHA, BETA, Cd, mesh),
+        "spmm_mode2 psum (COO segments)":
+            lambda: spmm_mode2(segs, Bd, ALPHA, BETA, Cd, mesh),
+        "spmm_halo_planned": lambda: spmm_halo_planned(halo, Bd, ALPHA, BETA,
+                                                       Cd, mesh),
+        "spmm_mode2_hier 1x1 (DIA shards)":
+            lambda: spmm_mode2_hier(dia, Bd, ALPHA, BETA, Cd, mesh2),
+    }
+    for path, run in runs.items():
+        out, counts = launches_of(counters, run)
+        expect_launches(path, counts, none)
+        phase("spmm-dist", path=path, K=K, launches=counts,
+              check=checked(path, out, want), **call_times(run, S.nnz, K))
 
 
 def _device_ms(fn) -> float:
@@ -492,4 +773,11 @@ def _cli(main_fn, argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        # a phase that fails leaves its NCCL group up; close it on the way
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+    sys.exit(code)

@@ -7,9 +7,9 @@ explicit device; the kernels the JAX package wrote in Pallas for the TPU
 are CUDA C++ for `sm_90a` here (`csrc/`, built with nvcc at first use).
 This package imports torch and never jax.
 
-Ported so far: the routed-SpMV main path (`ops.make_plan(op="spmv")` ->
-`RoutedPlan` -> `ops.spmv`), the tier-0 `CooPlan`, and the single-device
-`cli.spmv_test`.  ROADMAP.md lists the rest.
+Ported so far: every single-device plan and op (`ops.make_plan` ->
+`ops.spmv` / `ops.spmm`), the distribution layer over `torch.distributed`
+(`partition`, `parallel`), and the CLIs.  ROADMAP.md lists the rest.
 """
 
 from .config import DEFAULT, SBlasConfig  # noqa: F401

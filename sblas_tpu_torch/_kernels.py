@@ -1,13 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` (K1 `route_kernels.cu`, K2 `rspmv_kernels.cu`,
-K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`) each expose a plain `extern "C"` launcher that returns
-`cudaGetLastError()`.  They are compiled by `nvcc` for Hopper (`sm_90a`)
-into one shared library, loaded with ctypes, at first use: nothing is
-built or imported when the package is imported, so the CPU tests never
-need a compiler.  The library lands in `_build/` (git-ignored) under a
-name keyed on the sources' content and the flags, so an edited source
-rebuilds and an unchanged one loads in milliseconds.
+The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
+`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`) each expose
+plain `extern "C"` launchers that return `cudaGetLastError()`.  At first
+use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
+started together, and the objects are linked into one shared library,
+loaded with ctypes: nothing is built or imported when the package is
+imported, so the CPU tests never need a compiler.  The library lands in
+`_build/` (git-ignored) under a name keyed on the sources' content and
+the flags, so an edited source rebuilds and an unchanged one loads in
+milliseconds.
 
 There is no fallback: a missing `nvcc` or a failed build raises
 `KernelError`.  Wrappers launch on PyTorch's current stream and allocate
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -33,7 +36,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
            "bsr_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -60,20 +63,41 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    `nvcc -c` per source, run in parallel, then one link."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name),
+                 "-o", obj] for name, obj in zip(SOURCES, objs)]
+    try:
+        # every compile runs to its end before any result is looked at
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            done = list(pool.map(_run, compiles))
+        for cmd, proc in zip(compiles, done):
+            _check(cmd, proc)
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        _check(link, _run(link))
+        os.replace(tmp, so)   # atomic: a concurrent build never sees a partial .so
+    finally:
+        for path in objs:
+            if os.path.exists(path):
+                os.remove(path)
+    return so
+
+
+def _run(cmd) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
+def _check(cmd, proc: subprocess.CompletedProcess) -> None:
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent build never sees a partial .so
-    return so
 
 
 def library() -> ctypes.CDLL:
@@ -85,6 +109,7 @@ def library() -> ctypes.CDLL:
         argtypes = {
             "lane_shuffle": [p, p, p, i64, p],
             "slab_gather": [p, p, p, p, p, i64, p],
+            "tile_gather": [p, p, p, p, i64, p],
             "window_reduce": [p] * 8 + [i64] * 4 + [p],
             "bell_spmm": [p] * 5 + [i64] * 5 + [f64, f64, p],
         }

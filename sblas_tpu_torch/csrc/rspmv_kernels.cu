@@ -1,4 +1,5 @@
-// K2: slab-bucket gather of the routed SpMV, contributions in gather order.
+// K2: slab-bucket gather of the routed SpMV, contributions in gather order,
+// and K2', the same product over slabs pre-gathered per tile.
 //
 // Replaces the TPU kernel sblas_tpu/ops/rspmv.py::_gather_kernel (called
 // via `_gathered_contrib`):
@@ -20,6 +21,18 @@
 // kChunks blocks (grid = T_g x kChunks) of 256 threads, 4 slots a thread,
 // rather than one block per tile (which would leave most SMs idle).  Flat
 // offsets are 64-bit: T_g * 16384 can approach 2^31.
+//
+// K2' replaces sblas_tpu/ops/rspmv.py::_tile_gather_kernel, the variant the
+// JAX package runs inside shard_map (the distributed per-shard SpMV):
+//
+//     out[t, r, c] = gvals[t, r, c] * x_tiles[t, r, gidx[t, r, c]]
+//
+// where x_tiles = x_slabs[gslab] was copied out beforehand, one 128x128
+// slab per tile.  It too is bound by device-memory bytes, but it streams
+// its own tile copy instead of re-reading a shared slab through L1/L2, so
+// it moves 16 B per f32 slot (x tile, gidx, gvals in, out) against K2's
+// 12.  The design is K2's: T_g x kChunks blocks of 256 threads, coalesced
+// streams, 64-bit offsets.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,6 +63,22 @@ __global__ void slab_gather_kernel(const int32_t* __restrict__ gslab,
 }
 
 template <typename T>
+__global__ void tile_gather_kernel(const T* __restrict__ x_tiles,
+                                   const int32_t* __restrict__ gidx,
+                                   const T* __restrict__ gvals,
+                                   T* __restrict__ out) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kSlab;
+  const T* tile = x_tiles + base;
+#pragma unroll
+  for (int k = 0; k < kPerBlock / kThreads; ++k) {
+    const int e = blockIdx.y * kPerBlock + k * kThreads + threadIdx.x;
+    const int64_t s = base + e;
+    const int row = e >> 7;
+    out[s] = gvals[s] * tile[(row << 7) | (gidx[s] & 127)];
+  }
+}
+
+template <typename T>
 int launch(const int32_t* gslab, const T* x_slabs, const int32_t* gidx,
            const T* gvals, T* out, int64_t n_tiles, void* stream) {
   if (n_tiles > 0) {
@@ -57,6 +86,18 @@ int launch(const int32_t* gslab, const T* x_slabs, const int32_t* gidx,
     slab_gather_kernel<T><<<grid, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         gslab, x_slabs, gidx, gvals, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tiles(const T* x_tiles, const int32_t* gidx, const T* gvals,
+                 T* out, int64_t n_tiles, void* stream) {
+  if (n_tiles > 0) {
+    dim3 grid(static_cast<unsigned int>(n_tiles), kChunks);
+    tile_gather_kernel<T><<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        x_tiles, gidx, gvals, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -77,6 +118,20 @@ int sblas_slab_gather_f64(const int32_t* gslab, const double* x_slabs,
                           const int32_t* gidx, const double* gvals,
                           double* out, int64_t n_tiles, void* stream) {
   return launch<double>(gslab, x_slabs, gidx, gvals, out, n_tiles, stream);
+}
+
+// x_tiles, gidx, gvals, out (n_tiles, 128, 128); all contiguous on the
+// device of `stream`.
+int sblas_tile_gather_f32(const float* x_tiles, const int32_t* gidx,
+                          const float* gvals, float* out, int64_t n_tiles,
+                          void* stream) {
+  return launch_tiles<float>(x_tiles, gidx, gvals, out, n_tiles, stream);
+}
+
+int sblas_tile_gather_f64(const double* x_tiles, const int32_t* gidx,
+                          const double* gvals, double* out, int64_t n_tiles,
+                          void* stream) {
+  return launch_tiles<double>(x_tiles, gidx, gvals, out, n_tiles, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@ primitives.
    balanced column relabel (one small route), is viewed as (n/16384)
    slabs of (128, 128).  Nonzeros are grouped per slab and bucketed by
    row of the slab, so each (128, 128) gather tile reads all its x values
-   from one slab row by row: out = gvals * x_slab[r, gidx].
+   from one slab row by row: out = gvals * x_slab[r, gidx].  The
+   distributed per-shard SpMV copies each tile's slab out first and runs
+   kernel K2' (`tile_gather`) over the copies, as the JAX package does
+   inside `shard_map`.
 2. **Routed permutation (ops/route.py, kernel K1).**  Contributions move
    from gather order to reduce order through the Clos/Benes layer program
    (lane shuffles + transposes, tables from plan-time edge colouring).
@@ -136,7 +139,7 @@ def _gather_layout(cols: np.ndarray, nnz: int, n_slabs_min: int = 0):
     return gslot, tiles_per_slab, n_slabs
 
 
-def _stack_layout(A: CsrMatrix, cap: int = 0):
+def _stack_layout(A: CsrMatrix, cap: int = 0, min_extras: int = 0):
     """Degree-sorted lane-stack layout with capped heavy-row overflow.
 
     A row's first min(deg, cap) entries stack at its rank position (the
@@ -153,6 +156,9 @@ def _stack_layout(A: CsrMatrix, cap: int = 0):
     ~sum(deg)/cap over heavy rows only — hundreds, not m, so the scatter
     costs microseconds where a full rank-space segment-sum measured
     ~440 us as an elementwise 1-D scatter on the JAX package's TPU v5e).
+
+    `min_extras` pads the appendix slot count (the distributed layer
+    gives every shard the same one).
 
     Returns (rank (m,) i32, off64 (n_blocks+1,) i64, depth (n_blocks,)
     i32, n_blocks, srank_of_entry-builder, merge_ids (n_extra,) i32,
@@ -174,7 +180,8 @@ def _stack_layout(A: CsrMatrix, cap: int = 0):
         k_r = np.ones(m, dtype=np.int64)
     ex_r = k_r - 1                      # appendix slots per row
     E = int(ex_r.sum())
-    n_extra = _round_up(E, LANES) if E else 0
+    E_eff = max(E, int(min_extras))
+    n_extra = _round_up(E_eff, LANES) if E_eff else 0
     merged = n_extra > 0
 
     # primary depths: rank blocks are degree-sorted, so block depth =
@@ -274,6 +281,36 @@ def _peel_layout(pcols: np.ndarray, pvals_in: np.ndarray):
     native.scatter(pvals, pslot, pvals_in[order])
     return pslot, order, prow_col, pvals, R_p
 
+
+def routed_shard_sizes(A: CsrMatrix, config: SBlasConfig = DEFAULT):
+    """Natural (n_gtiles, n_srows, n_prows, n_sranks) a RoutedPlan over A
+    would use — the cheap prefix of the plan build (no edge colouring).
+    The distributed layer probes every shard with this, takes
+    element-wise maxima, and passes them back as from_csr(min_gtiles=...,
+    min_srows=..., min_prows=..., min_sranks=...) so all shard plans
+    share one static shape."""
+    coo = A.to_coo()
+    cols = coo.col_idx.astype(np.int32)
+    peeled = _peel_split(cols, A.shape[1], A.nnz,
+                         config.routed_peel_threshold)
+    res = cols[~peeled]
+    if len(res) and config.routed_relabel:
+        pi, n_slabs_x = _balanced_relabel(A.shape[1], res)
+        res = pi[res]
+    else:
+        n_slabs_x = 1
+    _, tiles_per_slab, _ = _gather_layout(res, len(res),
+                                          n_slabs_min=n_slabs_x)
+    _, off64, _, _, _, _, n_extra, _ = _stack_layout(
+        A, cap=config.routed_stack_cap)
+    pc = cols[peeled]
+    if len(pc):
+        _, cnts = np.unique(pc, return_counts=True)
+        n_prows = int((-(-cnts // LANES)).sum())
+    else:
+        n_prows = 0
+    return (int(tiles_per_slab.sum()), int(off64[-1]), n_prows,
+            int(n_extra))
 
 
 # ---------------------------------------------------------------------------
@@ -400,12 +437,22 @@ class RoutedPlan:
 
     @classmethod
     def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
-                 config: SBlasConfig = DEFAULT, *, device) -> "RoutedPlan":
+                 config: SBlasConfig = DEFAULT, *, min_gtiles: int = 0,
+                 min_srows: int = 0, min_prows: int = 0,
+                 min_sranks: int = 0, device) -> "RoutedPlan":
         """Build the plan on the host (numpy + the native library) and
         place it on `device`.  Arrays are byte-identical to
         `sblas_tpu.ops.rspmv.RoutedPlan.from_csr` for the same matrix,
-        dtype and config."""
-        fields, meta = routed_plan_arrays(A, dtype, config)
+        dtype, config and `min_*` sizes.
+
+        `min_gtiles` / `min_srows` / `min_prows` / `min_sranks` pad the
+        gather-tile count, lane-stack depth, peeled-row count and appendix
+        slot count up to shared sizes, so the distributed layer's
+        per-shard plans share one shape and one route schedule (pad tiles
+        hold val=0 and contribute nothing)."""
+        fields, meta = routed_plan_arrays(
+            A, dtype, config, min_gtiles=min_gtiles, min_srows=min_srows,
+            min_prows=min_prows, min_sranks=min_sranks)
         return cls.from_numpy(fields, meta, device)
 
     @classmethod
@@ -419,9 +466,11 @@ class RoutedPlan:
 
 
 def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
-                       config: SBlasConfig = DEFAULT):
+                       config: SBlasConfig = DEFAULT, *, min_gtiles: int = 0,
+                       min_srows: int = 0, min_prows: int = 0,
+                       min_sranks: int = 0):
     """Host-side plan build: (fields, meta) as `RoutedPlan.from_numpy`
-    takes them."""
+    takes them; the `min_*` sizes as in `RoutedPlan.from_csr`."""
     from ..utils.errors import PlanError, require
     require(dtype in _NP_VALUE, PlanError,
             f"routed plans take torch.float32 or torch.float64, got {dtype}")
@@ -445,9 +494,15 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
     res_cols = cols[res_idx]
 
     # ---- balanced relabel + x route (skipped when nothing is residual or
-    # config.routed_relabel is off) ----
-    if len(res_idx) and config.routed_relabel:
-        pi, n_slabs_x = _balanced_relabel(n, res_cols)
+    # config.routed_relabel is off; min_gtiles > 0 means a distributed
+    # shard, where every shard must carry the same x-route schedule, so an
+    # empty shard builds the identity relabel) ----
+    if (len(res_idx) or min_gtiles) and config.routed_relabel:
+        if len(res_idx):
+            pi, n_slabs_x = _balanced_relabel(n, res_cols)
+        else:
+            n_slabs_x = max(-(-n // SLAB), 1)
+            pi = np.arange(n, dtype=np.int32)
         p_cols = pi[res_cols]
         N_x = routable_size(n_slabs_x * SLAB)
         perm_x = np.full(N_x, -1, dtype=np.int32)
@@ -460,17 +515,21 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
     # ---- gather tiling: per (slab, bucket) runs of <= 128 lanes ----
     gslot_res, tiles_per_slab, n_slabs = _gather_layout(
         p_cols, len(res_idx), n_slabs_min=n_slabs_x)
-    T_g = int(tiles_per_slab.sum())
+    T_g = max(int(tiles_per_slab.sum()), int(min_gtiles))
 
     gidx = np.zeros(T_g * SLAB, dtype=np.int32)
     gvals = np.zeros(T_g * SLAB, dtype=np_val)
     native.scatter(gidx, gslot_res, (p_cols & (LANES - 1)).astype(np.int32))
     native.scatter(gvals, gslot_res, vals_np[res_idx])
     gslab_arr = np.repeat(np.arange(n_slabs, dtype=np.int32), tiles_per_slab)
+    gslab_arr = np.pad(gslab_arr, (0, T_g - len(gslab_arr)))
 
     # ---- peeled layout: whole 128-lane rows per hub column ----
     pslot, p_order, prow_col, pvals_flat, R_p = _peel_layout(
         cols[pe_idx], vals_np[pe_idx])
+    R_p = max(R_p, int(min_prows))
+    prow_col = np.pad(prow_col, (0, R_p - len(prow_col)))
+    pvals_flat = np.pad(pvals_flat, (0, R_p * LANES - len(pvals_flat)))
     require(T_g * SLAB + R_p * LANES < 2**31, PlanError,
             f"gather tiling overflows int32 slots (T_g={T_g}, R_p={R_p}); "
             f"the matrix is too large/ragged for a single routed plan")
@@ -484,8 +543,9 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
     # ---- reduce layout: capped lane stack with heavy-row overflow
     # appendix (see _stack_layout) ----
     (rank, off64, depth, n_blocks, srank_of_entry, merge_ids,
-     n_extra, merged) = _stack_layout(A, cap=config.routed_stack_cap)
-    S = int(off64[-1])
+     n_extra, merged) = _stack_layout(A, cap=config.routed_stack_cap,
+                                      min_extras=min_sranks)
+    S = max(int(off64[-1]), int(min_srows))
     require(S * LANES < 2**31, PlanError,
             f"lane stack overflows int32 slots (S={S}); one row's nnz is "
             f"too extreme for a single routed plan")
@@ -498,7 +558,11 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
     srank, within = srank_of_entry(rows, j_in_row)
     rslot = ((off[srank >> _LANE_SHIFT] + within) * LANES
              + (srank & (LANES - 1)))
-    brow_ids = np.repeat(np.arange(n_blocks, dtype=np.int32), depth)
+    brow_ids = np.concatenate([
+        np.repeat(np.arange(n_blocks, dtype=np.int32), depth),
+        # stack pad rows attach to the last block (stays sorted; the
+        # routed pad slots carry zeros, so they add nothing)
+        np.full(S - int(off64[-1]), n_blocks - 1, dtype=np.int32)])
 
     # ---- route 1: [gather | peeled] order -> lane-stack order ----
     N = routable_size(max(T_g * SLAB + R_p * LANES, S * LANES))
@@ -582,8 +646,49 @@ def slab_gather(gslab, x_slabs, gidx, gvals) -> torch.Tensor:
 slab_gather.launches = 0   # K2 launches since the last reset
 
 
-def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
-    """(T_g*SLAB,) contributions vals[i]*x[col[i]] in gather order."""
+def tile_gather_plain(x_tiles, gidx, gvals) -> torch.Tensor:
+    """Plain PyTorch K2':
+    out[t, r, c] = gvals[t, r, c] * x_tiles[t, r, gidx[t, r, c]]."""
+    return gvals * torch.gather(x_tiles, 2, gidx)
+
+
+def tile_gather(x_tiles, gidx, gvals) -> torch.Tensor:
+    """Tile gather over slabs pre-gathered per tile (see
+    `tile_gather_plain`), (T_g, 128, 128) throughout.  CPU tensors take
+    the plain version; CUDA tensors launch kernel K2'
+    (csrc/rspmv_kernels.cu) or raise."""
+    if x_tiles.device.type == "cpu":
+        return tile_gather_plain(x_tiles, gidx, gvals)
+    from ..utils.errors import KernelError, require
+    dev = x_tiles.device
+    require(dev.type == "cuda", KernelError,
+            f"tile_gather runs on cpu or cuda, not {dev}")
+    sfx = _kernels.value_suffix(x_tiles.dtype)
+    T_g = x_tiles.shape[0]
+    tile_shape = (T_g, LANES, LANES)
+    _kernels.check_operand(x_tiles, "x_tiles", x_tiles.dtype, tile_shape,
+                           dev)
+    _kernels.check_operand(gidx, "gidx", torch.int32, tile_shape, dev)
+    _kernels.check_operand(gvals, "gvals", x_tiles.dtype, tile_shape, dev)
+    out = torch.empty(tile_shape, dtype=x_tiles.dtype, device=dev)
+    _kernels.launch(f"sblas_tile_gather_{sfx}", dev, x_tiles, gidx, gvals,
+                    out, T_g)
+    tile_gather.launches += 1
+    return out
+
+
+tile_gather.launches = 0   # K2' launches since the last reset
+
+
+def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
+                      pregather: bool = False) -> torch.Tensor:
+    """(T_g*SLAB,) contributions vals[i]*x[col[i]] in gather order.
+
+    `pregather` takes the JAX package's `shard_map` branch: each tile's
+    slab is first copied out with one row-granular `index_select` (plain
+    torch, as the JAX package leaves it to XLA), then kernel K2' reads
+    the tiles in order.  The distributed per-shard SpMV takes it; the
+    single-device SpMV keeps K2, as the JAX package does."""
     n = plan.shape[1]
     n_slabs = _round_up(n, SLAB) // SLAB
     if plan.xroute_n:
@@ -595,15 +700,19 @@ def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
     else:
         x_slabs = F.pad(x, (0, n_slabs * SLAB - n)).reshape(
             n_slabs, LANES, LANES)
-    return slab_gather(plan.gslab, x_slabs, plan.gidx,
-                       plan.gvals.to(x.dtype)).reshape(-1)
+    gvals = plan.gvals.to(x.dtype)
+    if pregather:
+        x_tiles = torch.index_select(x_slabs, 0, plan.gslab)
+        return tile_gather(x_tiles, plan.gidx, gvals).reshape(-1)
+    return slab_gather(plan.gslab, x_slabs, plan.gidx, gvals).reshape(-1)
 
 
 def spmv_routed(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
-                y: torch.Tensor) -> torch.Tensor:
-    """y' = beta*y + alpha*A@x on the plan's device."""
+                y: torch.Tensor, pregather: bool = False) -> torch.Tensor:
+    """y' = beta*y + alpha*A@x on the plan's device (`pregather`: see
+    `_gathered_contrib`)."""
     m = plan.shape[0]
-    contrib = _gathered_contrib(plan, x)
+    contrib = _gathered_contrib(plan, x, pregather)
     if plan.n_prows:
         # peeled hub columns: one x element per 128-lane row, broadcast
         xp = torch.index_select(x, 0, plan.prow_col)

@@ -9,6 +9,8 @@ no jax, so it runs on a machine without it:
 (`--noconftest` skips tests/conftest.py, which configures jax for the
 JAX package's tests.)"""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,53 @@ def test_spmv_routed_on_card_matches_cpu(dev, dtype, np_dtype):
     torch.testing.assert_close(spmv(coo, x.to(dev), 3.0, 4.0,
                                     y.to(dev)).cpu(), want,
                                rtol=tol, atol=tol)
+
+
+# ---- K2' (tile_gather) and the distributed routed SpMV ----
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_tiles", [1, 7, 188])
+def test_tile_gather_kernel_matches_plain(dev, dtype, n_tiles):
+    g = torch.Generator(device=dev).manual_seed(n_tiles)
+    shape = (n_tiles, 128, 128)
+    x_tiles = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    gidx = torch.randint(0, 128, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    gvals = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    before = tr.tile_gather.launches
+    got = tr.tile_gather(x_tiles, gidx, gvals)
+    torch.cuda.synchronize()
+    assert tr.tile_gather.launches == before + 1
+    assert torch.equal(got, tr.tile_gather_plain(x_tiles, gidx, gvals))
+    with pytest.raises(KernelError):
+        tr.tile_gather(x_tiles, gidx.long(), gvals)
+    with pytest.raises(ShapeError):
+        tr.tile_gather(x_tiles, gidx[:, :64], gvals)
+
+
+@pytest.mark.parametrize("dtype,np_dtype", [(torch.float64, np.float64),
+                                            (torch.float32, np.float32)])
+def test_distributed_routed_shards_on_card(dev, dtype, np_dtype):
+    """Four routed shards of one matrix, each rank's compute run on the
+    card (no process group): K2' once per shard, K2 never, and each
+    shard's local product equals the CPU's."""
+    from sblas_tpu_torch.config import SBlasConfig
+    from sblas_tpu_torch.parallel import (partition_row_plans,
+                                          spmv_dist_planned_nocomm)
+    from sblas_tpu_torch.parallel.mesh import Mesh
+    A = webbase_like(n=100_000, avg_deg=4.0, dtype=np_dtype)
+    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
+    cpu = partition_row_plans(A, 4, dtype=dtype, kind="routed", config=cfg,
+                              device="cpu")
+    sh = dataclasses.replace(cpu, plans=tuple(p.to(dev) for p in cpu.plans))
+    x = torch.from_numpy(DenseVector.random(A.width, dtype=np_dtype).values)
+    tr.tile_gather.launches = tr.slab_gather.launches = 0
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for s in range(4):
+        got = spmv_dist_planned_nocomm(sh, x.to(dev), Mesh(None, s, 4, dev))
+        want = spmv_dist_planned_nocomm(cpu, x, Mesh(None, s, 4, "cpu"))
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    assert (tr.tile_gather.launches, tr.slab_gather.launches) == (4, 0)
 
 
 # ---- K3 (window_reduce) and K4 (bell_spmm) ----

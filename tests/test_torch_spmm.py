@@ -30,7 +30,7 @@ from sblas_tpu_torch.containers import CsrMatrix
 from sblas_tpu_torch.io.mmio import write_mtx
 from sblas_tpu_torch.ops.spmm import _auto_chunks, spmm_coo, spmm_ell
 from sblas_tpu_torch.ops.spmm import spmm as spmm_tier0
-from sblas_tpu_torch.utils.errors import NotPortedError, PlanError
+from sblas_tpu_torch.utils.errors import PlanError
 from sblas_tpu_torch.utils.timing import spmm_flops, spmv_flops
 from sblas_tpu_torch.utils.verify import check_equal
 
@@ -242,15 +242,6 @@ def test_spmm_cli_method1_cpu(tmp_path, capsys, name, dtype, kind):
     assert rc == 0 and "Validation = True" in out
     assert f"plan {kind}" in out and "cpu host clock" in out
     assert "GFLOPS" in out
-
-
-@pytest.mark.parametrize("method,n_dev", [("2", 1), ("2p", 1), ("halo", 1),
-                                          ("1", 2)])
-def test_spmm_cli_other_methods_not_ported(tmp_path, method, n_dev):
-    path = _write(tmp_path, _matrix("band"), "b.mtx")
-    with pytest.raises(NotPortedError, match="method"):
-        spmm_test.main([method, path, "4", "1", "0", str(n_dev),
-                        "--device", "cpu"])
 
 
 @pytest.mark.parametrize("argv", [["3"], ["1", "--device", "tpu"],
