@@ -4,7 +4,8 @@
 
 Builds the hand-written CUDA kernels from `sblas_tpu_torch/csrc/`, holds
 each against its plain PyTorch version at the shapes its main path gives
-it (K1/K2 bitwise, K3/K4 within a stated tolerance, each deterministic),
+it (K1/K2/K2'/P1/P2 bitwise, K3/K4 within a stated tolerance, each
+deterministic),
 then runs every main path at full size, counting kernel launches on each:
 
     webbase_like() (1M rows, f32) -> make_plan(op="spmv") -> RoutedPlan
@@ -28,9 +29,25 @@ and the distribution layer in a world-1 NCCL group:
     [spmm-dist] webbase x K=64: spmm_mode2_planned over WCOO shards (K3)
         and spmm_mode1 over the WcooPlan; shell x K=64: spmm_mode2_planned
         over DIA shards, spmm_mode2, spmm_halo_planned, spmm_mode2_hier
+    [xfoot] webbase_like() -> partition_xfoot(A, 1) (a routed shard) ->
+        spmv_xfoot (K1, K2') and its nocomm twin
+    [xfoot-extract] rank 0's extraction alone at 4 and 16 shards (COO
+        shards), each engine forced (flat index_select; route through K1):
+        the two packed vectors bitwise equal, ns per element of each (the
+        port's GATHER_NS / ROUTE_NS) and the engine they give
+    [xfoot-shard] xfoot_worst_local(A, n) -> RoutedPlan.from_csr(min_*) at
+        n = 4 and 16: the stock SpMV (K2) and the fused one (P1), pass-1
+        tiles bitwise, both against the oracle, both timed
+    [plancache] the world-1 xfoot shards and the n=16 routed plan saved,
+        loaded on the card, bitwise equal, one loaded run vs the oracle
+    [p1] / [p2] kernels P1 (at the full plan's T_g and at the n=16 shard)
+        and P2 (webbase x K=64 windows, every gathered row checked) vs
+        their plain versions, with P2's index_select yardsticks (f32,
+        bf16) and the 64-wide row permutation a bridge would cost
 
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
-200k-row `.mtx` (single mode, method 1, --mode distp, method 2p).  Each
+200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
+xfoot, and --mode xfoot --plan-cache saving then loading).  Each
 phase prints one line; any failure raises and the script exits non-zero.
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, before that the script's seconds;
@@ -41,6 +58,7 @@ prints no result.  Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -211,10 +229,16 @@ def main() -> int:
                                            slab_gather_plain, tile_gather)
     from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
                                           window_reduce_plain)
+    from sblas_tpu_torch.experiments.stage_fuse_probe import (
+        stage_fuse_gather)
+    from sblas_tpu_torch.experiments.wcoo_gather_probe import (
+        window_lane_gather)
 
     counters = {"lane_shuffle": lane_shuffle, "slab_gather": slab_gather,
                 "tile_gather": tile_gather, "window_reduce": window_reduce,
-                "bell_spmm": bell_spmm}
+                "bell_spmm": bell_spmm,
+                "stage_fuse_gather": stage_fuse_gather,
+                "window_lane_gather": window_lane_gather}
     none = {name: 0 for name in counters}
 
     # ---- build ----
@@ -287,6 +311,13 @@ def main() -> int:
         plain_ms=plain_ms, library_ms=None,
         **bound(nbytes(plan.gslab, x_slabs, plan.gidx, plan.gvals,
                        plan.gvals), 0))
+
+    # ---- P1: K2 fused with route pass 1, at the full plan's T_g ----
+    kernels["stage_fuse_gather"] = dict(
+        name="stage_fuse_gather", route="cuda",
+        source="sblas_tpu_torch/csrc/probe_kernels.cu",
+        replaces="experiments/stage_fuse_probe.py:41", library_ms=None,
+        **p1_compare(plan, x_slabs, "full webbase-1M plan"))
     del x_slabs
 
     # ---- SpMV main path: one counted SpMV, oracle check, then timing ----
@@ -315,6 +346,7 @@ def main() -> int:
     # ---- the distribution layer in a world-1 NCCL group ----
     mesh, mesh2 = nccl_world1(dev)
     dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none, kernels)
+    xfoot_phases(A, x, xd, yd, want, mesh, counters, none, kernels)
     del xd, yd
 
     # ---- WCOO SpMM: webbase x K=64 -> WcooPlan -> K3 ----
@@ -357,7 +389,9 @@ def main() -> int:
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
     spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
-    del wplan, Bd, Cd, out, want, A
+    del wplan, Cd, out, want
+    p2_phase(A, Bd, counters, none, kernels)
+    del Bd, A
 
     # ---- SpMM headline: shell x K=64 -> DiaPlan; tier-0 COO beside it
     S = fem_shell_like(dtype=np.float32)
@@ -483,6 +517,27 @@ def main() -> int:
         phase("cli distp", rc=rc, nnz=W.nnz, kind="routed", validation=True,
               run=next(ln for ln in text.splitlines()
                        if "run time" in ln).strip())
+        xfoot_argv = [path, str(ALPHA), str(BETA), "1", "f32", "--mode",
+                      "xfoot", "--device", "cuda"]
+        cache = os.path.join(tmp, "xfoot_shards.npz")
+        for label, argv, said in (
+                ("cli xfoot", xfoot_argv, "mode xfoot"),
+                ("cli xfoot --plan-cache",
+                 [*xfoot_argv, "--plan-cache", cache], "plan cache: saved"),
+                ("cli xfoot --plan-cache",
+                 [*xfoot_argv, "--plan-cache", cache],
+                 "plan cache: loaded")):
+            text, rc = _cli(spmv_test.main, argv)
+            if rc != 0 or "Validation = True" not in text or \
+                    said not in text:
+                raise AssertionError(f"{label} failed (rc={rc}):\n{text}")
+            lines = text.splitlines()
+            phase(label, rc=rc, nnz=W.nnz, validation=True,
+                  cache=said if "cache" in said else "none",
+                  shards=next(ln for ln in lines if "xfoot shards" in ln
+                              ).strip(),
+                  load=next(ln for ln in lines if "Load time" in ln).strip(),
+                  run=next(ln for ln in lines if "run time" in ln).strip())
         text, rc = _cli(spmm_test.main, ["2p", path, str(K), str(ALPHA),
                                          str(BETA), "1", "f32", "--device",
                                          "cuda"])
@@ -675,6 +730,257 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
           check=checked("shards4", out, want))
     k2p(sh4.local(0), "shard 0 of 4")
     del sh4
+
+
+def p1_compare(plan, x_slabs, title) -> dict:
+    """[p1]: kernel P1 against its plain version on `plan`'s tables (i1 =
+    the main route's first table cut to the tile rows) and `x_slabs`."""
+    from sblas_tpu_torch.experiments.stage_fuse_probe import (
+        stage_fuse_gather, stage_fuse_gather_plain)
+    T_g = plan.n_gtiles
+    i1 = plan.tables[0][: T_g * 128].reshape(T_g, 128, 128)
+    args = (plan.gslab, x_slabs, plan.gidx, plan.gvals, i1)
+    err, _, ms, plain_ms = compare(
+        "stage_fuse_gather", lambda: stage_fuse_gather(*args),
+        lambda: stage_fuse_gather_plain(*args), stage_fuse_gather)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound(nbytes(*args, plan.gvals), 0))
+    phase("p1", shapes=title, n_gtiles=T_g, n_slabs=x_slabs.shape[0],
+          bitwise_equal=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"])
+    return rec
+
+
+def _tensors_of(obj) -> list:
+    """Every tensor of a plan or shard container, in field order."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        for e in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(e, torch.Tensor):
+                out.append(e)
+            elif dataclasses.is_dataclass(e):
+                out.extend(_tensors_of(e))
+    return out
+
+
+def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
+                 kernels) -> None:
+    """[xfoot], [xfoot-extract], [xfoot-shard] and [plancache] on the
+    webbase-1M proxy: the footprint-compressed exchange at world 1, the
+    extraction engines and the worst shard's compute at 4 and 16 shards,
+    the fused SpMV (P1), and the plan cache on the card."""
+    from sblas_tpu_torch import scaling
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.experiments.stage_fuse_probe import (
+        pass1_operands, pass1_tiles_stock, spmv_routed_fused1,
+        stage_fuse_gather)
+    from sblas_tpu_torch.io.plancache import load_plan, save_plan
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.ops.rspmv import RoutedPlan, spmv_routed, x_slabs_of
+    from sblas_tpu_torch.parallel import (Mesh, partition_xfoot, spmv_xfoot,
+                                          spmv_xfoot_nocomm,
+                                          xfoot_worst_local)
+    from sblas_tpu_torch.parallel.modes import row_block
+    from sblas_tpu_torch.parallel.xfoot import (_xfoot_analyze, send_tables,
+                                                xfoot_extract)
+    dev, f32 = mesh.device, torch.float32
+
+    # ---- [xfoot]: world 1, the chosen (routed) shard kind ----
+    t0 = time.perf_counter()
+    xs1 = partition_xfoot(A, 1, dtype=f32, device=dev, rank=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if xs1.kind != "routed":
+        raise AssertionError(f"world-1 xfoot shards are {xs1.kind}, "
+                             f"expected routed")
+    p1 = xs1.local(0).plan
+    routed = dict(none, lane_shuffle=p1.n_route_gathers, tile_gather=1)
+    run = lambda: spmv_xfoot(xs1, xd, ALPHA, BETA, yd, mesh)  # noqa: E731
+    out, counts = launches_of(counters, run)
+    expect_launches("spmv_xfoot", counts, routed)
+    phase("xfoot", path="spmv_xfoot (world 1)", kind=xs1.kind,
+          extract=xs1.extract_mode, w_ext=p1.shape[1],
+          n_gtiles=p1.n_gtiles, build_s=f"{build_s:.2f}", launches=counts,
+          check=checked("spmv_xfoot", out, want), **call_times(run, A.nnz))
+    want_nc = spmv_cpu(A, x, 1.0, 0.0, DenseVector.constant(
+        A.height, 0.0, dtype=np.float32))
+    run = lambda: spmv_xfoot_nocomm(xs1, xd, mesh)  # noqa: E731
+    out, counts = launches_of(counters, run)
+    expect_launches("spmv_xfoot_nocomm", counts, routed)
+    phase("xfoot", path="spmv_xfoot_nocomm (world 1)", launches=counts,
+          check=checked("spmv_xfoot_nocomm", out, want_nc),
+          **call_times(run, A.nnz))
+    del out, want_nc
+
+    # ---- [xfoot-extract]: rank 0's extraction, each engine forced ----
+    per_elem = {}
+    for n in (4, 16):
+        lay = _xfoot_analyze(A, n)
+        used = torch.from_numpy(send_tables(lay, n)[1][0]).to(dev)
+        res = {}
+        for engine in ("flat", "route"):
+            sh = partition_xfoot(A, n, dtype=f32, kind="coo", extract=engine,
+                                 device=dev, rank=0)
+            x_blk = row_block(xd, Mesh(None, 0, n, dev), sh.r_x * n)
+            run = (lambda sh=sh, x_blk=x_blk:
+                   xfoot_extract(sh, sh.local(0), x_blk))
+            packed, counts = launches_of(counters, run)
+            k1 = sum(op[0] == "gather" for op in sh.xroute_schedule)
+            expect_launches(f"extraction {engine} n={n}", counts,
+                            dict(none, lane_shuffle=k1))
+            res[engine] = (packed, _device_ms(run), k1)
+        (pf, ms_f, _), (pr, ms_r, k1) = res["flat"], res["route"]
+        if not torch.equal(pf[used], pr[used]):
+            raise AssertionError(f"n={n}: flat and route extractions differ")
+        out_slots, space = lay["Hmax"] + n * lay["P"], lay["route_space"]
+        g_ns, r_ns = ms_f * 1e6 / out_slots, ms_r * 1e6 / space
+        per_elem[n] = (g_ns, r_ns)
+        st = lay["stats"]
+        phase("xfoot-extract", n_shards=n, hot_total=st.hot_total,
+              hot_own_max=st.hot_own_max, packet_pad=st.packet_pad,
+              out_slots=out_slots, real_slots=int(used.sum()),
+              route_space=space, k1_per_route=k1, bitwise_equal=True,
+              flat_ms=f"{ms_f:.5f}", route_ms=f"{ms_r:.5f}",
+              gather_ns=f"{g_ns:.5f}", route_ns=f"{r_ns:.5f}",
+              engine_at_these=("flat" if g_ns * out_slots <= r_ns * space
+                               else "route"),
+              engine_chosen=st.extract_mode)
+    g = float(np.mean([v[0] for v in per_elem.values()]))
+    r = float(np.mean([v[1] for v in per_elem.values()]))
+    phase("xfoot-extract", mean_gather_ns=f"{g:.5f}",
+          mean_route_ns=f"{r:.5f}", constants=scaling.param_provenance())
+
+    # ---- [xfoot-shard]: the worst shard's compute, stock and fused ----
+    for n in (4, 16):
+        t0 = time.perf_counter()
+        local, (tg, srs, prs, sks) = xfoot_worst_local(A, n)
+        plan = RoutedPlan.from_csr(local, dtype=f32, min_gtiles=tg,
+                                   min_srows=srs, min_prows=prs,
+                                   min_sranks=sks, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        xv = DenseVector.random(local.shape[1], dtype=np.float32)
+        yv = DenseVector.constant(local.shape[0], 1.0, dtype=np.float32)
+        xl = torch.from_numpy(xv.values).to(dev)
+        yl = torch.from_numpy(yv.values).to(dev)
+        want_l = spmv_cpu(local, xv, ALPHA, BETA, yv)
+        runs = {"stock": lambda: spmv_routed(plan, xl, ALPHA, BETA, yl),
+                "fused": lambda: spmv_routed_fused1(plan, xl, ALPHA, BETA,
+                                                    yl)}
+        expect = {"stock": dict(none, lane_shuffle=plan.n_route_gathers,
+                                slab_gather=1),
+                  "fused": dict(none, stage_fuse_gather=1,
+                                lane_shuffle=plan.n_route_gathers - 1
+                                + (1 if plan.n_prows else 0))}
+        checks, launched = {}, {}
+        for name, run in runs.items():
+            out, launched[name] = launches_of(counters, run)
+            expect_launches(f"xfoot-shard {name} n={n}", launched[name],
+                            expect[name])
+            checks[name] = checked(f"xfoot-shard {name} n={n}", out, want_l)
+        if not torch.equal(stage_fuse_gather(*pass1_operands(plan, xl)),
+                           pass1_tiles_stock(plan, xl)):
+            raise AssertionError(f"n={n}: P1's pass-1 tiles differ from K2 "
+                                 f"then K1")
+        stage_fuse_gather.launches = 0
+        phase("xfoot-shard", n_shards=n, shape=local.shape, nnz=local.nnz,
+              n_gtiles=plan.n_gtiles, n_prows=plan.n_prows,
+              route_n=plan.route_n, build_s=f"{build_s:.2f}",
+              pass1_bitwise_equal=True, **{f"{k}_launches": v
+                                           for k, v in launched.items()},
+              **{f"{k}_check": v for k, v in checks.items()})
+        for name in ("stock", "fused", "fused", "stock"):
+            phase("xfoot-shard", n_shards=n, path=name,
+                  **call_times(runs[name], local.nnz))
+        if n == 16:
+            kernels["stage_fuse_gather"].update(
+                launches=launched["fused"]["stage_fuse_gather"],
+                **p1_compare(plan, x_slabs_of(plan, xl),
+                             "xfoot worst shard of 16"))
+            plan16, xl16, yl16, want16 = plan, xl, yl, want_l
+
+    # ---- [plancache]: save, load on the card, compare, run once ----
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"xfoot1": (xs1, os.path.join(tmp, "xfoot1.npz")),
+                 "routed16": (plan16, os.path.join(tmp, "routed16.npz"))}
+        t0 = time.perf_counter()
+        for obj, path in files.values():
+            save_plan(path, obj)
+        save_s = time.perf_counter() - t0
+        mb = sum(os.path.getsize(p) for _, p in files.values()) / 1e6
+        t0 = time.perf_counter()
+        loaded = {k: load_plan(p, dev) for k, (_, p) in files.items()}
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for k, (obj, _) in files.items():
+        a, b = _tensors_of(obj), _tensors_of(loaded[k])
+        if len(a) != len(b) or not all(
+                u.device == v.device and u.dtype == v.dtype
+                and torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"plan cache: loaded {k} differs")
+    phase("plancache", files=len(files), mb=f"{mb:.1f}",
+          save_s=f"{save_s:.2f}", load_s=f"{load_s:.2f}",
+          tensors=sum(len(_tensors_of(o)) for o, _ in files.values()),
+          bitwise_equal=True,
+          xfoot_check=checked("loaded xfoot shards", spmv_xfoot(
+              loaded["xfoot1"], xd, ALPHA, BETA, yd, mesh), want),
+          routed_check=checked("loaded routed plan", spmv_routed(
+              loaded["routed16"], xl16, ALPHA, BETA, yl16), want16))
+
+
+def p2_phase(A, Bd, counters, none, kernels) -> None:
+    """[p2]: kernel P2, the B-row window gather, on webbase x K against
+    its plain version, every gathered row against B, and its yardsticks:
+    the flat `index_select` of the same rows in f32 and bf16, and the
+    64-wide row permutation the unfused form would need as a bridge."""
+    import torch.nn.functional as F
+
+    from sblas_tpu_torch.experiments.wcoo_gather_probe import (
+        window_lane_gather, window_lane_gather_plain, window_layout)
+    dev, K, n = Bd.device, Bd.shape[1], A.shape[1]
+    n_pad = -(-n // 128) * 128
+    B = F.pad(Bd, (0, 0, 0, n_pad - Bd.shape[0]))
+    cols = np.sort(A.col_idx.astype(np.int32))
+    wblk, lanes, slot, n_win = window_layout(cols)
+    T = len(wblk)
+    args = (B, torch.from_numpy(wblk).to(dev),
+            torch.from_numpy(lanes).to(dev))
+    err, _, ms, plain_ms = compare(
+        "window_lane_gather", lambda: window_lane_gather(*args),
+        lambda: window_lane_gather_plain(*args), window_lane_gather)
+    out, counts = launches_of(counters, lambda: window_lane_gather(*args))
+    expect_launches("window gather", counts, dict(none, window_lane_gather=1))
+    cols_d = torch.from_numpy(cols.astype(np.int64)).to(dev)
+    picked = out.transpose(1, 2).reshape(T * 128, K)
+    if not torch.equal(picked[torch.from_numpy(slot).to(dev)],
+                       torch.index_select(B, 0, cols_d)):
+        raise AssertionError("P2: a gathered row differs from B's")
+    del out, picked
+    lib_ms = _device_ms(lambda: torch.index_select(B, 0, cols_d))
+    B16 = B.to(torch.bfloat16)
+    lib16_ms = _device_ms(lambda: torch.index_select(B16, 0, cols_d))
+    del B16
+    G = torch.index_select(B, 0, cols_d)
+    perm = torch.randperm(len(cols), device=dev)
+    bridge_ms = _device_ms(lambda: torch.index_select(G, 0, perm))
+    del G
+    rec = bound(T * K * 128 * B.element_size() + nbytes(*args[1:])
+                + n_win * 128 * K * B.element_size(), 0)
+    phase("p2", K=K, tiles=T, windows=n_win, fill=f"{T * 128 / A.nnz:.3f}",
+          rows_checked=len(cols), bitwise_equal=True, launches=counts,
+          ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+          index_select_ms=f"{lib_ms:.5f}",
+          index_select_bf16_ms=f"{lib16_ms:.5f}",
+          bridge_ms=f"{bridge_ms:.5f}",
+          bridge_ns_per_row=f"{bridge_ms * 1e6 / len(cols):.4f}")
+    kernels["window_lane_gather"] = dict(
+        name="window_lane_gather", route="cuda",
+        source="sblas_tpu_torch/csrc/probe_kernels.cu",
+        replaces="experiments/wcoo_gather_probe.py:112",
+        launches=counts["window_lane_gather"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, **rec)
 
 
 def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:

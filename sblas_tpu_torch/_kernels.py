@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
-`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`) each expose
+`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, the
+probes' P1 and P2 `probe_kernels.cu`) each expose
 plain `extern "C"` launchers that return `cudaGetLastError()`.  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
@@ -34,7 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
-           "bsr_kernels.cu")
+           "bsr_kernels.cu", "probe_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -112,6 +113,8 @@ def library() -> ctypes.CDLL:
             "tile_gather": [p, p, p, p, i64, p],
             "window_reduce": [p] * 8 + [i64] * 4 + [p],
             "bell_spmm": [p] * 5 + [i64] * 5 + [f64, f64, p],
+            "stage_fuse_gather": [p] * 6 + [i64, p],
+            "window_lane_gather": [p] * 4 + [i64, i64, p],
         }
         for name, types in argtypes.items():
             for sfx in SUFFIX.values():

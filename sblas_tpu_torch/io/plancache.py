@@ -1,0 +1,239 @@
+"""Plan serialization: save and load any plan as a portable .npz.
+
+Port of `sblas_tpu/io/plancache.py`.  Plans are analysis-heavy (the
+routed engine colours an nnz-edge multigraph at build time: seconds at a
+million rows) and immutable, so they are built once and kept
+(cuSPARSE's `*_analysis`, FFTW's wisdom).  The reference re-analyses on
+every run (matrix.h:341-395).
+
+Covers the six single-device plans and the distributed containers
+(`RowPlanShards`, `HaloDiaShards`, `XFootShards`, with `XFootPlan`) by a
+recursive walk of the dataclass fields: nested plans, tuples of per-shard
+plans (None where a rank does not hold a shard), tensors, numpy arrays,
+tuples of tensors and the `XFootStats` NamedTuple round-trip.
+
+Format (the JAX package's): one .npz holding the dataclass fields, tensors
+as arrays (`a:` tensors, `n:` numpy arrays, `t:<field>:<i>` tuples of
+tensors, dotted and indexed key prefixes for nested objects), the other
+fields as one JSON blob with the arrays' dtypes recorded.  No pickle, so
+files are safe to share; a file written by `sblas_tpu`'s `save_plan` for
+a `RoutedPlan` (or another plan whose fields match the port's) loads
+here.  Tensors load through `put`, by default onto the `device` the
+caller names: there is no implicit device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io as iomod
+import json
+import os
+import zipfile
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..utils.errors import FormatError, require
+
+
+def _plan_registry():
+    from ..ops.bsr import BsrPlan
+    from ..ops.dia import DiaPlan
+    from ..ops.plans import CooPlan, EllPlan
+    from ..ops.rspmv import RoutedPlan
+    from ..ops.wcoo import WcooPlan
+    from ..parallel.planned import HaloDiaShards, RowPlanShards
+    from ..parallel.xfoot import XFootPlan, XFootShards
+    return {c.__name__: c for c in
+            (BsrPlan, CooPlan, DiaPlan, EllPlan, RoutedPlan, WcooPlan,
+             RowPlanShards, HaloDiaShards, XFootShards, XFootPlan)}
+
+
+def _namedtuple_registry():
+    from ..parallel.xfoot import XFootStats
+    return {c.__name__: c for c in (XFootStats,)}
+
+
+def _tuplify(x: Any) -> Any:
+    """JSON round trip: lists -> tuples, recursively (schedules and shapes
+    are tuples and must hash)."""
+    if isinstance(x, list):
+        return tuple(_tuplify(v) for v in x)
+    return x
+
+
+def _is_plan(v, registry) -> bool:
+    return dataclasses.is_dataclass(v) and type(v).__name__ in registry
+
+
+def _dtype_name(dtype) -> str:
+    """numpy's name of a torch or numpy dtype ("float64", "int32", ...)."""
+    return str(dtype).replace("torch.", "")
+
+
+def _flatten(obj, prefix: str, arrays: dict, meta: dict, dtypes: dict,
+             registry: dict) -> None:
+    meta[f"{prefix}__class__"] = type(obj).__name__
+    for f in dataclasses.fields(obj):
+        if f.name.startswith("_"):
+            continue
+        v = getattr(obj, f.name)
+        key = prefix + f.name
+        if _is_plan(v, registry):
+            _flatten(v, key + ".", arrays, meta, dtypes, registry)
+        elif (isinstance(v, tuple) and v
+              and all(e is None or _is_plan(e, registry) for e in v)
+              and any(e is not None for e in v)):
+            # per-shard plans; a None entry (a shard this rank does not
+            # hold) is recorded by its missing class key
+            meta[f"__shards__{key}"] = len(v)
+            for i, e in enumerate(v):
+                if e is not None:
+                    _flatten(e, f"{key}[{i}].", arrays, meta, dtypes,
+                             registry)
+        elif isinstance(v, torch.Tensor):
+            arrays[f"a:{key}"] = v.detach().cpu().numpy()
+            dtypes[f"a:{key}"] = _dtype_name(v.dtype)
+        elif isinstance(v, np.ndarray):
+            arrays[f"n:{key}"] = v
+        elif (isinstance(v, tuple) and v
+              and all(isinstance(e, torch.Tensor) for e in v)):
+            for i, e in enumerate(v):
+                arrays[f"t:{key}:{i}"] = e.detach().cpu().numpy()
+                dtypes[f"t:{key}:{i}"] = _dtype_name(e.dtype)
+            meta[f"__tuplelen__{key}"] = len(v)
+        elif (isinstance(v, tuple) and hasattr(v, "_fields")
+              and type(v).__name__ in _namedtuple_registry()):
+            meta[key] = list(v)
+            meta[f"__nt__{key}"] = type(v).__name__
+        else:
+            meta[key] = v
+
+
+def save_plan(path: str, plan) -> None:
+    """Serialize a plan or a shard container to `path` (.npz, no pickle).
+    The file appears whole or not at all (written aside, then renamed), so
+    a reader on another rank never sees a partial one."""
+    arrays: dict = {}
+    meta: dict = {}
+    dtypes: dict = {}
+    _flatten(plan, "", arrays, meta, dtypes, _plan_registry())
+    # intended dtypes recorded, so a load that would change one fails
+    # loudly instead of silently converting
+    meta["__dtypes__"] = dtypes
+    buf = iomod.BytesIO()
+    np.savez_compressed(buf, __meta__=np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as fh:
+        fh.write(buf.getvalue())
+    os.replace(tmp, path)
+
+
+def load_plan(path: str, device=None, *, put=None,
+              rank: Optional[int] = None):
+    """Load a plan saved by `save_plan` (or by `sblas_tpu`'s).
+
+    Each tensor goes through `put(array)`; the default moves it onto
+    `device`, and one of the two must be given.  `rank` keeps only that
+    shard of a shard container (the others load as None), as the
+    partitioners' `rank=` places them.
+
+    Raises FormatError when a loaded array's dtype differs from the one
+    recorded at save time, and when the file does not match the current
+    plan classes (schema drift): delete it and rebuild."""
+    require(device is not None or put is not None, ValueError,
+            "load_plan needs a device (or a put function)")
+    if put is None:
+        def put(arr):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    def _dev(key, arr, want: Optional[str]):
+        out = put(arr)
+        if want is not None and _dtype_name(out.dtype) != want:
+            raise FormatError(
+                f"plan cache {path}: array {key!r} was saved as {want} but "
+                f"loads as {out.dtype}; re-save the plan")
+        return out
+
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        dtypes = meta.pop("__dtypes__", {})
+        registry = _plan_registry()
+        nt_registry = _namedtuple_registry()
+        files = set(z.files)
+
+        def build(prefix: str):
+            cls = registry[meta[f"{prefix}__class__"]]
+            kwargs = {}
+            # cls(**kwargs) surfaces schema drift (a field added or removed
+            # since the file was saved) as FormatError below
+            for f in dataclasses.fields(cls):
+                if f.name.startswith("_"):
+                    continue
+                key = prefix + f.name
+                if f"{key}.__class__" in meta:
+                    kwargs[f.name] = build(key + ".")
+                elif f"__shards__{key}" in meta:
+                    kwargs[f.name] = tuple(
+                        build(f"{key}[{i}].")
+                        if f"{key}[{i}].__class__" in meta
+                        and (rank is None or i == rank) else None
+                        for i in range(meta[f"__shards__{key}"]))
+                elif f"a:{key}" in files:
+                    kwargs[f.name] = _dev(f"a:{key}", z[f"a:{key}"],
+                                          dtypes.get(f"a:{key}"))
+                elif f"n:{key}" in files:
+                    kwargs[f.name] = z[f"n:{key}"]
+                elif f"__tuplelen__{key}" in meta:
+                    kwargs[f.name] = tuple(
+                        _dev(f"t:{key}:{i}", z[f"t:{key}:{i}"],
+                             dtypes.get(f"t:{key}:{i}"))
+                        for i in range(meta[f"__tuplelen__{key}"]))
+                elif f"__nt__{key}" in meta:
+                    kwargs[f.name] = nt_registry[meta[f"__nt__{key}"]](
+                        *_tuplify(meta[key]))
+                elif key in meta:
+                    kwargs[f.name] = _tuplify(meta[key])
+                # else: a field with a default, left to it
+            return cls(**kwargs)
+
+        try:
+            return build("")
+        except (TypeError, KeyError) as e:
+            raise FormatError(
+                f"plan cache {path} does not match the current plan "
+                f"schema ({e}); delete it and rebuild") from e
+
+
+def place(obj, device, rank: Optional[int] = None):
+    """`obj` as `load_plan(..., device, rank=rank)` would return it from
+    its file: a shard container keeps only shard `rank` (every shard when
+    None) on `device`, a plan moves to `device`."""
+    from ..parallel.planned import _placed
+    if isinstance(getattr(obj, "plans", None), tuple):
+        return dataclasses.replace(obj,
+                                   plans=_placed(obj.plans, device, rank))
+    return obj.to(device)
+
+
+def cached_plan(path: str, build, valid=None, *, device):
+    """Load the plan at `path` onto `device` when the file is readable and
+    `valid(plan)` holds, else `build()` it, save it, and return what
+    `build()` returned.  The one idiom behind the build-once, run-many
+    call sites: an unreadable or schema-drifted file falls through to a
+    rebuild that overwrites it."""
+    if os.path.exists(path):
+        try:
+            plan = load_plan(path, device)
+        except (FormatError, OSError, ValueError, zipfile.BadZipFile):
+            plan = None   # unreadable or drifted: rebuild below
+        if plan is not None and (valid is None or valid(plan)):
+            return plan
+    plan = build()
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    save_plan(path, plan)
+    return plan

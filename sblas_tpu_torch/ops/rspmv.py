@@ -680,6 +680,19 @@ def tile_gather(x_tiles, gidx, gvals) -> torch.Tensor:
 tile_gather.launches = 0   # K2' launches since the last reset
 
 
+def x_slabs_of(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
+    """x after the balanced relabel (one small route), padded and viewed
+    as (n_slabs, 128, 128) slabs."""
+    n = plan.shape[1]
+    n_slabs = _round_up(n, SLAB) // SLAB
+    if plan.xroute_n:
+        xr = apply_route(plan.xroute_schedule,
+                         F.pad(x, (0, plan.xroute_n - n)),
+                         plan.xroute_tables)
+        return xr[: n_slabs * SLAB].reshape(n_slabs, LANES, LANES)
+    return F.pad(x, (0, n_slabs * SLAB - n)).reshape(n_slabs, LANES, LANES)
+
+
 def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
                       pregather: bool = False) -> torch.Tensor:
     """(T_g*SLAB,) contributions vals[i]*x[col[i]] in gather order.
@@ -689,17 +702,7 @@ def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
     torch, as the JAX package leaves it to XLA), then kernel K2' reads
     the tiles in order.  The distributed per-shard SpMV takes it; the
     single-device SpMV keeps K2, as the JAX package does."""
-    n = plan.shape[1]
-    n_slabs = _round_up(n, SLAB) // SLAB
-    if plan.xroute_n:
-        # balanced relabel: x permuted into slot order (one small route)
-        xr = apply_route(plan.xroute_schedule,
-                         F.pad(x, (0, plan.xroute_n - n)),
-                         plan.xroute_tables)
-        x_slabs = xr[: n_slabs * SLAB].reshape(n_slabs, LANES, LANES)
-    else:
-        x_slabs = F.pad(x, (0, n_slabs * SLAB - n)).reshape(
-            n_slabs, LANES, LANES)
+    x_slabs = x_slabs_of(plan, x)
     gvals = plan.gvals.to(x.dtype)
     if pregather:
         x_tiles = torch.index_select(x_slabs, 0, plan.gslab)
@@ -707,24 +710,22 @@ def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
     return slab_gather(plan.gslab, x_slabs, plan.gidx, gvals).reshape(-1)
 
 
-def spmv_routed(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
-                y: torch.Tensor, pregather: bool = False) -> torch.Tensor:
-    """y' = beta*y + alpha*A@x on the plan's device (`pregather`: see
-    `_gathered_contrib`)."""
-    m = plan.shape[0]
-    contrib = _gathered_contrib(plan, x, pregather)
-    if plan.n_prows:
-        # peeled hub columns: one x element per 128-lane row, broadcast
-        xp = torch.index_select(x, 0, plan.prow_col)
-        pc = plan.pvals.to(x.dtype) * xp[:, None]
-        contrib = torch.cat([contrib, pc.reshape(-1)])
-    contrib = F.pad(contrib, (0, plan.route_n - contrib.shape[0]))
-    routed = apply_route(plan.schedule, contrib, plan.tables)
+def peel_contrib(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
+    """(R_p, 128) contributions of the peeled hub columns: one x element
+    per 128-lane row, broadcast."""
+    xp = torch.index_select(x, 0, plan.prow_col)
+    return plan.pvals.to(x.dtype) * xp[:, None]
+
+
+def reduce_routed(plan: RoutedPlan, routed: torch.Tensor) -> torch.Tensor:
+    """A@x (m,) from the contributions in lane-stack order: the sorted
+    segment sum, the heavy-row merge and the un-relabel route."""
     stack = routed[: plan.n_srows * LANES].reshape(plan.n_srows, LANES)
     # sorted segment sum over the stack rows; on CUDA index_add_ adds with
     # atomics, so the order of the additions (not the set) varies by run
-    blocks = torch.zeros(plan.n_blocks, LANES, dtype=x.dtype,
-                         device=x.device).index_add_(0, plan.brow_ids, stack)
+    blocks = torch.zeros(plan.n_blocks, LANES, dtype=routed.dtype,
+                         device=routed.device).index_add_(
+                             0, plan.brow_ids, stack)
     y_srank = blocks.reshape(-1)  # (m_pad + n_extra,): primary | appendix
     y_rank = y_srank[: plan.n_rank_pad]
     if plan.merged:
@@ -733,5 +734,17 @@ def spmv_routed(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
         y_rank = y_rank.index_add(0, plan.merge_ids,
                                   y_srank[plan.n_rank_pad:])
     y_rank = F.pad(y_rank, (0, plan.unrank_n - y_rank.shape[0]))
-    ax = apply_route(plan.unrank_schedule, y_rank, plan.unrank_tables)[:m]
-    return beta * y + alpha * ax
+    return apply_route(plan.unrank_schedule, y_rank,
+                       plan.unrank_tables)[: plan.shape[0]]
+
+
+def spmv_routed(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
+                y: torch.Tensor, pregather: bool = False) -> torch.Tensor:
+    """y' = beta*y + alpha*A@x on the plan's device (`pregather`: see
+    `_gathered_contrib`)."""
+    contrib = _gathered_contrib(plan, x, pregather)
+    if plan.n_prows:
+        contrib = torch.cat([contrib, peel_contrib(plan, x).reshape(-1)])
+    contrib = F.pad(contrib, (0, plan.route_n - contrib.shape[0]))
+    routed = apply_route(plan.schedule, contrib, plan.tables)
+    return beta * y + alpha * reduce_routed(plan, routed)

@@ -16,9 +16,13 @@ without a launcher).  `--device` has no default.
 The cases: mode 1 (over a BELL and a windowed-COO plan), mode 2 and the
 distributed SpMV with both reductions, the halo SpMV, the planned modes
 for every shard kind (routed through kernel K2'), the halo-planned SpMV
-and SpMM, and the two-tier modes (2 x n/2 groups for an even n >= 4,
-else 1 x n).  It raises if any rank fails; with `save_dir`, rank 0
-writes every whole result to `save_dir/cases.npz`.
+and SpMM, the two-tier modes (2 x n/2 groups for an even n >= 4, else
+1 x n), and the footprint-compressed x exchange: on the banded A with
+the default engine, on a small web graph W (hubs make a hot set) with
+the route engine forced, and over routed shards of U with the route
+engine (kernels K1 and K2' under the exchange).  It raises if any rank
+fails; with `save_dir`, rank 0 writes every whole result to
+`save_dir/cases.npz`.
 """
 
 from __future__ import annotations
@@ -47,14 +51,19 @@ def hier_split(n: int):
 
 def case_operands(n: int) -> dict:
     """The dry run's matrices and dense operands, from seeds (f64): A
-    banded and square, U unstructured (128·max(n,4)/4 x 512)."""
+    banded and square, U unstructured (128·max(n,4)/4 x 512), W a small
+    web graph (512·max(n,4) rows)."""
     from ..containers import DenseMatrix, DenseVector
-    from ..io.generate import fem_banded_like, uniform_random
+    from ..io.generate import fem_banded_like, uniform_random, webbase_like
     A = fem_banded_like(n=16 * max(n, 4), half_band=3, dtype=np.float64)
     U = uniform_random(32 * max(n, 4), 512, nnz_per_row=3, seed=5,
                        dtype=np.float64)
+    W = webbase_like(n=512 * max(n, 4), avg_deg=3.0, seed=6,
+                     local_scale=60.0, dtype=np.float64)
     k = 2 * n
-    return dict(A=A, U=U, B=DenseMatrix.random(A.width, k),
+    return dict(A=A, U=U, W=W, xW=DenseVector.random(W.width),
+                yW=DenseVector.constant(W.height, 1.0),
+                B=DenseMatrix.random(A.width, k),
                 C=DenseMatrix.constant(A.height, k, 1.0),
                 x=DenseVector.random(A.width),
                 y=DenseVector.constant(A.height, 1.0),
@@ -73,21 +82,22 @@ def run_cases(mesh) -> dict:
     from ..partition import partition_nnz_balanced, partition_row_blocks
     from ..utils.verify import assert_equal
     from . import (make_mesh2, partition_halo_dia, partition_row_plans,
-                   spmm_halo_planned, spmm_mode1, spmm_mode2,
-                   spmm_mode2_hier, spmm_mode2_planned, spmv_dist,
-                   spmv_dist_hier, spmv_dist_planned, spmv_halo,
-                   spmv_halo_planned, sync_to_host)
+                   partition_xfoot, spmm_halo_planned, spmm_mode1,
+                   spmm_mode2, spmm_mode2_hier, spmm_mode2_planned,
+                   spmv_dist, spmv_dist_hier, spmv_dist_planned, spmv_halo,
+                   spmv_halo_planned, spmv_xfoot, sync_to_host)
 
     n, dev, rank, f64 = mesh.size, mesh.device, mesh.rank, torch.float64
     a, b = ALPHA, BETA
     op = case_operands(n)
-    A, U = op["A"], op["U"]
+    A, U, W = op["A"], op["U"], op["W"]
     t = {k: torch.from_numpy(v.values).to(dev) for k, v in op.items()
-         if k not in ("A", "U")}
+         if k not in ("A", "U", "W")}
     want = dict(mm=spmm_cpu(A, op["B"], a, b, op["C"]),
                 mv=spmv_cpu(A, op["x"], a, b, op["y"]),
                 mmU=spmm_cpu(U, op["BU"], a, b, op["CU"]),
-                mvU=spmv_cpu(U, op["xU"], a, b, op["yU"]))
+                mvU=spmv_cpu(U, op["xU"], a, b, op["yU"]),
+                mvW=spmv_cpu(W, op["xW"], a, b, op["yW"]))
     results = {}
 
     def case(name, out, oracle, dim=None, on=mesh):
@@ -137,6 +147,16 @@ def run_cases(mesh) -> dict:
          mesh2.chips)
     case("hier_routed_spmv", spmv_dist_hier(routed, xU, a, b, yU, mesh2),
          "mvU", 0, mesh2.chips)
+
+    # footprint-compressed x exchange: hot all-reduce + packet all_to_all
+    xs = partition_xfoot(A, n, rank=rank, **kw)
+    case("xfoot", spmv_xfoot(xs, x, a, b, y, mesh), "mv", 0)
+    xs = partition_xfoot(W, n, kind="coo", extract="route", rank=rank, **kw)
+    case("xfoot_route", spmv_xfoot(xs, t["xW"], a, b, t["yW"], mesh), "mvW",
+         0)
+    xs = partition_xfoot(U, n, kind="routed", extract="route", rank=rank,
+                         config=SBlasConfig(**ROUTED_CONFIG), **kw)
+    case("xfoot_routed", spmv_xfoot(xs, xU, a, b, yU, mesh), "mvU", 0)
     return results
 
 

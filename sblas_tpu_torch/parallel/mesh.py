@@ -13,6 +13,8 @@ as
     lax.psum_scatter(tiled)     -> dist.reduce_scatter_tensor
                                                           (`reduce_scatter`)
     the lax.ppermute ring       -> dist.batch_isend_irecv (`ring_exchange`)
+    lax.all_to_all(split_axis=0, concat_axis=0)
+                                -> dist.all_to_all_single (`all_to_all`)
 
 A `Mesh` with `group=None` runs no collective: it serves the per-rank
 compute (the `*_nocomm` twins) for any rank of any size, with or without
@@ -122,6 +124,21 @@ def ring_exchange(blk: torch.Tensor, mesh: Mesh):
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return from_left, from_right
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Block j of `t` along dim 0 goes to rank j; block i of the result
+    came from rank i (lax.all_to_all(split_axis=0, concat_axis=0)).  dim 0
+    must divide by the mesh size; the identity at size 1."""
+    group = _group_of(mesh)
+    if mesh.size == 1:
+        return t
+    require(t.shape[0] % mesh.size == 0, PartitionError,
+            f"all_to_all of {t.shape[0]} rows over {mesh.size} ranks")
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
 
 
 def _as_tensor(arr, device) -> torch.Tensor:

@@ -312,3 +312,99 @@ def test_spmm_paths_on_card_match_cpu(dev, dtype, np_dtype):
         assert (tw.window_reduce.launches, tb.bell_spmm.launches) == (k3, k4)
         scale = max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= tol * scale, kind
+
+
+# ---- P1 (stage_fuse_gather), P2 (window_lane_gather) and xfoot ----
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (188, 62)])
+def test_stage_fuse_gather_kernel_matches_plain(dev, dtype, n_tiles,
+                                                n_slabs):
+    from sblas_tpu_torch.experiments import stage_fuse_probe as sf
+    g = torch.Generator(device=dev).manual_seed(n_tiles)
+    shape = (n_tiles, 128, 128)
+    x_slabs = torch.randn((n_slabs, 128, 128), generator=g, device=dev,
+                          dtype=dtype)
+    gslab = torch.randint(0, n_slabs, (n_tiles,), generator=g, device=dev,
+                          dtype=torch.int32)
+    gidx, i1 = (torch.randint(0, 128, shape, generator=g, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+    gvals = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    before = sf.stage_fuse_gather.launches
+    got = sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1)
+    torch.cuda.synchronize()
+    assert sf.stage_fuse_gather.launches == before + 1
+    assert torch.equal(got, sf.stage_fuse_gather_plain(gslab, x_slabs, gidx,
+                                                       gvals, i1))
+    with pytest.raises(KernelError):
+        sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1.long())
+    with pytest.raises(ShapeError):
+        sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1[:, :64])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb,T,k", [(1, 1, 64), (7, 20, 64), (5, 9, 45)])
+def test_window_lane_gather_kernel_matches_plain(dev, dtype, nb, T, k):
+    from sblas_tpu_torch.experiments import wcoo_gather_probe as wg
+    g = torch.Generator(device=dev).manual_seed(T)
+    B = torch.randn((nb * 128, k), generator=g, device=dev, dtype=dtype)
+    wblk = torch.randint(0, nb, (T,), generator=g, device=dev,
+                         dtype=torch.int32)
+    idx = torch.randint(0, 128, (T, 1, 128), generator=g, device=dev,
+                        dtype=torch.int32)
+    before = wg.window_lane_gather.launches
+    got = wg.window_lane_gather(B, wblk, idx)
+    torch.cuda.synchronize()
+    assert wg.window_lane_gather.launches == before + 1
+    assert torch.equal(got, wg.window_lane_gather_plain(B, wblk, idx))
+    with pytest.raises(KernelError):
+        wg.window_lane_gather(B[:100], wblk, idx)
+    with pytest.raises(ShapeError):
+        wg.window_lane_gather(B, wblk, idx[:, :, :64])
+
+
+@pytest.mark.parametrize("dtype,np_dtype", [(torch.float64, np.float64),
+                                            (torch.float32, np.float32)])
+def test_spmv_routed_fused1_on_card(dev, dtype, np_dtype):
+    """The fused SpMV on the card: P1 once, its pass-1 tiles bitwise equal
+    to K2 then K1's first layer, and the result equal to the CPU's."""
+    from sblas_tpu_torch.experiments import stage_fuse_probe as sf
+    from sblas_tpu_torch.parallel.xfoot import xfoot_worst_local
+    A = webbase_like(n=100_000, avg_deg=4.0, dtype=np_dtype)
+    local, (tg, srs, prs, sks) = xfoot_worst_local(A, 4)
+    cpu = tr.RoutedPlan.from_csr(local, dtype=dtype, min_gtiles=tg,
+                                 min_srows=srs, min_prows=prs,
+                                 min_sranks=sks, device="cpu")
+    plan = cpu.to(dev)
+    x = torch.from_numpy(DenseVector.random(local.shape[1],
+                                            dtype=np_dtype).values)
+    y = torch.zeros(local.shape[0], dtype=dtype)
+    sf.stage_fuse_gather.launches = 0
+    got = sf.spmv_routed_fused1(plan, x.to(dev), 1.0, 0.0, y.to(dev))
+    torch.cuda.synchronize()
+    assert sf.stage_fuse_gather.launches == 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got.cpu(), sf.spmv_routed_fused1(
+        cpu, x, 1.0, 0.0, y), rtol=tol, atol=tol)
+    xd = x.to(dev)
+    assert torch.equal(sf.stage_fuse_gather(*sf.pass1_operands(plan, xd)),
+                       sf.pass1_tiles_stock(plan, xd))
+
+
+@pytest.mark.parametrize("engine", ["flat", "route"])
+def test_xfoot_ranks_on_card(dev, engine):
+    """Each of four xfoot ranks' compute (no process group) on the card
+    equals the CPU's, through both extraction engines."""
+    from sblas_tpu_torch.io.plancache import place
+    from sblas_tpu_torch.parallel import (partition_xfoot,
+                                          spmv_xfoot_nocomm)
+    from sblas_tpu_torch.parallel.mesh import Mesh
+    A = webbase_like(n=100_000, avg_deg=4.0, dtype=np.float64)
+    cpu = partition_xfoot(A, 4, dtype=torch.float64, kind="coo",
+                          extract=engine, device="cpu")
+    on_card = place(cpu, dev)
+    x = torch.from_numpy(DenseVector.random(A.width).values)
+    for s in range(4):
+        got = spmv_xfoot_nocomm(on_card, x.to(dev), Mesh(None, s, 4, dev))
+        want = spmv_xfoot_nocomm(cpu, x, Mesh(None, s, 4, "cpu"))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)

@@ -41,8 +41,7 @@ from sblas_tpu_torch.ops import rspmv as tr
 from sblas_tpu_torch.parallel import dryrun
 from sblas_tpu_torch.parallel.mesh import Mesh, ring_exchange
 from sblas_tpu_torch.partition import partition_nnz_balanced
-from sblas_tpu_torch.utils.errors import (KernelError, NotPortedError,
-                                          PartitionError)
+from sblas_tpu_torch.utils.errors import KernelError, PartitionError
 from sblas_tpu_torch.utils.verify import check_equal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +58,7 @@ ORACLE = {
     "planned_routed_psum": "mvU", "planned_routed_psum_scatter": "mvU",
     "halo_planned_spmv": "mv", "halo_planned_spmm": "mm",
     "hier_spmm": "mm", "hier_spmv": "mv", "hier_routed_spmv": "mvU",
+    "xfoot": "mv", "xfoot_route": "mvW", "xfoot_routed": "mvU",
 }
 CASES = sorted(ORACLE)
 
@@ -74,20 +74,21 @@ def _port(A):
 @functools.lru_cache(maxsize=None)
 def _operands(n):
     op = dryrun.case_operands(n)
-    A, U = _jax_csr(op["A"]), _jax_csr(op["U"])
+    A, U, W = (_jax_csr(op[k]) for k in ("A", "U", "W"))
     d = {k: jnp.asarray(v.values) for k, v in op.items()
-         if k not in ("A", "U")}
+         if k not in ("A", "U", "W")}
     want = dict(mm=spmm_cpu(A, op["B"], A_, B_, op["C"]),
                 mv=spmv_cpu(A, op["x"], A_, B_, op["y"]),
                 mmU=spmm_cpu(U, op["BU"], A_, B_, op["CU"]),
-                mvU=spmv_cpu(U, op["xU"], A_, B_, op["yU"]))
-    return A, U, d, want
+                mvU=spmv_cpu(U, op["xU"], A_, B_, op["yU"]),
+                mvW=spmv_cpu(W, op["xW"], A_, B_, op["yW"]))
+    return A, U, W, d, want
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_cases(n):
     """The JAX package's result of every dryrun case on n devices."""
-    A, U, d, _ = _operands(n)
+    A, U, W, d, _ = _operands(n)
     mesh = jpar.make_mesh(n)
     B, C, x, y = d["B"], d["C"], d["x"], d["y"]
     xU, yU = d["xU"], d["yU"]
@@ -126,12 +127,21 @@ def _jax_cases(n):
     out["hier_spmv"] = jpar.spmv_dist_hier(sh, x, A_, B_, y, mesh2)
     out["hier_routed_spmv"] = jpar.spmv_dist_hier(routed, xU, A_, B_, yU,
                                                   mesh2)
+    out["xfoot"] = jpar.spmv_xfoot(jpar.partition_xfoot(A, n, dtype=F64),
+                                   x, A_, B_, y, mesh)
+    out["xfoot_route"] = jpar.spmv_xfoot(
+        jpar.partition_xfoot(W, n, dtype=F64, kind="coo", extract="route"),
+        d["xW"], A_, B_, d["yW"], mesh)
+    out["xfoot_routed"] = jpar.spmv_xfoot(
+        jpar.partition_xfoot(U, n, dtype=F64, kind="routed", extract="route",
+                             config=JConfig(**dryrun.ROUTED_CONFIG)),
+        xU, A_, B_, yU, mesh)
     return {k: np.asarray(jax.device_get(v)) for k, v in out.items()}
 
 
 def _assert_case(n, name, got):
     want_j = _jax_cases(n)[name]
-    oracle = _operands(n)[3][ORACLE[name]]
+    oracle = _operands(n)[4][ORACLE[name]]
     assert got.shape == want_j.shape == oracle.shape
     np.testing.assert_allclose(got, want_j, rtol=1e-12, atol=1e-12)
     assert check_equal(got, oracle).ok and check_equal(want_j, oracle).ok
@@ -488,8 +498,3 @@ def test_cli_hier_slices_must_divide(mtx_dir):
         spmv_test.main([_mtx(mtx_dir, "band"), "3", "4", "1", "--mode",
                         "hier", "--device", "cpu"])
 
-
-def test_cli_xfoot_still_not_ported(mtx_dir):
-    with pytest.raises(NotPortedError, match="xfoot"):
-        spmv_test.main([_mtx(mtx_dir, "band"), "3", "4", "1", "--mode",
-                        "xfoot", "--device", "cpu"])

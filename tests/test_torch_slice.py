@@ -186,16 +186,7 @@ def test_cli_single_cpu(tmp_path, capsys, name, dtype, kind):
     assert "cpu host clock" in out
 
 
-@pytest.mark.parametrize("mode", ["xfoot"])
-def test_cli_other_modes_not_ported(tmp_path, mode):
-    path = _write(tmp_path, MATRICES["tiny"](), "t.mtx")
-    with pytest.raises(NotPortedError, match=f"--mode {mode}"):
-        spmv_test.main([path, "3", "4", "1", "--mode", mode,
-                        "--device", "cpu"])
-
-
-@pytest.mark.parametrize("flag", ["--plan-cache p.pkl", "--transport bf16",
-                                  "--progressive"])
+@pytest.mark.parametrize("flag", ["--transport bf16", "--progressive"])
 def test_cli_other_flags_not_ported(tmp_path, flag):
     path = _write(tmp_path, MATRICES["tiny"](), "t.mtx")
     with pytest.raises(NotPortedError, match=flag.split()[0]):
@@ -227,6 +218,10 @@ def test_port_imports_no_jax():
             "import sblas_tpu_torch.partition, sblas_tpu_torch.parallel\n"
             "import sblas_tpu_torch.parallel.dryrun\n"
             "import sblas_tpu_torch.memory.host\n"
+            "import sblas_tpu_torch.parallel.xfoot, sblas_tpu_torch.scaling\n"
+            "import sblas_tpu_torch.io.plancache\n"
+            "import sblas_tpu_torch.experiments.stage_fuse_probe\n"
+            "import sblas_tpu_torch.experiments.wcoo_gather_probe\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'sblas_tpu.')) "
             "or m == 'sblas_tpu')\n"
