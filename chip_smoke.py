@@ -5,7 +5,8 @@
 Builds the hand-written CUDA kernels from `sblas_tpu_torch/csrc/`, holds
 each against its plain PyTorch version at the shapes its main path gives
 it (K1/K2/K2'/P1/P2 bitwise, K3/K4 within a stated tolerance, each
-deterministic),
+deterministic; K4's bound is that of f32-accurate 3xTF32 work on the
+tensor cores, with the f32 CUDA-core bound printed beside it),
 then runs every main path at full size, counting kernel launches on each:
 
     webbase_like() (1M rows, f32) -> make_plan(op="spmv") -> RoutedPlan
@@ -72,10 +73,12 @@ import torch
 
 ALPHA, BETA = 3.0, 4.0
 SEED = 211
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and the
-# float32 CUDA-core rate; `bound_ms` is the larger of the two times.
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, the
+# float32 CUDA-core rate and the TF32 tensor-core rate; `bound_ms` is the
+# larger of the bytes' time and the operations' time.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 # K3/K4 sum in another order than their plain versions (index_add_,
 # einsum): max |kernel - plain| / max(1, max |plain|) must stay below this
 F32_REL_TOL = 1e-5
@@ -95,11 +98,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, rate: float = FP32_FLOPS) -> dict:
     """Least time the card could take: bytes over the HBM rate or
-    operations over the f32 peak, whichever is larger."""
+    operations over `rate` (the f32 CUDA-core peak unless named),
+    whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -359,7 +363,7 @@ def main() -> int:
     Cw = DenseMatrix.constant(A.height, K, 1.0, dtype=np.float32).values
     Bd, Cd = torch.from_numpy(Bw).to(dev), torch.from_numpy(Cw).to(dev)
     kc = k_chunk_width(wplan.n_tiles, K)
-    k3_args = (wplan.tstart, wplan.wb, wplan.relrow, wplan.vals, wplan.xblk,
+    k3_args = (wplan.k3, wplan.wb, wplan.relrow, wplan.vals, wplan.xblk,
                wplan.lane, Bd, 0, kc)
     err, rel, ms, plain_ms = compare(
         "window_reduce", lambda: window_reduce(*k3_args),
@@ -367,7 +371,8 @@ def main() -> int:
     A_csr = sparse_csr(A, dev)
     lib_ms = _device_ms(lambda: torch.sparse.mm(A_csr, Bd[:, :kc]))
     phase("K3 window_reduce", n_tiles=wplan.n_tiles, kc=kc,
-          nb=wplan.n_row_blocks, max_abs_err=f"{err:.3e}",
+          nb=wplan.n_row_blocks, units=wplan.k3_units.shape[0],
+          k3_rows=wplan.k3_rows.shape[0], max_abs_err=f"{err:.3e}",
           rel_err=f"{rel:.3e}", tol=F32_REL_TOL, deterministic=True,
           ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
           library_ms=f"{lib_ms:.5f}")
@@ -376,7 +381,8 @@ def main() -> int:
         source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
         replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(nbytes(*k3_args[:6]) + Bd.shape[0] * kc * 4
+        **bound(nbytes(wplan.k3_units, wplan.k3_rows, *k3_args[1:6])
+                + Bd.shape[0] * kc * 4
                 + wplan.n_row_blocks * 128 * kc * 4, 2 * A.nnz * kc))
     del A_csr
     want = oracle_spmm(A, Bw, Cw)
@@ -442,18 +448,25 @@ def main() -> int:
     lib_ms = _device_ms(lambda: torch.addmm(Cd, F_csr, Bd, beta=BETA,
                                             alpha=ALPHA))
     n_blocks = bell_stats(F)["n_blocks"]
+    # f32-accurate work on this card: 3xTF32, three tensor-core products
+    # per f32 product; the CUDA-core f32 bound is printed beside it
+    k4_bytes = nbytes(bplan.vals, bplan.bcol, Bd, Cd, Cd)
+    k4_flops = 2 * n_blocks * 128 * 128 * K4
+    k4_bound = bound(k4_bytes, 3 * k4_flops, rate=TF32_FLOPS)
     phase("K4 bell_spmm", n_brows=bplan.vals.shape[0], slots=bplan.slots,
           n_blocks=n_blocks, K=K4, max_abs_err=f"{err:.3e}",
           rel_err=f"{rel:.3e}", tol=F32_REL_TOL, deterministic=True,
           ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-          library_ms=f"{lib_ms:.5f}")
+          library_ms=f"{lib_ms:.5f}",
+          bound_ms=f"{k4_bound['bound_ms']:.5f}",
+          bound_by=k4_bound["bound_by"],
+          share_of_bound=f"{k4_bound['bound_ms'] / ms:.3f}",
+          fp32_core_bound_ms=f"{bound(k4_bytes, k4_flops)['bound_ms']:.5f}")
     kernels["bell_spmm"] = dict(
         name="bell_spmm", route="cuda",
         source="sblas_tpu_torch/csrc/bsr_kernels.cu",
         replaces="sblas_tpu/ops/bsr_pallas.py:37", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(nbytes(bplan.vals, bplan.bcol, Bd, Cd, Cd),
-                2 * n_blocks * 128 * 128 * K4))
+        plain_ms=plain_ms, library_ms=lib_ms, **k4_bound)
     del F_csr
     want = oracle_spmm(F, Bb, Cb)
     out, counts = launches_of(counters,

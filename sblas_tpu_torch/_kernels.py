@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
             "lane_shuffle": [p, p, p, i64, p],
             "slab_gather": [p, p, p, p, p, i64, p],
             "tile_gather": [p, p, p, p, i64, p],
-            "window_reduce": [p] * 8 + [i64] * 4 + [p],
+            "window_reduce": [p] * 10 + [i64] * 5 + [p],
             "bell_spmm": [p] * 5 + [i64] * 5 + [f64, f64, p],
             "stage_fuse_gather": [p] * 6 + [i64, p],
             "window_lane_gather": [p] * 4 + [i64, i64, p],

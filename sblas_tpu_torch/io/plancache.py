@@ -17,9 +17,11 @@ as arrays (`a:` tensors, `n:` numpy arrays, `t:<field>:<i>` tuples of
 tensors, dotted and indexed key prefixes for nested objects), the other
 fields as one JSON blob with the arrays' dtypes recorded.  No pickle, so
 files are safe to share; a file written by `sblas_tpu`'s `save_plan` for
-a `RoutedPlan` (or another plan whose fields match the port's) loads
-here.  Tensors load through `put`, by default onto the `device` the
-caller names: there is no implicit device.
+a `RoutedPlan` or a `WcooPlan` (or another plan whose fields match the
+port's) loads here: a plan class's port-only fields (`PORT_FIELDS`)
+missing from a file are derived by its `port_fields`.  Tensors load
+through `put`, by default onto the `device` the caller names: there is
+no implicit device.
 """
 
 from __future__ import annotations
@@ -197,6 +199,18 @@ def load_plan(path: str, device=None, *, put=None,
                 elif key in meta:
                     kwargs[f.name] = _tuplify(meta[key])
                 # else: a field with a default, left to it
+            missing = [name for name in getattr(cls, "PORT_FIELDS", ())
+                       if name not in kwargs]
+            if missing:
+                # a file without the port-only fields (written by
+                # sblas_tpu, or before the fields existed): derived from
+                # the plan's arrays, as `from_numpy` derives them
+                host = {f.name: z[f"a:{prefix}{f.name}"]
+                        for f in dataclasses.fields(cls)
+                        if f"a:{prefix}{f.name}" in files}
+                derived = cls.port_fields(host, kwargs)
+                kwargs.update({name: put(derived[name])
+                               for name in missing})
             return cls(**kwargs)
 
         try:

@@ -4,9 +4,11 @@ Port of `sblas_tpu/ops/bsr_pallas.py`, whose Pallas kernel
 `_spmm_kernel` streamed B's (128, K) tiles by scalar-prefetched block
 column and kept each output block resident across the slot loop, with
 the alpha/beta epilogue folded into the last slot.  K4 does the same in
-one launch: one CUDA thread block per (block-row, 64-column slab) loops
-over the slots itself and writes beta*C + alpha*acc once.  It runs in true
-f32 (or f64) FMAs.
+one launch: one CUDA thread block per (block-row, column tile) loops
+over the slots itself and writes beta*C + alpha*acc once.  In f32 it runs
+3xTF32 on the tensor cores (each operand split into two TF32 parts, three
+products kept), about f32's accuracy whatever torch's TF32 flag says; in
+f64 it runs f64 FMAs.
 
 `make_plan`'s dispatcher takes this path for K >= 256 on CUDA
 (`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.

@@ -13,19 +13,23 @@ reduces).  The H100 gathers and scatters directly, so:
 
 * SpMV: `vals * x[col]`, then `index_add_` on the absolute row ids;
 * SpMM: kernel K3 (`window_reduce`, csrc/wcoo_kernels.cu) gathers the B
-  rows and reduces each output block in one launch per column chunk,
-  with the JAX package's chunk width, so the launch count is its chunk
-  count.
+  rows and reduces them, one call per column chunk with the JAX package's
+  chunk width, so the call count is its chunk count.
 
-`tstart` is a port-only plan field derived from `wb` (K3's per-block tile
-ranges); `visit0`/`visit1` stay for parity of the arrays, though no
+K3 balances its work by entries, not rows: the real slots (row-sorted in
+CSR order) are cut into units of at most `UNIT` slots, one warp each,
+and rows that cross a unit boundary are summed from per-unit carries in
+a second pass.  Its tables, `k3_units` and `k3_rows` (`k3_tables`), are
+port-only plan fields, built once with the plan and derived from the
+JAX package's arrays when a plan comes from there or from an older
+cache file.  `visit0`/`visit1` stay for parity of the arrays, though no
 kernel here needs them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +37,13 @@ import torch
 from .. import _kernels
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from ..utils.errors import KernelError, PlanError, require
 from .plans import Plan, _round_up, np_value_dtype
 
 TILE = 512          # nnz per tile
 WINDOW = 256        # row-window depth (two 128 blocks)
+UNIT = 128          # K3 work unit: at most this many slots, one warp
+_LEFT, _RIGHT = 1 << 16, 1 << 17   # k3_units[:, 1] flags above the length
 
 # Transient budget of spmm_wcoo in elements, and the widest K-chunk: kept
 # equal to the JAX package's so the chunk count (K3's launch count) is
@@ -57,7 +64,8 @@ class WcooPlan(Plan):
     wb: (T,) i32          window block id per tile (monotone)
     visit0/visit1: (n_row_blocks,) {0,1} blocks a tile's first/second
                           half visits
-    tstart: (n_row_blocks+1,) i32  first tile with wb >= j (port only)
+    k3_units: (U, 2) i32  K3's work units (port only, `k3_tables`)
+    k3_rows: (R, 3) i32   rows K3's second pass writes (port only)
     """
 
     xblk: torch.Tensor
@@ -68,7 +76,8 @@ class WcooPlan(Plan):
     wb: torch.Tensor
     visit0: torch.Tensor
     visit1: torch.Tensor
-    tstart: torch.Tensor
+    k3_units: torch.Tensor
+    k3_rows: torch.Tensor
     shape: Tuple[int, int]
     nnz: int
     n_tiles: int
@@ -79,13 +88,27 @@ class WcooPlan(Plan):
         """Stored slots / true nnz (tile-split + padding overhead)."""
         return self.vals.shape[0] / max(self.nnz, 1)
 
+    @property
+    def k3(self) -> "K3Schedule":
+        """K3's schedule, the first argument of `window_reduce`."""
+        return K3Schedule(self.k3_units, self.k3_rows, self.n_row_blocks)
+
+    PORT_FIELDS = ("k3_units", "k3_rows")
+
+    @staticmethod
+    def port_fields(fields: dict, meta: dict) -> dict:
+        """The port-only fields, from the plan's host arrays (`fields`) and
+        `n_row_blocks` (in `meta`)."""
+        return k3_tables(*(np.asarray(fields[k]) for k in
+                           ("wb", "relrow", "vals", "xblk", "lane")),
+                         int(meta["n_row_blocks"]))
+
     @classmethod
     def from_numpy(cls, fields: dict, meta: dict, device) -> "WcooPlan":
-        """As `Plan.from_numpy`; `tstart` is derived from `wb` when the
-        fields (e.g. the JAX package's plan) lack it."""
-        if "tstart" not in fields:
-            fields = dict(fields, tstart=tile_starts(
-                np.asarray(fields["wb"]), int(meta["n_row_blocks"])))
+        """As `Plan.from_numpy`; the port-only fields are derived when the
+        fields (e.g. the JAX package's plan) lack them."""
+        if any(k not in fields for k in cls.PORT_FIELDS):
+            fields = dict(cls.port_fields(fields, meta), **fields)
         return super().from_numpy(fields, meta, device)
 
     @classmethod
@@ -102,11 +125,81 @@ class WcooPlan(Plan):
                               device)
 
 
-def tile_starts(wb: np.ndarray, nb: int) -> np.ndarray:
-    """(nb+1,) int32: tstart[j] = first tile t with wb[t] >= j, so the
-    tiles touching output block b are [tstart[b-1], tstart[b+1])."""
-    return np.searchsorted(wb, np.arange(nb + 1), side="left").astype(
-        np.int32)
+class K3Schedule(NamedTuple):
+    """K3's tables (`k3_tables`) and the height of its row grid, in
+    128-row blocks."""
+    units: torch.Tensor
+    rows: torch.Tensor
+    n_row_blocks: int
+
+
+def _real_slot_counts(relrow: np.ndarray, vals: np.ndarray,
+                     xblk: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    """(T,) real slots of each tile: one past its last slot that is not
+    all zeros.  A tile's padding (val, relrow, xblk, lane all 0) trails
+    its entries; an entry that is all zeros adds 0 * B[0] to its row, so
+    counting it out changes nothing for finite B."""
+    T = relrow.shape[0]
+    live = ((relrow.reshape(T, TILE) != 0) | (vals.reshape(T, TILE) != 0)
+            | (xblk.reshape(T, TILE) != 0) | (lane.reshape(T, TILE) != 0))
+    last = TILE - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0)
+
+
+def k3_tables(wb, relrow, vals, xblk, lane, n_row_blocks: int,
+              unit: int = UNIT) -> dict:
+    """K3's work tables, from the plan's host arrays.
+
+    The real slots, in slot order, hold non-decreasing rows (CSR order,
+    tile after tile).  Each tile's real slots are cut into units of at
+    most `unit` slots (`unit` divides TILE, so a unit lies in one tile):
+
+    * ``k3_units`` (U, 2) int32: each unit's first slot, and its length
+      with `_LEFT` set where its first row continues from the unit before
+      and `_RIGHT` where its last row continues into the unit after.
+      Each unit stores the rows that lie wholly inside it; a first row
+      marked `_LEFT` goes to its carry 0 and any other last row marked
+      `_RIGHT` to its carry 1.
+    * ``k3_rows`` (R, 3) int32 `(row, u0, u1)`, by row: every row of the
+      grid that no unit stores.  A row spanning units u0 < u1 (a boundary
+      row) is carry 1 of u0 plus carry 0 of u0+1 .. u1, in that order;
+      a row with no real slot has the empty range (0, -1) and is 0.
+
+    So every row of the `n_row_blocks * 128` grid has exactly one owner."""
+    require(TILE % unit == 0, PlanError,
+            f"unit {unit} must divide the tile of {TILE}")
+    T = wb.shape[0]
+    require(T * TILE < 2 ** 31, PlanError,
+            f"{T} tiles exceed K3's int32 slot index")
+    n_real = _real_slot_counts(relrow, vals, xblk, lane)
+    per_tile = -(-n_real // unit)
+    tile = np.repeat(np.arange(T), per_tile)
+    j = np.arange(tile.size) - np.repeat(np.cumsum(per_tile) - per_tile,
+                                         per_tile)
+    start = tile * TILE + j * unit
+    length = np.minimum(unit, n_real[tile] - j * unit)
+    rows = (np.asarray(wb, np.int64)[:, None] * 128
+            + relrow.reshape(T, TILE))[np.arange(TILE) < n_real[:, None]]
+    require(bool(np.all(np.diff(rows) >= 0)), PlanError,
+            "K3 needs the real slots in row order")
+    ends = np.cumsum(length)
+    first, last = rows[ends - length], rows[ends - 1]
+    left = np.zeros(tile.size, bool)
+    right = np.zeros(tile.size, bool)
+    left[1:] = first[1:] == last[:-1]
+    right[:-1] = left[1:]
+    brows = np.unique(last[right])
+    u0 = np.searchsorted(last, brows, side="left")
+    u1 = np.searchsorted(first, brows, side="right") - 1
+    empty = np.setdiff1d(np.arange(n_row_blocks * 128), rows)
+    k3_rows = np.concatenate([
+        np.stack([brows, u0, u1], axis=1),
+        np.stack([empty, np.zeros_like(empty), np.full_like(empty, -1)],
+                 axis=1)])
+    k3_rows = k3_rows[np.argsort(k3_rows[:, 0], kind="stable")]
+    info = length | np.where(left, _LEFT, 0) | np.where(right, _RIGHT, 0)
+    return {"k3_units": np.stack([start, info], axis=1).astype(np.int32),
+            "k3_rows": k3_rows.astype(np.int32)}
 
 
 def wcoo_plan_arrays(A, min_tiles: int = 0, np_val=np.float32):
@@ -247,52 +340,55 @@ def spmv_wcoo(plan: WcooPlan, x: torch.Tensor, alpha, beta,
 # Kernel K3 and the SpMM
 # ---------------------------------------------------------------------------
 
-def window_reduce_plain(tstart, wb, relrow, vals, xblk, lane, B, k0: int,
-                        width: int) -> torch.Tensor:
+def window_reduce_plain(k3: K3Schedule, wb, relrow, vals, xblk, lane, B,
+                        k0: int, width: int) -> torch.Tensor:
     """Plain PyTorch K3: (nb*128, width) rows of A @ B[:, k0:k0+width]
-    on the plan's padded row grid, nb = len(tstart) - 1: every slot adds
+    on the plan's padded row grid, nb = `k3.n_row_blocks`: every slot adds
     vals * B[xblk*128 + lane, k0:k0+width] into row wb*128 + relrow."""
-    nb = tstart.shape[0] - 1
     cols = xblk.long() * 128 + lane
     contrib = vals[:, None] * torch.index_select(B[:, k0:k0 + width], 0,
                                                  cols)
-    return torch.zeros((nb * 128, width), dtype=vals.dtype,
+    return torch.zeros((k3.n_row_blocks * 128, width), dtype=vals.dtype,
                        device=vals.device).index_add_(
                            0, _row_ids(wb, relrow), contrib)
 
 
-def window_reduce(tstart, wb, relrow, vals, xblk, lane, B, k0: int,
+def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
                   width: int) -> torch.Tensor:
     """Windowed reduce (see `window_reduce_plain`).  CPU tensors take the
-    plain version; CUDA tensors launch kernel K3 or raise."""
+    plain version; CUDA tensors launch kernel K3 (two device launches:
+    the units, then the carry combine) or raise."""
     if vals.device.type == "cpu":
-        return window_reduce_plain(tstart, wb, relrow, vals, xblk, lane, B,
+        return window_reduce_plain(k3, wb, relrow, vals, xblk, lane, B,
                                    k0, width)
-    from ..utils.errors import KernelError, require
     dev = vals.device
     require(dev.type == "cuda", KernelError,
             f"window_reduce runs on cpu or cuda, not {dev}")
     sfx = _kernels.value_suffix(vals.dtype)
     T = wb.shape[0]
-    nb = tstart.shape[0] - 1
+    U, R = k3.units.shape[0], k3.rows.shape[0]
     require(B.dim() == 2 and 0 <= k0 and k0 + width <= B.shape[1],
             KernelError, f"columns {k0}:{k0 + width} out of B "
             f"{tuple(B.shape)}")
-    _kernels.check_operand(tstart, "tstart", torch.int32, (nb + 1,), dev)
+    _kernels.check_operand(k3.units, "k3.units", torch.int32, (U, 2), dev)
+    _kernels.check_operand(k3.rows, "k3.rows", torch.int32, (R, 3), dev)
     _kernels.check_operand(wb, "wb", torch.int32, (T,), dev)
     _kernels.check_operand(relrow, "relrow", torch.int32, (T, TILE), dev)
     _kernels.check_operand(vals, "vals", vals.dtype, (T * TILE,), dev)
     _kernels.check_operand(xblk, "xblk", torch.int32, (T * TILE,), dev)
     _kernels.check_operand(lane, "lane", torch.int32, (T * TILE,), dev)
     _kernels.check_operand(B, "B", vals.dtype, tuple(B.shape), dev)
-    out = torch.empty((nb * 128, width), dtype=vals.dtype, device=dev)
-    _kernels.launch(f"sblas_window_reduce_{sfx}", dev, tstart, wb, relrow,
-                    vals, xblk, lane, B, out, nb, B.shape[1], k0, width)
+    out = torch.empty((k3.n_row_blocks * 128, width), dtype=vals.dtype,
+                      device=dev)
+    carry = torch.empty((U, 2, width), dtype=vals.dtype, device=dev)
+    _kernels.launch(f"sblas_window_reduce_{sfx}", dev, k3.units, k3.rows,
+                    wb, relrow, vals, xblk, lane, B, out, carry, U, R,
+                    B.shape[1], k0, width)
     window_reduce.launches += 1
     return out
 
 
-window_reduce.launches = 0   # K3 launches since the last reset
+window_reduce.launches = 0   # K3 calls (two device launches each)
 
 
 def k_chunk_width(n_tiles: int, k: int) -> int:
@@ -305,7 +401,7 @@ def k_chunk_width(n_tiles: int, k: int) -> int:
 def _window_reduce_range(plan: WcooPlan, B: torch.Tensor, k0: int,
                          k1: int) -> torch.Tensor:
     """One K-chunk: (n_row_blocks*128, k1-k0) rows of A @ B[:, k0:k1]."""
-    return window_reduce(plan.tstart, plan.wb, plan.relrow, plan.vals,
+    return window_reduce(plan.k3, plan.wb, plan.relrow, plan.vals,
                          plan.xblk, plan.lane, B, k0, k1 - k0)
 
 

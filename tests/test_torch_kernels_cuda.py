@@ -171,16 +171,50 @@ def _wcoo_plan(dev, dtype, n=20_000, seed=5):
     return A, WcooPlan.from_csr(A, dtype=dtype, device=dev)
 
 
+def _long_row(A, row=777, length=10_000, seed=3):
+    """A with row `row` replaced by `length` entries in distinct columns."""
+    from sblas_tpu_torch.containers import CooMatrix
+    c = A.to_coo()
+    keep = c.row_idx != row
+    rng = np.random.RandomState(seed)
+    cols = rng.choice(A.shape[1], size=length, replace=False)
+    return CooMatrix(
+        np.concatenate([c.row_idx[keep], np.full(length, row)]),
+        np.concatenate([c.col_idx[keep], cols]),
+        np.concatenate([c.values[keep],
+                        rng.random_sample(length).astype(c.values.dtype)]),
+        A.shape).to_csr()
+
+
+def _k3_case(dev, dtype, case):
+    """(plan, columns of B) of each K3 case: webbase proxies of 3k, 20k
+    and 200k rows; the 20k one with a row of 10,000 entries; a shard
+    plan padded by `min_tiles` (pad tiles at the last window)."""
+    from sblas_tpu_torch.ops.wcoo import WcooPlan, wcoo_tile_count
+    n = {"web3k": 3_000, "web200k": 200_000}.get(case, 20_000)
+    A, plan = _wcoo_plan(dev, dtype, n=n)
+    if case == "long_row":
+        A = _long_row(A)
+        assert int(A.row_nnz.max()) == 10_000
+        plan = WcooPlan.from_csr(A, dtype=dtype, device=dev)
+    elif case == "min_tiles":
+        plan = WcooPlan.from_csr(A, dtype=dtype, device=dev,
+                                 min_tiles=wcoo_tile_count(A) + 5)
+    return plan, {"web3k": 45}.get(case, 80)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,k,k0,width", [(20_000, 64, 0, 64),
-                                          (3_000, 45, 13, 31),
-                                          (200_000, 64, 0, 64)])
-def test_window_reduce_kernel_matches_plain(dev, dtype, n, k, k0, width):
+@pytest.mark.parametrize("case,k0,width", [
+    ("web20k", 0, 64), ("web3k", 13, 31), ("web200k", 0, 64),
+    ("web20k", 13, 1), ("web20k", 13, 31), ("web20k", 13, 64),
+    ("web20k", 13, 65), ("long_row", 0, 64), ("long_row", 13, 65),
+    ("min_tiles", 13, 64), ("min_tiles", 2, 78)])
+def test_window_reduce_kernel_matches_plain(dev, dtype, case, k0, width):
     from sblas_tpu_torch.ops import wcoo as tw
-    _, plan = _wcoo_plan(dev, dtype, n=n)
-    g = torch.Generator(device=dev).manual_seed(n)
+    plan, k = _k3_case(dev, dtype, case)
+    g = torch.Generator(device=dev).manual_seed(k0 + width)
     B = torch.rand((plan.shape[1], k), generator=g, device=dev, dtype=dtype)
-    args = (plan.tstart, plan.wb, plan.relrow, plan.vals, plan.xblk,
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
             plan.lane, B, k0, width)
     before = tw.window_reduce.launches
     got = tw.window_reduce(*args)
@@ -194,7 +228,8 @@ def test_window_reduce_kernel_matches_plain(dev, dtype, n, k, k0, width):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 256),
+@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 128),
+                                           (3000, 36, 256),
                                            (20_000, 36, 300)])
 def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k):
     from sblas_tpu_torch.io.generate import fem_banded_like
@@ -217,6 +252,46 @@ def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(got, tb.bell_spmm_plain(*args), rtol=tol,
                                atol=tol)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away), as
+    cvt.rna.tf32.f32 rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("k", [17, 256])
+def test_bell_spmm_3xtf32_holds_mixed_magnitudes(dev, k):
+    """Values and B spanning about 2^-20 .. 2^20: K4's 3xTF32 stays
+    within 1e-5 normwise of the f64 product, where one TF32 product of
+    the same operands (both rounded to TF32) does not."""
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=3000, half_band=36)
+    rng = np.random.RandomState(11)
+    A.values[:] = (rng.uniform(-1, 1, A.nnz)
+                   * np.exp2(rng.uniform(-20, 20, A.nnz)))
+    plan = BsrPlan.from_csr(A, dtype=torch.float32, device=dev)
+    B = torch.from_numpy((rng.uniform(-1, 1, (3000, k))
+                          * np.exp2(rng.uniform(-20, 20, (3000, k))))
+                         .astype(np.float32)).to(dev)
+    C = torch.zeros((3000, k), device=dev)
+    got = tb.bell_spmm(plan.vals, plan.bcol, B, C, 1.0, 0.0)
+    want = tb.bell_spmm_plain(plan.vals.double(), plan.bcol, B.double(),
+                              C.double(), 1.0, 0.0)
+    one = tb.bell_spmm_plain(_tf32(plan.vals).double(), plan.bcol,
+                             _tf32(B).double(), C.double(), 1.0, 0.0)
+
+    def rel(x):
+        return float(torch.linalg.norm(x.double() - want)
+                     / torch.linalg.norm(want))
+
+    assert rel(got) <= 1e-5, rel(got)
+    assert rel(one) > 1e-5, rel(one)
 
 
 def test_bell_spmm_gate_on_k(dev):
@@ -257,7 +332,7 @@ def test_k3_k4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from sblas_tpu_torch.ops import wcoo as tw
     _, plan = _wcoo_plan(dev, torch.float32, n=3000)
     B = torch.rand((plan.shape[1], 8), device=dev)
-    args = [plan.tstart, plan.wb, plan.relrow, plan.vals, plan.xblk,
+    args = [plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
             plan.lane, B, 0, 8]
     for i, bad in ((6, B.cpu()), (6, B.double()),
                    (6, torch.rand((8, plan.shape[1]), device=dev).t()),

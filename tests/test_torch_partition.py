@@ -64,7 +64,8 @@ def _same(a, t, what):
 
 def _assert_shard(jplan, s, tplan):
     """Port plan `tplan` equals shard s of the JAX package's stacked plan
-    (every field the JAX plan has; `WcooPlan.tstart` is port-only)."""
+    (every field the JAX plan has; `WcooPlan.k3_units` and `k3_rows` are
+    port-only)."""
     assert type(jplan).__name__ == type(tplan).__name__
     for f in dataclasses.fields(jplan):
         a, b = getattr(jplan, f.name), getattr(tplan, f.name)

@@ -1,6 +1,8 @@
 """Port parity of the plan cache (`sblas_tpu_torch/io/plancache.py`): the
-cases of tests/test_plancache.py for the ported classes, a RoutedPlan
-file written by `sblas_tpu`'s `save_plan` loaded in the port, the
+cases of tests/test_plancache.py for the ported classes, RoutedPlan and
+WcooPlan files written by `sblas_tpu`'s `save_plan` loaded in the port
+(the WcooPlan's port-only K3 tables derived on load, as for a file saved
+before they existed), the
 rebuild of a drifted file by `cached_plan`, per-rank loading of shard
 containers, and `spmv_test --plan-cache`."""
 
@@ -14,7 +16,9 @@ import torch
 from sblas_tpu.io import generate as jgen
 from sblas_tpu.io.mmio import write_mtx
 from sblas_tpu.io.plancache import save_plan as j_save_plan
+from sblas_tpu.containers import DenseMatrix as JDenseMatrix
 from sblas_tpu.ops import rspmv as jr
+from sblas_tpu.ops import wcoo as jw
 from sblas_tpu_torch import parallel as tpar
 from sblas_tpu_torch.cli import spmv_test
 from sblas_tpu_torch.config import SBlasConfig as TConfig
@@ -22,7 +26,9 @@ from sblas_tpu_torch.containers import CsrMatrix, DenseVector
 from sblas_tpu_torch.io.plancache import (cached_plan, load_plan, place,
                                           save_plan)
 from sblas_tpu_torch.ops import make_plan, spmv
+from sblas_tpu_torch.ops import spmm
 from sblas_tpu_torch.ops.rspmv import RoutedPlan
+from sblas_tpu_torch.ops.wcoo import WcooPlan
 from sblas_tpu_torch.parallel.mesh import Mesh
 from sblas_tpu_torch.utils.errors import FormatError
 
@@ -118,6 +124,43 @@ def test_jax_written_routed_plan_loads(tmp_path):
                                      jnp.asarray(y)))
     got = spmv(tp, torch.from_numpy(x), 3.0, 4.0, torch.from_numpy(y))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_jax_written_wcoo_plan_loads(tmp_path):
+    """A WcooPlan file saved by `sblas_tpu.io.plancache.save_plan` lacks
+    the port-only K3 tables: they are derived on load, equal to the port's
+    own plan's, and the loaded plan computes the JAX package's SpMM."""
+    A = jgen.webbase_like(n=6_000, avg_deg=4.0)
+    jp = jw.WcooPlan.from_csr(A, dtype=jnp.float64)
+    p = str(tmp_path / "jax_wcoo.npz")
+    j_save_plan(p, jp)
+    tp = load_plan(p, "cpu")
+    _assert_same_plan(WcooPlan.from_csr(_port(A), dtype=F64, device="cpu"),
+                      tp)
+    B = JDenseMatrix.random(A.width, 24).values
+    C = np.ones((A.height, 24))
+    want = np.asarray(jw.spmm_wcoo(jp, jnp.asarray(B), 3.0, 4.0,
+                                   jnp.asarray(C)))
+    got = spmm(tp, torch.from_numpy(B), 3.0, 4.0, torch.from_numpy(C))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_wcoo_file_without_k3_tables_loads(tmp_path):
+    """A port-written WcooPlan file from before the K3 tables existed
+    (here: one with them taken out) loads with them derived, through the
+    loader's `put`."""
+    A = _port(jgen.webbase_like(n=3_000, avg_deg=3.0))
+    plan = make_plan(A, dtype=F64, force="wcoo", device="cpu")
+    p = str(tmp_path / "old_wcoo.npz")
+    save_plan(p, plan)
+
+    def drop(blobs, meta):
+        for name in WcooPlan.PORT_FIELDS:
+            del blobs[f"a:{name}"]
+            del meta["__dtypes__"][f"a:{name}"]
+    _rewrite(p, drop)
+    _assert_same_plan(plan, load_plan(p, "cpu"))
+    assert load_plan(p, "meta").k3_units.device.type == "meta"
 
 
 def _rewrite(p, edit):

@@ -2,11 +2,12 @@
 version, against `sblas_tpu.ops.wcoo` (whose Pallas reduce runs in
 interpret mode on the CPU, as tests/test_wcoo.py runs it).
 
-Plan arrays are byte-identical; `tstart`, the port's per-block tile
-ranges, is checked against `wb` directly.  The JAX package reduces with
-one-hot matmuls, the port with `index_add_`, so f64 results agree to
-1e-12 relative; f32 results meet the numpy oracle at the reference's
-1e-3."""
+Plan arrays are byte-identical; K3's port-only tables (`k3_units`,
+`k3_rows`) derived from the JAX package's arrays equal the port's own
+(tests/test_torch_k3_units.py checks what they hold).  The JAX package
+reduces with one-hot matmuls, the port with `index_add_`, so f64 results
+agree to 1e-12 relative; f32 results meet the numpy oracle at the
+reference's 1e-3."""
 
 import functools
 
@@ -90,18 +91,12 @@ def test_plan_arrays_match_jax_and_round_trip(name, min_tiles):
     assert tp.fill_ratio == jp.fill_ratio
     assert tw.wcoo_tile_count(_port(_matrix(name))) == jw.wcoo_tile_count(
         _matrix(name))
-    # tstart: the tiles touching block b are exactly [tstart[b-1],
-    # tstart[b+1]) -- those whose window covers b
-    wb = fields["wb"]
-    ts = tp.tstart.numpy()
-    for b in range(tp.n_row_blocks):
-        touch = np.flatnonzero((wb == b) | (wb == b - 1))
-        lo = ts[b - 1] if b else 0
-        assert np.array_equal(touch, np.arange(lo, ts[b + 1]))
+    # K3's tables, derived from the JAX package's arrays
     meta = dict(shape=jp.shape, nnz=jp.nnz, n_tiles=jp.n_tiles,
                 n_row_blocks=jp.n_row_blocks)
     back = tw.WcooPlan.from_numpy(fields, meta, "cpu")
-    assert torch.equal(back.tstart, tp.tstart)
+    for f in tw.WcooPlan.PORT_FIELDS:
+        assert torch.equal(getattr(back, f), getattr(tp, f)), f
     assert torch.equal(back.relrow, tp.relrow)
 
 
@@ -156,7 +151,7 @@ def test_k3_plain_matches_window_reduce_range():
     want = np.asarray(jw._window_reduce_range(
         jp.wb, jp.vals, jp.relrow, jp.visit0, jp.visit1, gathered, kc,
         jp.n_row_blocks)).reshape(-1, kc)
-    got = tw.window_reduce_plain(tp.tstart, tp.wb, tp.relrow, tp.vals,
+    got = tw.window_reduce_plain(tp.k3, tp.wb, tp.relrow, tp.vals,
                                  tp.xblk, tp.lane, torch.from_numpy(B), k0,
                                  kc)
     assert got.shape == (tp.n_row_blocks * 128, kc)
