@@ -46,10 +46,25 @@ and the distribution layer in a world-1 NCCL group:
         their plain versions, with P2's index_select yardsticks (f32,
         bf16) and the 64-wide row permutation a bridge would cost
 
+    [solve] the solvers, each chunk of 16 iterations one CUDA graph and
+        then eagerly (the two bitwise equal, the counters showing the
+        kernels inside the captured chunk): CG, plain and Jacobi, on the
+        shell SPD system (`examples.cg.build_spd`, n ~ 90k), PageRank on
+        the webbase-1M P^T and BiCGSTAB on webbase-1M made diagonally
+        dominant (both routed: K1, K2); wall ms per iteration of whole
+        solves with the graph and eagerly, and wall and device ms and
+        idle share of a replayed chunk and of an eager iteration
+    [solve-dist] CG over routed RowPlanShards of the SPD system and
+        PageRank over XFootShards of P^T in the world-1 group (K1, K2')
+
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
-xfoot, and --mode xfoot --plan-cache saving then loading).  Each
-phase prints one line; any failure raises and the script exits non-zero.
+xfoot, and --mode xfoot --plan-cache saving then loading), the
+`unit_test` CLI (`[unit_test]`), and the benchmark at full size
+(`[bench]`: `python -m sblas_tpu_torch.bench --device cuda`, its JSON
+line and the card on one phase line).  Each
+phase prints one line, stamped with the seconds since the script started
+(`t=`); any failure raises and the script exits non-zero.
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, before that the script's seconds;
 the last line is the device JSON.  Without a CUDA device it exits 1 and
@@ -86,8 +101,10 @@ ORACLE_COLS = 64   # spmm_cpu column chunk: bounds its (nnz, cols) transient
 
 
 def phase(title: str, /, **fields) -> None:
+    """One result line, stamped with the script's elapsed seconds."""
     body = ", ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"[{title}] {body}", flush=True)
+    print(f"[{title}] t={time.perf_counter() - T_START:.1f}s, {body}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -352,6 +369,7 @@ def main() -> int:
     dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none, kernels)
     xfoot_phases(A, x, xd, yd, want, mesh, counters, none, kernels)
     del xd, yd
+    solve_phases(A, mesh, counters, none)
 
     # ---- WCOO SpMM: webbase x K=64 -> WcooPlan -> K3 ----
     K = 64
@@ -561,6 +579,13 @@ def main() -> int:
           shards=next(ln for ln in lines if "kind=" in ln).strip(),
           run=next(ln for ln in lines if "run time" in ln).strip(),
           gflops=next(ln for ln in lines if "GFLOPS" in ln).split()[-1])
+    from sblas_tpu_torch.cli import unit_test
+    text, rc = _cli(unit_test.main, ["--device", "cuda"])
+    if rc != 0 or "Validation = True" not in text:
+        raise AssertionError(f"unit_test failed (rc={rc}):\n{text}")
+    phase("unit_test", rc=rc, validation=True, tests=sum(
+        ln.endswith(": PASS") for ln in text.splitlines()))
+    bench_phase(card)
     phase("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1054,6 +1079,231 @@ def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
         expect_launches(path, counts, none)
         phase("spmm-dist", path=path, K=K, launches=counts,
               check=checked(path, out, want), **call_times(run, S.nnz, K))
+
+
+def bench_phase(card) -> None:
+    """[bench]: `python -m sblas_tpu_torch.bench --device cuda` at full
+    size, in process (its oracle gates raise); its JSON line and the card
+    line on one phase line."""
+    from sblas_tpu_torch import bench
+    t0 = time.perf_counter()
+    text, rc = _cli(bench.main, ["--device", "cuda"])
+    line = text.strip().splitlines()[-1]
+    rec = json.loads(line)
+    keys = {"spmm_shell", "spmv_webbase", "spmm_webbase_wcoo",
+            "xfoot_shard4", "xfoot_shard16", "spmv_weak_shard4"}
+    if (rc != 0 or not keys <= set(rec["repeats"])
+            or not rec["value"] > 0 or not rec["device_value"] > 0):
+        raise AssertionError(f"bench failed (rc={rc}):\n{text}")
+    phase("bench", seconds=f"{time.perf_counter() - t0:.1f}", json=line,
+          card=card)
+
+
+def _host_residual(S, x, b) -> float:
+    """||b - A x|| / ||b|| in float64 on the host (scipy CSR)."""
+    r = b.astype(np.float64) - S @ x.cpu().numpy().astype(np.float64)
+    return float(np.linalg.norm(r) / np.linalg.norm(b))
+
+
+def solve_pair(title, run, check, counters, expect) -> dict:
+    """[solve] one system: a CUDA-graph solve (its chunk captured on first
+    use) with every launch counter from 0, then an eager solve, which must
+    agree bitwise; `check(result)` holds it against numpy.  Then wall ms
+    per iteration of whole solves (graph and eager in turns), and, from
+    the solve's final state, wall and device ms per iteration of one
+    replayed chunk and of one eager iteration, each timed on the same
+    function (wall: the work and a synchronize, as the solver loop's flag
+    read), and the idle share 1 - device / wall of each, unclamped.  The
+    eager side is one iteration, not a chunk: a chunk's thousands of
+    launches would fill the launch queue, and the host would then pace
+    the device behind `device_time_ms`'s sleep."""
+    from sblas_tpu_torch import solvers
+    from sblas_tpu_torch.utils.timing import device_time_ms, wall_time_ms
+    with solvers.recording() as rec:
+        g, counts = launches_of(counters, lambda: run(True))
+    prog, step, cond, chunk = rec[-1]
+    del rec
+    if prog.graph is None:
+        raise AssertionError(f"{title}: no CUDA graph was captured")
+    expect_launches(f"solve {title}", counts, expect)
+    e = run(False)
+    if g.iterations != e.iterations or not torch.equal(g.x, e.x):
+        raise AssertionError(f"{title}: graph and eager solves differ "
+                             f"({g.iterations} / {e.iterations} iterations)")
+    host = check(g)
+    walls = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        t0 = time.perf_counter()
+        r = run(mode == "graph")
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / r.iterations)
+    work = {"graph": (prog.graph.replay, chunk),
+            "eager": (lambda: solvers._masked(step, cond, prog.state,
+                                              prog.consts), 1)}
+    wall = {k: wall_time_ms(f, warmup=2, reps=10) / it
+            for k, (f, it) in work.items()}
+    dev = {k: device_time_ms(f, warmup=2, reps=10) / it
+           for k, (f, it) in work.items()}
+    phase("solve", system=title, iterations=g.iterations,
+          converged=g.converged, residual=f"{g.residual:.3e}", check=host,
+          graph_equals_eager_bitwise=True, launches=counts,
+          chunk=chunk, captures=solvers.captures(),
+          wall_ms_per_iter_solve_graph=" / ".join(f"{w:.5f}"
+                                                  for w in walls["graph"]),
+          wall_ms_per_iter_solve_eager=" / ".join(f"{w:.5f}"
+                                                  for w in walls["eager"]),
+          wall_ms_per_iter_replay=f"{wall['graph']:.5f}",
+          wall_ms_per_iter_eager=f"{wall['eager']:.5f}",
+          device_ms_per_iter_graph=f"{dev['graph']:.5f}",
+          device_ms_per_iter_eager=f"{dev['eager']:.5f}",
+          idle_share_graph=f"{1 - dev['graph'] / wall['graph']:.3f}",
+          idle_share_eager=f"{1 - dev['eager'] / wall['eager']:.3f}")
+    return dict(result=g, wall=wall, dev=dev)
+
+
+def solve_phases(A, mesh, counters, none) -> None:
+    """[solve] and [solve-dist]: CG (plain and Jacobi) on the shell SPD
+    system, PageRank on the webbase-1M P^T (routed: K1, K2), BiCGSTAB on
+    webbase-1M made diagonally dominant (routed), each through a CUDA
+    graph and eagerly; then CG over routed `RowPlanShards` and PageRank
+    over `XFootShards` in the world-1 NCCL group (eager chunks)."""
+    from sblas_tpu_torch import solvers
+    from sblas_tpu_torch.containers import CooMatrix
+    from sblas_tpu_torch.examples.cg import build_spd, scipy_csr
+    from sblas_tpu_torch.examples.pagerank import pagerank_numpy, transition
+    from sblas_tpu_torch.ops import make_plan
+    from sblas_tpu_torch.ops.rspmv import RoutedPlan
+    from sblas_tpu_torch.parallel import partition_row_plans, partition_xfoot
+    dev, f32, tol, chunk = mesh.device, torch.float32, 1e-6, 16
+    rng = np.random.RandomState(SEED)
+
+    def routed_expect(plan, matvecs):
+        return dict(none, slab_gather=matvecs,
+                    lane_shuffle=matvecs * plan.n_route_gathers)
+
+    def residual_check(S, b, bar):
+        def check(res):
+            rel = _host_residual(S, res.x, b)
+            if not (res.converged and rel <= bar):
+                raise AssertionError(f"host residual {rel:.3e} (bar {bar}), "
+                                     f"converged {res.converged}")
+            return f"host residual {rel:.3e} <= {bar}"
+        return check
+
+    # ---- CG on the shell SPD system (n ~ 90k) ----
+    t0 = time.perf_counter()
+    S = build_spd(90_449, np.float32)
+    Ssp = scipy_csr(S)
+    splan = make_plan(S, dtype=f32, op="spmv", device=dev)
+    build_s = time.perf_counter() - t0
+    x_true = rng.standard_normal(S.shape[0]).astype(np.float32)
+    b = Ssp @ x_true
+    bd = torch.from_numpy(b).to(dev)
+    inv_d = solvers.jacobi_inv_diag(S, f32, device=dev)
+    phase("solve", system="shell SPD", shape=S.shape, nnz=S.nnz,
+          plan=type(splan).__name__, build_s=f"{build_s:.2f}")
+    cg_res = {}
+    for label, M in (("cg", None), ("cg+jacobi", inv_d)):
+        cg_res[label] = solve_pair(
+            f"{label} shell SPD ({type(splan).__name__})",
+            lambda graph, M=M: solvers.cg(splan, bd, tol=tol, maxiter=1000,
+                                          M=M, chunk=chunk, graph=graph),
+            residual_check(Ssp, b, 10 * tol), counters, none)
+    del splan
+
+    # ---- PageRank on the webbase-1M P^T (routed) ----
+    t0 = time.perf_counter()
+    PT, dangling = transition(A, np.float32)
+    pplan = make_plan(PT, dtype=f32, op="spmv", device=dev)
+    if not isinstance(pplan, RoutedPlan):
+        raise AssertionError(f"P^T plan {type(pplan).__name__}, expected "
+                             f"RoutedPlan")
+    build_s = time.perf_counter() - t0
+    n = PT.shape[0]
+    dang = torch.from_numpy(dangling).to(dev)
+    want_r = pagerank_numpy(PT, dangling, 0.85, tol)
+    phase("solve", system="webbase-1M P^T", nnz=PT.nnz,
+          plan="RoutedPlan", build_s=f"{build_s:.2f}",
+          k1_per_spmv=pplan.n_route_gathers)
+
+    def pr_check(res):
+        r = res.x.cpu().numpy().astype(np.float64)
+        err = float(np.abs(r - want_r).sum())
+        if not (res.converged and abs(r.sum() - 1) < 1e-3 and err <= 10 * tol):
+            raise AssertionError(f"PageRank: L1 {err:.3e} to numpy, sum "
+                                 f"{r.sum()}, converged {res.converged}")
+        return f"L1 to numpy {err:.3e} <= {10 * tol}"
+
+    solve_pair("pagerank webbase-1M P^T (RoutedPlan)",
+               lambda graph: solvers.pagerank(pplan, n, dangling=dang,
+                                              tol=tol, maxiter=200,
+                                              chunk=chunk, graph=graph),
+               pr_check, counters, routed_expect(pplan, 1 + chunk))
+    del pplan
+
+    # ---- BiCGSTAB on webbase-1M made diagonally dominant (routed) ----
+    coo = A.to_coo()
+    rowsum = np.zeros(A.shape[0])
+    np.add.at(rowsum, coo.row_idx, np.abs(coo.values))
+    d = np.arange(A.shape[0])
+    D = CooMatrix(np.concatenate([coo.row_idx, d]),
+                  np.concatenate([coo.col_idx, d]),
+                  np.concatenate([coo.values,
+                                  1.0 + rowsum]).astype(np.float32),
+                  A.shape).to_csr()
+    del coo
+    dplan = make_plan(D, dtype=f32, op="spmv", device=dev)
+    if not isinstance(dplan, RoutedPlan):
+        raise AssertionError(f"diagonally dominant webbase plan "
+                             f"{type(dplan).__name__}, expected RoutedPlan")
+    Dsp = scipy_csr(D)
+    xd_true = rng.standard_normal(D.shape[0]).astype(np.float32)
+    bD = Dsp @ xd_true
+    bDd = torch.from_numpy(bD).to(dev)
+    # off-diagonal mass nearly equal to the diagonal on the heavy rows:
+    # about 150 iterations to 1e-5 at 200k rows, and f32's recurrence
+    # stalls near 1e-6
+    solve_pair("bicgstab webbase-1M + diag (RoutedPlan)",
+               lambda graph: solvers.bicgstab(dplan, bDd, tol=10 * tol,
+                                              maxiter=1000, chunk=chunk,
+                                              graph=graph),
+               residual_check(Dsp, bD, 100 * tol), counters,
+               routed_expect(dplan, 1 + 2 * (1 + chunk)))
+    del dplan, D, Dsp
+
+    # ---- [solve-dist]: shards in the world-1 NCCL group, eager ----
+    t0 = time.perf_counter()
+    rsh = partition_row_plans(S, 1, dtype=f32, kind="routed", device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, counts = launches_of(counters, lambda: solvers.cg(
+        rsh, bd, tol=tol, maxiter=1000, chunk=chunk, mesh=mesh))
+    wall = (time.perf_counter() - t0) * 1e3 / res.iterations
+    if counts["tile_gather"] == 0 or counts["slab_gather"]:
+        raise AssertionError(f"CG over routed shards: launches {counts}")
+    phase("solve-dist", system="cg shell SPD, routed RowPlanShards (world 1)",
+          build_s=f"{build_s:.2f}", iterations=res.iterations,
+          single_plan_iterations=cg_res["cg"]["result"].iterations,
+          launches=counts,
+          check=residual_check(Ssp, b, 10 * tol)(res),
+          wall_ms_per_iter_eager=f"{wall:.5f}")
+    del rsh
+    t0 = time.perf_counter()
+    xsh = partition_xfoot(PT, 1, dtype=f32, device=dev, rank=0)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, counts = launches_of(counters, lambda: solvers.pagerank(
+        xsh, n, dangling=dang, tol=tol, maxiter=200, chunk=chunk,
+        mesh=mesh))
+    wall = (time.perf_counter() - t0) * 1e3 / res.iterations
+    if counts["tile_gather"] == 0 or counts["slab_gather"]:
+        raise AssertionError(f"PageRank over xfoot shards: launches {counts}")
+    phase("solve-dist", system="pagerank webbase-1M P^T, XFootShards "
+          "(world 1)", kind=xsh.kind, extract=xsh.extract_mode,
+          build_s=f"{build_s:.2f}", iterations=res.iterations,
+          launches=counts, check=pr_check(res),
+          wall_ms_per_iter_eager=f"{wall:.5f}")
+    solvers.clear_programs()
 
 
 def _device_ms(fn) -> float:

@@ -5,6 +5,7 @@
                                             [--mode dist|distp|halo|halop|
                                                     xfoot|hier|single]
                                             [--slices S] [--plan-cache PATH]
+                                            [--transport f32|bf16]
                                             [--device cuda|cpu]
 
 Port of `sblas_tpu/cli/spmv_test.py` (same positional contract,
@@ -32,8 +33,9 @@ the CLI runs a group of one (`cli.common.setup_devices`).  Rank 0 prints
 the report; the exit code is non-zero if validation fails on any rank.
 For dist, distp and xfoot on more than one rank it also times the
 per-rank compute alone (the `*_nocomm` twin) and reports the difference
-as the exposed collective time.  The flags --transport and --progressive
-raise `NotPortedError`.  `--device`
+as the exposed collective time.  `--transport f32` is every port plan's
+route transport and changes nothing; `--transport bf16` and
+`--progressive` raise `NotPortedError`.  `--device`
 (default cuda) names the device; with cuda and no GPU the CLI exits
 non-zero.  On cuda it reports the median wall time per synchronous call
 (nnz/s is taken over it) and the device's busy time from CUDA events; on
@@ -50,10 +52,10 @@ from .common import (all_ranks_ok, cuda_missing, ensure_dtype, finish,
 USAGE = ("usage: python -m sblas_tpu_torch.cli.spmv_test "
          "<A.mtx> <alpha> <beta> <n_devices> [f32|f64] "
          "[--mode dist|distp|halo|halop|xfoot|hier|single] [--slices S] "
-         "[--plan-cache PATH] [--device cuda|cpu]")
+         "[--plan-cache PATH] [--transport f32|bf16] [--device cuda|cpu]")
 
 MODES = ("dist", "distp", "halo", "halop", "xfoot", "hier", "single")
-_UNPORTED_FLAGS = ("--transport", "--progressive")
+TRANSPORTS = ("f32", "bf16")
 
 
 def main(argv=None) -> int:
@@ -66,15 +68,18 @@ def main(argv=None) -> int:
     slices = flag_value(rest, "--slices", 2, int, usage=USAGE)
     device = flag_value(rest, "--device", "cuda", usage=USAGE)
     cache_path = flag_value(rest, "--plan-cache", None, usage=USAGE)
+    transport = flag_value(rest, "--transport", "f32", usage=USAGE)
 
     from ..utils.errors import NotPortedError
-    if mode not in MODES:
+    if mode not in MODES or transport not in TRANSPORTS:
         print(USAGE, file=sys.stderr)
         raise SystemExit(2)
-    for flag in _UNPORTED_FLAGS:
-        if flag in rest:
-            raise NotPortedError(f"{flag} is not ported to sblas_tpu_torch "
-                                 f"yet")
+    if transport == "bf16":
+        raise NotPortedError("--transport bf16 is not ported to "
+                             "sblas_tpu_torch yet")
+    if "--progressive" in rest:
+        raise NotPortedError("--progressive is not ported to sblas_tpu_torch "
+                             "yet")
     if device not in ("cuda", "cpu"):
         print(USAGE, file=sys.stderr)
         raise SystemExit(2)

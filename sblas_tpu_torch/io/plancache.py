@@ -232,19 +232,23 @@ def place(obj, device, rank: Optional[int] = None):
     return obj.to(device)
 
 
-def cached_plan(path: str, build, valid=None, *, device):
+def cached_plan(path: str, build, valid=None, *, device, say=None):
     """Load the plan at `path` onto `device` when the file is readable and
     `valid(plan)` holds, else `build()` it, save it, and return what
     `build()` returned.  The one idiom behind the build-once, run-many
     call sites: an unreadable or schema-drifted file falls through to a
-    rebuild that overwrites it."""
+    rebuild that overwrites it, and `say` (when given) is told why."""
     if os.path.exists(path):
         try:
             plan = load_plan(path, device)
-        except (FormatError, OSError, ValueError, zipfile.BadZipFile):
+        except (FormatError, OSError, ValueError, zipfile.BadZipFile) as e:
             plan = None   # unreadable or drifted: rebuild below
+            if say is not None:
+                say(f"plan cache {path} unusable ({e}); rebuilding")
         if plan is not None and (valid is None or valid(plan)):
             return plan
+        if plan is not None and say is not None:
+            say(f"plan cache {path} stale (geometry mismatch); rebuilding")
     plan = build()
     d = os.path.dirname(path)
     if d:

@@ -43,9 +43,17 @@ _BSR_DIA_SPMM_BYTES = 256 << 20
 _BSR_SPMV_BLOWUP = 8.0
 # B width from which BELL SpMM takes kernel K4.  The JAX package gates
 # its Pallas kernel on K >= 256 and a TPU backend; the port gates K4 on
-# K >= 256 and B on CUDA, so the CPU takes `spmm_bsr`, as the JAX
-# package's CPU backend does.
+# K >= 256, B on CUDA and the plan's blocks being K4's 128 x 128, so the
+# CPU and other block shapes take `spmm_bsr`, as the JAX package's CPU
+# backend does.
 _BSR_PALLAS_MIN_K = 256
+
+
+def takes_k4(plan, k: int, on_cuda: bool) -> bool:
+    """Whether `spmm` over BELL plan `plan` with a K-wide B runs kernel K4
+    (a choice on the plan's block shape, K and the device)."""
+    return (on_cuda and k >= _BSR_PALLAS_MIN_K
+            and tuple(plan.block) == (128, 128))
 
 
 def _choose_kind(A, dtype, config, op) -> str:
@@ -142,7 +150,7 @@ def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
     if isinstance(plan, DiaPlan):
         return spmm_dia(plan, B, alpha, beta, C)
     if isinstance(plan, BsrPlan):
-        if B.shape[1] >= _BSR_PALLAS_MIN_K and B.is_cuda:
+        if takes_k4(plan, B.shape[1], B.is_cuda):
             return spmm_bsr_pallas(plan, B, alpha, beta, C)
         return spmm_bsr(plan, B, alpha, beta, C)
     if isinstance(plan, WcooPlan):

@@ -19,7 +19,8 @@ primitives.
 3. **Lane-stack reduce.**  Rows are relabelled by descending degree; the
    row of rank r' owns lane r' % 128 of block r' // 128 and its
    contributions stack vertically in that lane, so the reduce is one
-   row-granular segment sum over the (S, 128) stack (`index_add_` here).
+   row-granular segment sum over the (S, 128) stack (`segment_reduce`
+   here: the same order of additions on every run).
    Heavy rows overflow into an appendix merged by one small scatter-add,
    and a second route un-relabels y.
 
@@ -340,6 +341,8 @@ class RoutedPlan:
     prow_col: (R_p,) i32     the single x column each peeled row reads
     tables / schedule        route layers: gather order -> lane stack
     brow_ids: (S,) i32       block id per stack row (sorted)
+    brow_offsets: (n_blocks+1,) i64  first stack row of each block, then S
+                             (port only: the segment sum's offsets)
     merge_ids: (n_extra,) i32  appendix slot -> target row rank (heavy-row
                              overflow merge; empty when `merged` is False)
     unrank_tables / unrank_schedule  route layers: rank order -> row order
@@ -355,6 +358,7 @@ class RoutedPlan:
     prow_col: torch.Tensor
     tables: Tuple[torch.Tensor, ...]
     brow_ids: torch.Tensor
+    brow_offsets: torch.Tensor
     merge_ids: torch.Tensor
     unrank_tables: Tuple[torch.Tensor, ...]
     xroute_tables: Tuple[torch.Tensor, ...]
@@ -399,10 +403,20 @@ class RoutedPlan:
                                    self.unrank_schedule)
                    for op in sched if op[0] == "gather")
 
+    PORT_FIELDS = ("brow_offsets",)
+
+    @staticmethod
+    def port_fields(fields: dict, meta: dict) -> dict:
+        """The port-only fields, from the plan's host `brow_ids` and
+        `n_blocks` (in `meta`)."""
+        return {"brow_offsets": np.searchsorted(
+            np.asarray(fields["brow_ids"]),
+            np.arange(int(meta["n_blocks"]) + 1)).astype(np.int64)}
+
     def to(self, device) -> "RoutedPlan":
         """The same plan with every tensor on `device`."""
         moved = {}
-        for name in DATA_FIELDS:
+        for name in DATA_FIELDS + self.PORT_FIELDS:
             v = getattr(self, name)
             moved[name] = (tuple(t.to(device) for t in v)
                            if name in _TABLE_FIELDS else v.to(device))
@@ -413,7 +427,8 @@ class RoutedPlan:
         """Plan from host arrays: `fields` maps each of DATA_FIELDS to a
         numpy array (the three table fields to sequences of arrays), `meta`
         each of META_FIELDS to its value.  Accepts the JAX package's plan
-        fields (`np.asarray` of each) as they are."""
+        fields (`np.asarray` of each) as they are: the port-only fields
+        (`PORT_FIELDS`) are derived when absent."""
         from ..utils.errors import PlanError, require
         require(meta.get("transport", "f32") == "f32", PlanError,
                 f"route transport {meta.get('transport')!r} is not ported "
@@ -425,9 +440,11 @@ class RoutedPlan:
                 a = a.copy()
             return torch.from_numpy(a).to(device)
 
+        if any(k not in fields for k in cls.PORT_FIELDS):
+            fields = dict(cls.port_fields(fields, meta), **fields)
         data = {name: (tuple(tensor(t) for t in fields[name])
                        if name in _TABLE_FIELDS else tensor(fields[name]))
-                for name in DATA_FIELDS}
+                for name in DATA_FIELDS + cls.PORT_FIELDS}
         require(data["gvals"].dtype in _NP_VALUE, PlanError,
                 f"routed plans hold float32 or float64 values, got "
                 f"{data['gvals'].dtype}")
@@ -590,6 +607,8 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
         prow_col=prow_col.astype(np.int32),
         tables=tables(prog),
         brow_ids=brow_ids,
+        # each block's first stack row; the pad rows join the last block
+        brow_offsets=np.append(off64[:-1], S).astype(np.int64),
         merge_ids=merge_ids,
         unrank_tables=tables(prog2),
         xroute_tables=tables(progx) if progx is not None else (),
@@ -721,18 +740,22 @@ def reduce_routed(plan: RoutedPlan, routed: torch.Tensor) -> torch.Tensor:
     """A@x (m,) from the contributions in lane-stack order: the sorted
     segment sum, the heavy-row merge and the un-relabel route."""
     stack = routed[: plan.n_srows * LANES].reshape(plan.n_srows, LANES)
-    # sorted segment sum over the stack rows; on CUDA index_add_ adds with
-    # atomics, so the order of the additions (not the set) varies by run
-    blocks = torch.zeros(plan.n_blocks, LANES, dtype=routed.dtype,
-                         device=routed.device).index_add_(
-                             0, plan.brow_ids, stack)
+    # sorted segment sum over the stack rows: brow_ids is sorted, so each
+    # block's rows are one run (brow_offsets), summed in row order (no
+    # atomics: the same bits on every run, and the CPU's index_add_ order)
+    blocks = torch.segment_reduce(stack, "sum", offsets=plan.brow_offsets,
+                                  axis=0, unsafe=True)
     y_srank = blocks.reshape(-1)  # (m_pad + n_extra,): primary | appendix
     y_rank = y_srank[: plan.n_rank_pad]
     if plan.merged:
         # heavy-row overflow merge; merge_ids repeats targets (pad slots
-        # all add zero into rank 0), which index_add_ sums correctly
-        y_rank = y_rank.index_add(0, plan.merge_ids,
-                                  y_srank[plan.n_rank_pad:])
+        # all add zero into rank 0).  index_put_(accumulate=True) adds the
+        # duplicates in id order on every device (CUDA's index_add_ uses
+        # atomics in no fixed order), so every run, an eager solve and
+        # its CUDA graph, gives the same bits
+        y_rank = y_rank.index_put_((plan.merge_ids,),
+                                   y_srank[plan.n_rank_pad:],
+                                   accumulate=True)
     y_rank = F.pad(y_rank, (0, plan.unrank_n - y_rank.shape[0]))
     return apply_route(plan.unrank_schedule, y_rank,
                        plan.unrank_tables)[: plan.shape[0]]

@@ -19,5 +19,5 @@ from .planned import (HaloDiaShards, RowPlanShards, partition_halo_dia,  # noqa:
 from .hier import (Mesh2, make_mesh2, spmm_mode2_hier,  # noqa: F401
                    spmv_dist_hier)
 from .xfoot import (XFootPlan, XFootShards, XFootStats,  # noqa: F401
-                    partition_xfoot, spmv_xfoot, spmv_xfoot_nocomm,
-                    xfoot_stats, xfoot_worst_local)
+                    partition_xfoot, spmv_xfoot, spmv_xfoot_block,
+                    spmv_xfoot_nocomm, xfoot_stats, xfoot_worst_local)

@@ -421,16 +421,18 @@ def xfoot_extract(shards: XFootShards, part: XFootPlan,
                        part.xroute_tables)[: shards.out_slots]
 
 
-def _xfoot_local(shards: XFootShards, x, mesh: Mesh,
+def _xfoot_block(shards: XFootShards, x_blk, mesh: Mesh,
                  nocomm: bool) -> torch.Tensor:
     """The rank program (the body of the JAX package's `_xfoot_program`):
-    extraction, the hot all-reduce, the packet all_to_all, then the local
-    SpMV over x_ext.  Returns the rank's (band_rows,) product."""
+    extraction from the rank's (r_x,) block of x, the hot all-reduce, the
+    packet all_to_all, then the local SpMV over x_ext.  Returns the rank's
+    (band_rows,) product."""
     n, s = mesh.size, mesh.rank
     require(shards.n_shards == n, PartitionError,
             f"shards built for {shards.n_shards} shards, mesh has {n}")
+    require(x_blk.shape[0] == shards.r_x, ShapeError,
+            f"x block of {x_blk.shape[0]} rows, the shards take {shards.r_x}")
     part = shards.local(s)
-    x_blk = row_block(x, mesh, shards.r_x * n)
     pieces = [x_blk]
     if shards.out_slots:
         packed = xfoot_extract(shards, part, x_blk)
@@ -449,6 +451,24 @@ def _xfoot_local(shards: XFootShards, x, mesh: Mesh,
         pieces.append(recv.reshape(-1))
     x_ext = torch.cat(pieces) if len(pieces) > 1 else x_blk
     return _local_spmv(shards.kind, part.plan, x_ext)
+
+
+def _xfoot_local(shards: XFootShards, x, mesh: Mesh,
+                 nocomm: bool) -> torch.Tensor:
+    """`_xfoot_block` on the rank's block of the global x."""
+    return _xfoot_block(shards, row_block(x, mesh, shards.r_x * mesh.size),
+                        mesh, nocomm)
+
+
+def spmv_xfoot_block(shards: XFootShards, x_blk, mesh: Mesh
+                     ) -> torch.Tensor:
+    """A@x for the rank's rows, block in and block out: `x_blk` is the
+    rank's (r_x,) block of x (zero past the matrix edge), the result its
+    (band_rows,) block of rows (zero past the edge).  The steady state of
+    a solver loop, which keeps only its blocks; `spmv_xfoot` is this on
+    the rank's block of a global x, cut to its rows and with alpha/beta
+    folded in."""
+    return _xfoot_block(shards, x_blk, mesh, nocomm=False)
 
 
 def spmv_xfoot(shards: XFootShards, x, alpha, beta, y, mesh: Mesh

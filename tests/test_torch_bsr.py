@@ -154,3 +154,18 @@ def test_k4_wrapper_refuses_a_non_cuda_device():
 
 def test_true_f32_check_is_for_cuda_only():
     tb.require_true_f32(torch.zeros(2, dtype=torch.float32))   # no raise
+
+
+@pytest.mark.parametrize("block,k,on_cuda,k4", [
+    ((128, 128), 256, True, True),
+    ((128, 128), 255, True, False),
+    ((128, 128), 256, False, False),
+    ((8, 128), 256, True, False),
+    ((16, 64), 512, True, False),
+])
+def test_k4_gate_follows_the_block_shape(block, k, on_cuda, k4):
+    """`spmm` over a BELL plan takes kernel K4 only for its 128 x 128
+    blocks at K >= 256 on CUDA; other blocks take `spmm_bsr`, as the CPU
+    does (K4 raises for them)."""
+    _, tp = _plans("banded", block)
+    assert tops.takes_k4(tp, k, on_cuda) is k4

@@ -105,7 +105,7 @@ def test_spmv_routed_on_card_matches_cpu(dev, dtype, np_dtype):
     got = spmv(on_card, x.to(dev), 3.0, 4.0, y.to(dev)).cpu()
     assert troute.lane_shuffle.launches == plan.n_route_gathers
     assert tr.slab_gather.launches == 1
-    # the segment sums add in another order on the card (atomics)
+    # the card may sum in another order than the CPU
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     coo = make_plan(A, dtype=dtype, force="coo", device=dev)
@@ -483,3 +483,161 @@ def test_xfoot_ranks_on_card(dev, engine):
         got = spmv_xfoot_nocomm(on_card, x.to(dev), Mesh(None, s, 4, dev))
         want = spmv_xfoot_nocomm(cpu, x, Mesh(None, s, 4, "cpu"))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+# ---- the K4 gate on the block shape ----
+
+def test_bell_spmm_gate_on_block_shape(dev):
+    """A BELL plan of (8, 128) blocks at K = 256 takes the batched
+    matmuls, not K4 (which takes 128 x 128 blocks only)."""
+    from sblas_tpu_torch.containers import DenseMatrix
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import BsrPlan, spmm
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.cpu_reference import spmm_cpu
+    from sblas_tpu_torch.utils.verify import check_equal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=2000, half_band=5, dtype=np.float32)
+    plan = BsrPlan.from_csr(A, dtype=torch.float32, block=(8, 128),
+                            device=dev)
+    B = DenseMatrix.random(2000, 256, dtype=np.float32)
+    C = DenseMatrix.constant(2000, 256, 1.0, dtype=np.float32)
+    tb.bell_spmm.launches = 0
+    out = spmm(plan, torch.from_numpy(B.values).to(dev), 3.0, 4.0,
+               torch.from_numpy(C.values).to(dev))
+    torch.cuda.synchronize()
+    assert tb.bell_spmm.launches == 0
+    assert check_equal(out.cpu().numpy(), spmm_cpu(A, B, 3.0, 4.0, C),
+                       relative=True).ok
+
+
+# ---- solvers: a chunk of iterations captured as one CUDA graph ----
+
+def _spd_system(dev, dtype, n=3000):
+    from sblas_tpu_torch.examples.cg import build_spd
+    A = build_spd(n, np.float64 if dtype == torch.float64 else np.float32)
+    plan = make_plan(A, dtype=dtype, op="spmv", device=dev)
+    x_true = torch.from_numpy(
+        np.random.RandomState(7).standard_normal(A.shape[0])).to(dev, dtype)
+    return A, plan, spmv(plan, x_true, 1.0, 0.0)
+
+
+def _pagerank_system(dev):
+    """webbase P^T (100k pages) on a routed plan: K1 and K2 per matvec."""
+    from sblas_tpu_torch.examples.pagerank import transition
+    G = webbase_like(n=100_000, avg_deg=4.0)
+    PT, dangling = transition(G, np.float32)
+    plan = make_plan(PT, dtype=torch.float32, force="routed", device=dev)
+    return plan, torch.from_numpy(dangling).to(dev)
+
+
+@pytest.fixture
+def strict_capture(monkeypatch):
+    """Every capture (and its warm-up step) under
+    `set_sync_debug_mode("error")`: a host sync inside raises."""
+    from sblas_tpu_torch import solvers
+    solvers.clear_programs()
+    capture = solvers._Program._capture
+
+    def strict(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            capture(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(solvers._Program, "_capture", strict)
+    yield solvers
+    solvers.clear_programs()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("jacobi", [False, True])
+def test_cg_graph_equals_eager_bitwise(dev, strict_capture, dtype, jacobi):
+    solvers = strict_capture
+    A, plan, b = _spd_system(dev, dtype)
+    M = solvers.jacobi_inv_diag(A, dtype, device=dev) if jacobi else None
+    tol = 1e-10 if dtype == torch.float64 else 1e-6
+    g = solvers.cg(plan, b, tol=tol, maxiter=500, M=M, graph=True)
+    e = solvers.cg(plan, b, tol=tol, maxiter=500, M=M, graph=False)
+    assert solvers.captures() == 1
+    assert g.converged and g.iterations == e.iterations
+    assert g.residual == e.residual and torch.equal(g.x, e.x)
+
+
+def test_bicgstab_graph_equals_eager_bitwise(dev, strict_capture):
+    solvers = strict_capture
+    _, plan, b = _spd_system(dev, torch.float64)
+    g = solvers.bicgstab(plan, b, tol=1e-10, maxiter=500, graph=True)
+    e = solvers.bicgstab(plan, b, tol=1e-10, maxiter=500, graph=False)
+    assert g.converged and g.iterations == e.iterations
+    assert torch.equal(g.x, e.x)
+
+
+def test_pagerank_graph_through_k1_k2_equals_eager(dev, strict_capture):
+    solvers = strict_capture
+    plan, dang = _pagerank_system(dev)
+    n = plan.shape[0]
+    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    g = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200,
+                         graph=True, chunk=16)
+    # the warm-up step and the 16 captured iterations call the wrappers;
+    # the replays run on the card alone
+    assert tr.slab_gather.launches == 17
+    assert troute.lane_shuffle.launches == 17 * plan.n_route_gathers
+    e = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200,
+                         graph=False)
+    assert g.converged and g.iterations == e.iterations > 16
+    assert torch.equal(g.x, e.x)
+
+
+def test_second_solve_replays_the_captured_graph(dev, strict_capture):
+    solvers = strict_capture
+    plan, dang = _pagerank_system(dev)
+    n = plan.shape[0]
+    first = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200)
+    assert solvers.captures() == 1
+    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    again = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200)
+    assert solvers.captures() == 1
+    assert troute.lane_shuffle.launches == tr.slab_gather.launches == 0
+    assert again.iterations == first.iterations
+    assert torch.equal(again.x, first.x)
+    _, splan, b = _spd_system(dev, torch.float64)
+    r1 = solvers.cg(splan, b, tol=1e-10, maxiter=500)
+    r2 = solvers.cg(splan, 2.0 * b, tol=1e-10, maxiter=500)
+    assert solvers.captures() == 2 and r1.iterations == r2.iterations
+    torch.testing.assert_close(r2.x, 2.0 * r1.x, rtol=1e-12, atol=1e-12)
+
+
+def test_graph_cache_follows_its_plans(dev, strict_capture):
+    """Solving over fresh plans keeps one capture per live plan and none
+    once the plans are gone; a raw CsrMatrix's capture is not kept."""
+    import gc
+    solvers = strict_capture
+    A, plan, b = _spd_system(dev, torch.float64)
+    ref = solvers.cg(plan, b, tol=1e-10, maxiter=500, graph=True)
+    for _ in range(3):
+        plan = make_plan(A, dtype=torch.float64, op="spmv", device=dev)
+        r = solvers.cg(plan, b, tol=1e-10, maxiter=500, graph=True)
+        gc.collect()
+        assert len(solvers._PROGRAMS) == solvers.captures() == 1
+        assert torch.equal(r.x, ref.x)
+    del plan
+    gc.collect()
+    assert not solvers._PROGRAMS
+    r = solvers.cg(A, b, tol=1e-10, maxiter=500, graph=True)
+    assert not solvers._PROGRAMS and r.iterations == ref.iterations
+
+
+def test_graph_true_with_shards_raises(dev):
+    from sblas_tpu_torch import solvers
+    from sblas_tpu_torch.parallel import partition_row_plans
+    from sblas_tpu_torch.parallel.mesh import Mesh
+    from sblas_tpu_torch.utils.errors import PartitionError
+    A = webbase_like(n=20_000, avg_deg=4.0)
+    sh = partition_row_plans(A, 1, dtype=torch.float64, device=dev)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    with pytest.raises(PartitionError, match="graph=True"):
+        solvers.cg(sh, b, mesh=Mesh(None, 0, 1, dev), graph=True)

@@ -163,11 +163,28 @@ def test_merge_targets_repeat():
     assert tp.merged and len(np.unique(ids)) < len(ids)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_brow_offsets_are_the_segments_of_brow_ids(case):
+    """The segment sum's stored offsets (built from the stack layout)
+    equal the runs of `brow_ids`, as a plan loaded from the JAX package
+    derives them."""
+    jp, tp = _plans(case, "f64")
+    ids = tp.brow_ids.numpy()
+    off = tp.brow_offsets.numpy()
+    assert off.dtype == np.int64 and off.shape == (tp.n_blocks + 1,)
+    assert off[0] == 0 and off[-1] == tp.n_srows
+    assert np.array_equal(np.repeat(np.arange(tp.n_blocks), np.diff(off)),
+                          ids)
+    meta = {f: getattr(jp, f) for f in tr.META_FIELDS}
+    conv = tr.RoutedPlan.from_numpy(_jax_fields(jp), meta, "cpu")
+    assert torch.equal(conv.brow_offsets, tp.brow_offsets)
+
+
 def test_plan_to_moves_every_tensor():
     _, tp = _plans("webbase100k", "f64")
     moved = tp.to("meta")
     assert moved.device.type == "meta"
-    for f in tr.DATA_FIELDS:
+    for f in tr.DATA_FIELDS + tr.RoutedPlan.PORT_FIELDS:
         v = getattr(moved, f)
         for t in (v if isinstance(v, tuple) else (v,)):
             assert t.device.type == "meta", f

@@ -194,6 +194,19 @@ def test_cli_other_flags_not_ported(tmp_path, flag):
                         "--device", "cpu", *flag.split()])
 
 
+def test_cli_transport_f32_is_accepted(tmp_path, capsys):
+    """`--transport f32` is every port plan's transport: accepted, as the
+    JAX CLI accepts it, and it changes nothing."""
+    path = _write(tmp_path, MATRICES["webbase100k"](), "w.mtx")
+    argv = [path, "3", "4", "1", "f32", "--mode", "single", "--device",
+            "cpu"]
+    assert spmv_test.main([*argv, "--transport", "f32"]) == 0
+    out = capsys.readouterr().out
+    assert "Validation = True" in out and "plan RoutedPlan" in out
+    with pytest.raises(SystemExit):
+        spmv_test.main([*argv, "--transport", "f16"])
+
+
 def test_cli_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch):
     path = _write(tmp_path, MATRICES["tiny"](), "t.mtx")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -220,6 +233,12 @@ def test_port_imports_no_jax():
             "import sblas_tpu_torch.memory.host\n"
             "import sblas_tpu_torch.parallel.xfoot, sblas_tpu_torch.scaling\n"
             "import sblas_tpu_torch.io.plancache\n"
+            "import sblas_tpu_torch.bench, sblas_tpu_torch.solvers\n"
+            "import sblas_tpu_torch.cli.unit_test\n"
+            "import sblas_tpu_torch.tools.link_bw\n"
+            "import sblas_tpu_torch.examples.cg\n"
+            "import sblas_tpu_torch.examples.pagerank\n"
+            "import sblas_tpu_torch.examples.pagerank_dist\n"
             "import sblas_tpu_torch.experiments.stage_fuse_probe\n"
             "import sblas_tpu_torch.experiments.wcoo_gather_probe\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
