@@ -57,10 +57,29 @@ and the distribution layer in a world-1 NCCL group:
     [solve-dist] CG over routed RowPlanShards of the SPD system and
         PageRank over XFootShards of P^T in the world-1 group (K1, K2')
 
+    [um] host-streamed execution: webbase-1M host-resident at a 16 MiB
+        budget (12 WCOO bands, pinned) -> spmv_um and spmm_um x K=64 (K3
+        on every band), the shell at 32 MiB (ELL bands) -> spmm_um x
+        K=64; each streamed (tuning=0: bands counted, bytes streamed,
+        peak device memory, device time against a plain pinned copy of
+        the same bytes) and tuned (tuning=1: bitwise the streamed result
+        for K3 and ELL bands)
+    [k3-band] K3 against its plain version at one streamed band's tables
+        (its pad tiles included)
+    [um-dist] spmv_um_dist, spmm_um_dist (K3) and spmm_um_mode1 (K3) on
+        webbase-1M in the world-1 group, untuned and tuned
+    [um-dense] spmm_um_hostdense on the shell x K=64 (A, B and C in
+        pinned host memory, a budget below C's 23 MB), untuned and tuned,
+        and spmv_um_hostdense
+
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
-xfoot, and --mode xfoot --plan-cache saving then loading), the
-`unit_test` CLI (`[unit_test]`), and the benchmark at full size
+xfoot, and --mode xfoot --plan-cache saving then loading; `[cli um]`:
+spmv_test_um and spmm_test_um methods 1 and 2, tuning 0 and 1, at a
+4 MiB budget), the `unit_test` CLI (`[unit_test]`), the profiling
+harness (`[profiling]`: its `--small` traces and one of a streamed WCOO
+SpMM, each naming its band ranges, the last K3), and the benchmark at
+full size
 (`[bench]`: `python -m sblas_tpu_torch.bench --device cuda`, its JSON
 line and the card on one phase line).  Each
 phase prints one line, stamped with the seconds since the script started
@@ -153,15 +172,15 @@ def compare(name, kernel_fn, plain_fn, counter, rel_tol=0.0):
     return err, rel, ms, plain_ms
 
 
-def call_times(fn, nnz: int, k: int = 1) -> dict:
+def call_times(fn, nnz: int, k: int = 1, reps: int = 30) -> dict:
     """Wall ms per synchronous call, device ms, the device's idle share,
-    nnz/s and GFLOP/s over the wall time (medians of 30 runs after 5
+    nnz/s and GFLOP/s over the wall time (medians of `reps` runs after 5
     warm-ups)."""
     from sblas_tpu_torch.utils.timing import (device_time_ms, gflops,
                                               nnz_per_s, spmm_flops,
                                               wall_time_ms)
-    wall = wall_time_ms(fn, warmup=5, reps=30)
-    busy = device_time_ms(fn, warmup=5, reps=30)
+    wall = wall_time_ms(fn, warmup=5, reps=reps)
+    busy = device_time_ms(fn, warmup=5, reps=reps)
     return dict(wall_ms=f"{wall:.5f}", device_ms=f"{busy:.5f}",
                 idle_share=f"{max(1.0 - busy / wall, 0.0):.3f}",
                 nnz_per_s=f"{nnz_per_s(nnz, wall):.4e}",
@@ -413,6 +432,7 @@ def main() -> int:
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
     spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
+    um_webbase_phases(A, Bd, Cd, want, mesh, counters, none, kernels)
     del wplan, Cd, out, want
     p2_phase(A, Bd, counters, none, kernels)
     del Bd, A
@@ -439,6 +459,7 @@ def main() -> int:
         "COO SpMM", spmm(coo, Bd, ALPHA, BETA, Cd), want),
           **call_times(lambda: spmm(coo, Bd, ALPHA, BETA, Cd), S.nnz, K))
     spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none)
+    um_shell_phases(S, Bs, Cs, Bd, Cd, want, counters, none)
     import torch.distributed as dist
     dist.destroy_process_group()   # the CLIs below make their own groups
     del coo, Bd, Cd, out, want
@@ -569,6 +590,7 @@ def main() -> int:
                               ).strip(),
                   load=next(ln for ln in lines if "Load time" in ln).strip(),
                   run=next(ln for ln in lines if "run time" in ln).strip())
+        um_cli_phases(path, W.nnz, K)
         text, rc = _cli(spmm_test.main, ["2p", path, str(K), str(ALPHA),
                                          str(BETA), "1", "f32", "--device",
                                          "cuda"])
@@ -585,13 +607,16 @@ def main() -> int:
         raise AssertionError(f"unit_test failed (rc={rc}):\n{text}")
     phase("unit_test", rc=rc, validation=True, tests=sum(
         ln.endswith(": PASS") for ln in text.splitlines()))
+    profiling_phase(dev)
     bench_phase(card)
     phase("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in kernels.values()]}))
+    extra = ("um_launches",)   # K3's launches in [um]'s streamed SpMM
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys + extra if k in rec}
+        for rec in kernels.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1304,6 +1329,277 @@ def solve_phases(A, mesh, counters, none) -> None:
           launches=counts, check=pr_check(res),
           wall_ms_per_iter_eager=f"{wall:.5f}")
     solvers.clear_programs()
+
+
+# ---- host-streamed execution (the UM analog) ----
+
+UM_BUDGET_WEB = 16 << 20     # webbase-1M: 12 WCOO bands
+UM_BUDGET_SHELL = 32 << 20   # the shell: ELL bands
+UM_BUDGET_DENSE = 8 << 20    # below the shell's 23 MB C at K = 64
+
+
+def pinned_copy(nbytes: int) -> dict:
+    """A plain pinned host-to-device copy of `nbytes`, timed with events:
+    the streaming roofline of an untuned call that copies as much."""
+    from sblas_tpu_torch.utils.timing import device_time_ms
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = device_time_ms(lambda: dst.copy_(src, non_blocking=True), reps=20)
+    return dict(ms=ms, gb_per_s=nbytes / ms / 1e6)
+
+
+def um_run(title, hp, run, want, counters, none, k3_per_call, nnz, k=1,
+           deterministic=True, budget=0, operands=()) -> torch.Tensor:
+    """[um]: one streamed call of `run(tuning)` counted (K3 launches,
+    bands, bytes, the most bands on the device, peak device memory beside
+    the budget and the dense operands' bytes), then a tuned one; both against the oracle, tuned = streamed bitwise where
+    the band op is deterministic, wall and device ms of each, and the
+    streamed call's device time against a plain pinned copy of its
+    bytes."""
+    from sblas_tpu_torch.memory.host import _INFLIGHT
+    hp.remove_gpu_tuning()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = launches_of(counters, lambda: run(False))
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_launches(f"{title} streamed", counts,
+                    dict(none, window_reduce=k3_per_call))
+    st = hp.last_stream
+    if st.bands != hp.n_bands or st.peak_resident > _INFLIGHT:
+        raise AssertionError(f"{title}: streamed {st}, {hp.n_bands} bands")
+    t0 = call_times(lambda: run(False), nnz, k, reps=15)
+    copy = pinned_copy(st.bytes)
+    phase("um", path=f"{title} tuning=0", bands=f"{hp.n_bands}x{hp.kind}",
+          band_rows=hp.band_rows, launches=counts,
+          check=checked(f"{title} streamed", out, want),
+          bytes_streamed=st.bytes, peak_resident_bands=st.peak_resident,
+          max_memory_allocated=peak, budget=budget,
+          operand_bytes=nbytes(*operands), result_bytes=nbytes(out),
+          copy_ms=f"{copy['ms']:.5f}", copy_gb_s=f"{copy['gb_per_s']:.2f}",
+          copy_share=f"{copy['ms'] / float(t0['device_ms']):.3f}", **t0)
+    got, counts = launches_of(counters, lambda: run(True))
+    expect_launches(f"{title} tuned", counts,
+                    dict(none, window_reduce=k3_per_call))
+    bitwise = torch.equal(got, out)
+    if deterministic and not bitwise:
+        raise AssertionError(f"{title}: tuned differs from streamed")
+    phase("um", path=f"{title} tuning=1", launches=counts,
+          check=checked(f"{title} tuned", got, want),
+          tuned_equals_streamed_bitwise=bitwise,
+          bitwise_required=deterministic,
+          **call_times(lambda: run(True), nnz, k, reps=15))
+    hp.remove_gpu_tuning()
+    return counts["window_reduce"]
+
+
+def um_webbase_phases(A, Bd, Cd, want_mm, mesh, counters, none,
+                      kernels) -> None:
+    """[um], [k3-band], [um-dist] on webbase-1M at UM_BUDGET_WEB: WCOO
+    bands, K3 on every band."""
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.memory import (host_resident_plan,
+                                        host_resident_shards, spmm_um,
+                                        spmm_um_dist, spmm_um_mode1, spmv_um,
+                                        spmv_um_dist)
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
+                                          window_reduce_plain)
+    dev, K = Bd.device, Bd.shape[1]
+    t0 = time.perf_counter()
+    hp = host_resident_plan(A, dtype=torch.float32,
+                            hbm_budget_bytes=UM_BUDGET_WEB, device=dev)
+    build_s = time.perf_counter() - t0
+    if hp.kind != "wcoo":
+        raise AssertionError(f"webbase bands are {hp.kind}, expected wcoo")
+    pinned = all(getattr(b, f).is_pinned() for b in hp.bands
+                 for f in ("vals", "xblk", "k3_units"))
+    if not pinned:
+        raise AssertionError("webbase bands are not pinned")
+    phase("um", plan="host_resident_plan webbase-1M",
+          budget=UM_BUDGET_WEB, bands=f"{hp.n_bands}x{hp.kind}",
+          band_mb=f"{hp.band_bytes / 2**20:.1f}", pinned=pinned,
+          build_s=f"{build_s:.2f}")
+    x = DenseVector.random(A.width, dtype=np.float32)
+    y = DenseVector.constant(A.height, 1.0, dtype=np.float32)
+    xd, yd = (torch.from_numpy(v.values).to(dev) for v in (x, y))
+    want_mv = spmv_cpu(A, x, ALPHA, BETA, y)
+    um_run("spmv_um webbase-1M", hp,
+           lambda t: spmv_um(hp, xd, ALPHA, BETA, yd, tuning=t), want_mv,
+           counters, none, 0, A.nnz, deterministic=False,
+           budget=UM_BUDGET_WEB, operands=(xd, yd))
+    chunks = -(-K // k_chunk_width(hp.bands[0].n_tiles, K))
+    k3 = um_run(f"spmm_um webbase-1M K={K}", hp,
+                lambda t: spmm_um(hp, Bd, ALPHA, BETA, Cd, tuning=t),
+                want_mm, counters, none, hp.n_bands * chunks, A.nnz, K,
+                budget=UM_BUDGET_WEB, operands=(Bd, Cd))
+    kernels["window_reduce"]["um_launches"] = k3
+
+    # [k3-band]: K3 at one streamed band's tables, its pad tiles included
+    band = max(hp.bands, key=lambda b: int(
+        (b.vals.reshape(b.n_tiles, -1) == 0).all(dim=1).sum())).to(dev)
+    kc = k_chunk_width(band.n_tiles, K)
+    args = (band.k3, band.wb, band.relrow, band.vals, band.xblk, band.lane,
+            Bd, 0, kc)
+    err, rel, ms, plain_ms = compare(
+        "window_reduce (band)", lambda: window_reduce(*args),
+        lambda: window_reduce_plain(*args), window_reduce, F32_REL_TOL)
+    phase("k3-band", n_tiles=band.n_tiles,
+          units=band.k3_units.shape[0], k3_rows=band.k3_rows.shape[0],
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", tol=F32_REL_TOL,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}")
+    del band, args
+
+    # [um-dist]: v2 over one shard's bands, v1 over the whole plan
+    hs = host_resident_shards(A, 1, dtype=torch.float32,
+                              hbm_budget_bytes=UM_BUDGET_WEB, device=dev,
+                              rank=0)
+    runs = (("spmv_um_dist", want_mv, 0, 1, lambda t: spmv_um_dist(
+                hs, xd, ALPHA, BETA, yd, mesh, tuning=t)),
+            ("spmm_um_dist", want_mm, hs.n_bands * chunks, K,
+             lambda t: spmm_um_dist(hs, Bd, ALPHA, BETA, Cd, mesh,
+                                    tuning=t)),
+            ("spmm_um_mode1", want_mm, hp.n_bands * chunks, K,
+             lambda t: spmm_um_mode1(hp, Bd, ALPHA, BETA, Cd, mesh,
+                                     tuning=t)))
+    for name, want, k3_calls, k, run in runs:
+        for tuning in (False, True):
+            out, counts = launches_of(counters, lambda: run(tuning))
+            expect_launches(name, counts, dict(none,
+                                               window_reduce=k3_calls))
+            phase("um-dist", path=f"{name} tuning={int(tuning)} (world 1)",
+                  bands=f"{hs.n_bands}x{hs.kind}", launches=counts,
+                  check=checked(name, out, want),
+                  **call_times(lambda: run(tuning), A.nnz, k, reps=10))
+        hs.remove_gpu_tuning()
+        hp.remove_gpu_tuning()
+
+
+def um_shell_phases(S, Bs, Cs, Bd, Cd, want_mm, counters, none) -> None:
+    """[um] on the shell at UM_BUDGET_SHELL (ELL bands), then [um-dense]:
+    A, B and C host-resident with a budget below C."""
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.memory import (HostDense, host_resident_grid,
+                                        host_resident_plan, spmm_um,
+                                        spmm_um_hostdense, spmv_um_hostdense)
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.utils.timing import wall_time_ms
+    dev, K = Bd.device, Bd.shape[1]
+    hp = host_resident_plan(S, dtype=torch.float32,
+                            hbm_budget_bytes=UM_BUDGET_SHELL, device=dev)
+    if hp.kind != "ell":
+        raise AssertionError(f"shell bands are {hp.kind}, expected ell")
+    um_run(f"spmm_um shell K={K}", hp,
+           lambda t: spmm_um(hp, Bd, ALPHA, BETA, Cd, tuning=t), want_mm,
+           counters, none, 0, S.nnz, K, budget=UM_BUDGET_SHELL,
+           operands=(Bd, Cd))
+    del hp
+
+    grid = host_resident_grid(S, dtype=torch.float32,
+                              hbm_budget_bytes=UM_BUDGET_DENSE, k=K,
+                              device=dev)
+    Bh = HostDense.from_array(Bs, device=dev)
+    Ch = HostDense.from_array(Cs, device=dev)
+    outs = []
+    for tuning in (False, True):
+        grid.remove_gpu_tuning()
+        Bh.remove_gpu_tuning()
+        out, counts = launches_of(counters, lambda: spmm_um_hostdense(
+            grid, Bh, ALPHA, BETA, Ch, tuning=tuning))
+        expect_launches("spmm_um_hostdense", counts, none)
+        outs.append(out.to_numpy().copy())
+        phase("um-dense", path=f"spmm_um_hostdense shell K={K} "
+              f"tuning={int(tuning)}", budget=UM_BUDGET_DENSE,
+              c_bytes=Cs.nbytes, grid=f"{grid.n_bands}x{grid.n_chunks}",
+              cells=len(grid.cells), kind=grid.kind,
+              pinned=out.values.is_pinned(),
+              check=checked("spmm_um_hostdense", torch.from_numpy(outs[-1]),
+                            want_mm),
+              wall_ms=f"{wall_time_ms(lambda: spmm_um_hostdense(grid, Bh, ALPHA, BETA, Ch, tuning=tuning), warmup=2, reps=5):.5f}")
+    if not np.array_equal(*outs):
+        raise AssertionError("spmm_um_hostdense: tuned differs from "
+                             "streamed")
+    grid1 = host_resident_grid(S, dtype=torch.float32,
+                               hbm_budget_bytes=UM_BUDGET_DENSE, k=1,
+                               device=dev)
+    x = DenseVector.random(S.width, dtype=np.float32)
+    y = DenseVector.constant(S.height, 1.0, dtype=np.float32)
+    xh, yh = (HostDense.from_array(v.values, device=dev) for v in (x, y))
+    got = spmv_um_hostdense(grid1, xh, ALPHA, BETA, yh)
+    phase("um-dense", path="spmv_um_hostdense shell",
+          grid=f"{grid1.n_bands}x{grid1.n_chunks}", cells=len(grid1.cells),
+          check=checked("spmv_um_hostdense",
+                        torch.from_numpy(got.to_numpy().copy()),
+                        spmv_cpu(S, x, ALPHA, BETA, y)),
+          wall_ms=f"{wall_time_ms(lambda: spmv_um_hostdense(grid1, xh, ALPHA, BETA, yh), warmup=2, reps=5):.5f}")
+
+
+def um_cli_phases(path, nnz, K) -> None:
+    """spmv_test_um (tuning 0, 1) and spmm_test_um (methods 1 and 2, on
+    one rank: n_devices 2 in a world of one, tuning 0, 1) on `path`, with
+    a budget that makes several bands."""
+    from sblas_tpu_torch.cli import spmm_test_um, spmv_test_um
+    os.environ["SBLAS_HBM_BUDGET"] = str(4 << 20)
+    try:
+        runs = [(spmv_test_um.main, "spmv_test_um",
+                 [path, str(ALPHA), str(BETA), "1", t, "f32"])
+                for t in ("0", "1")]
+        runs += [(spmm_test_um.main, f"spmm_test_um method {m}",
+                  [m, path, str(K), str(ALPHA), str(BETA), "2", t, "f32"])
+                 for m in ("1", "2") for t in ("0", "1")]
+        for main_fn, label, argv in runs:
+            text, rc = _cli(main_fn, [*argv, "--device", "cuda"])
+            if rc != 0 or "Validation = True" not in text:
+                raise AssertionError(f"{label} {argv} failed (rc={rc}):\n"
+                                     f"{text}")
+            lines = text.splitlines()
+            phase("cli um", cli=label, tuning=argv[-2], rc=rc, nnz=nnz,
+                  validation=True,
+                  matrix=next(ln for ln in lines if "band(s)" in ln
+                              ).split("device(s)")[-1].strip(),
+                  run=next(ln for ln in lines if "run time" in ln).strip())
+    finally:
+        del os.environ["SBLAS_HBM_BUDGET"]
+
+
+def profiling_phase(dev) -> None:
+    """[profiling]: `python -m sblas_tpu_torch.profiling --small`'s four
+    traces, and one of a streamed WCOO SpMM (K3 inside), to a temp dir:
+    each non-empty, naming its band ranges."""
+    from sblas_tpu_torch import profiling
+    from sblas_tpu_torch.io.generate import webbase_like
+    from sblas_tpu_torch.memory import host_resident_plan, spmm_um
+    with tempfile.TemporaryDirectory() as tmp:
+        text, rc = _cli(profiling.main, [tmp, "--small", "--device",
+                                         "cuda"])
+        if rc != 0:
+            raise AssertionError(f"profiling failed (rc={rc}):\n{text}")
+        W = webbase_like(n=50_000, dtype=np.float32)
+        hp = host_resident_plan(W, dtype=torch.float32,
+                                hbm_budget_bytes=1 << 20, device=dev)
+        B = torch.rand((W.width, 64), device=dev)
+        C = torch.ones((W.height, 64), device=dev)
+        profiling.trace("spmm_um_wcoo_tuning0", hp,
+                        lambda: spmm_um(hp, B, 1.0, 1.0, C), tmp, dev)
+        for name in ("spmm_um_tuning0", "spmm_um_tuning1",
+                     "spmv_um_tuning0", "spmv_um_tuning1",
+                     "spmm_um_wcoo_tuning0"):
+            p = os.path.join(tmp, f"{name}.json")
+            with open(p) as fh:
+                events = json.load(fh)["traceEvents"]
+            names = {e.get("name", "") for e in events}
+            want = {name, "band 0 compute"} | (
+                {"band 0 copy"} if name.endswith("0") else set())
+            k3 = sum("unit_reduce_kernel" in n for n in names)
+            if not want <= names or (name.endswith("wcoo_tuning0")
+                                     and not k3):
+                raise AssertionError(f"trace {name}: missing "
+                                     f"{sorted(want - names)} or K3")
+            phase("profiling", trace=name, events=len(events),
+                  kb=f"{os.path.getsize(p) / 1024:.0f}",
+                  band_ranges=sum(n.startswith("band ") for n in names),
+                  k3_kernel_names=k3,
+                  gpu_events=sum(e.get("cat") == "kernel" for e in events))
 
 
 def _device_ms(fn) -> float:

@@ -163,3 +163,25 @@ def flag_value(rest, name: str, default, cast=str, usage: str = ""):
         print(usage or f"missing value for {name}", file=sys.stderr)
         raise SystemExit(2)
     return cast(rest[i + 1])
+
+
+def trailing(argv, start: int, usage: str):
+    """The UM CLIs' optional positionals at `start`: (tuning, dtype
+    name), before any flag; a tuning other than 0 or 1 is a usage
+    error."""
+    extra = []
+    for a in argv[start:start + 2]:
+        if a.startswith("-"):
+            break
+        extra.append(a)
+    tuning = extra[0] if extra else "0"
+    if tuning not in ("0", "1"):
+        print(usage, file=sys.stderr)
+        raise SystemExit(2)
+    return tuning == "1", (extra[1] if len(extra) > 1 else "f32")
+
+
+def hbm_budget() -> int:
+    """The UM CLIs' device-memory budget: SBLAS_HBM_BUDGET bytes, default
+    256 MiB (as the JAX CLIs read it)."""
+    return int(os.environ.get("SBLAS_HBM_BUDGET", 256 << 20))

@@ -6,11 +6,15 @@ million rows) and immutable, so they are built once and kept
 (cuSPARSE's `*_analysis`, FFTW's wisdom).  The reference re-analyses on
 every run (matrix.h:341-395).
 
-Covers the six single-device plans and the distributed containers
-(`RowPlanShards`, `HaloDiaShards`, `XFootShards`, with `XFootPlan`) by a
-recursive walk of the dataclass fields: nested plans, tuples of per-shard
-plans (None where a rank does not hold a shard), tensors, numpy arrays,
-tuples of tensors and the `XFootStats` NamedTuple round-trip.
+Covers the six single-device plans, the distributed containers
+(`RowPlanShards`, `HaloDiaShards`, `XFootShards`, with `XFootPlan`) and
+the host-resident ones (`HostResidentPlan`, `HostResidentShards`) by a
+recursive walk of the dataclass fields: nested plans, lists of per-band
+plans, tuples of per-shard plans (None where a rank does not hold a
+shard), tensors, numpy arrays, tuples of tensors and the `XFootStats`
+NamedTuple round-trip.  Residency state (underscore fields: device
+copies, streams) is not saved: a loaded host-resident plan starts
+untuned, its bands in host memory, pinned when its device is CUDA.
 
 Format (the JAX package's): one .npz holding the dataclass fields, tensors
 as arrays (`a:` tensors, `n:` numpy arrays, `t:<field>:<i>` tuples of
@@ -21,7 +25,8 @@ a `RoutedPlan` or a `WcooPlan` (or another plan whose fields match the
 port's) loads here: a plan class's port-only fields (`PORT_FIELDS`)
 missing from a file are derived by its `port_fields`.  Tensors load
 through `put`, by default onto the `device` the caller names: there is
-no implicit device.
+no implicit device, and a host-resident plan's bands load to the host
+for that device.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from ..utils.errors import FormatError, require
 
 
 def _plan_registry():
+    from ..memory.dist import HostResidentShards
+    from ..memory.host import HostResidentPlan
     from ..ops.bsr import BsrPlan
     from ..ops.dia import DiaPlan
     from ..ops.plans import CooPlan, EllPlan
@@ -49,7 +56,8 @@ def _plan_registry():
     from ..parallel.xfoot import XFootPlan, XFootShards
     return {c.__name__: c for c in
             (BsrPlan, CooPlan, DiaPlan, EllPlan, RoutedPlan, WcooPlan,
-             RowPlanShards, HaloDiaShards, XFootShards, XFootPlan)}
+             RowPlanShards, HaloDiaShards, XFootShards, XFootPlan,
+             HostResidentPlan, HostResidentShards)}
 
 
 def _namedtuple_registry():
@@ -84,6 +92,11 @@ def _flatten(obj, prefix: str, arrays: dict, meta: dict, dtypes: dict,
         key = prefix + f.name
         if _is_plan(v, registry):
             _flatten(v, key + ".", arrays, meta, dtypes, registry)
+        elif (isinstance(v, list) and v
+              and all(_is_plan(e, registry) for e in v)):
+            meta[f"__list__{key}"] = len(v)   # per-band plans
+            for i, e in enumerate(v):
+                _flatten(e, f"{key}[{i}].", arrays, meta, dtypes, registry)
         elif (isinstance(v, tuple) and v
               and all(e is None or _is_plan(e, registry) for e in v)
               and any(e is not None for e in v)):
@@ -140,7 +153,9 @@ def load_plan(path: str, device=None, *, put=None,
     Each tensor goes through `put(array)`; the default moves it onto
     `device`, and one of the two must be given.  `rank` keeps only that
     shard of a shard container (the others load as None), as the
-    partitioners' `rank=` places them.
+    partitioners' `rank=` places them.  A host-resident plan's tensors
+    load to the host (pinned when `device` is CUDA) and the plan computes
+    on `device`.
 
     Raises FormatError when a loaded array's dtype differs from the one
     recorded at save time, and when the file does not match the current
@@ -151,7 +166,10 @@ def load_plan(path: str, device=None, *, put=None,
         def put(arr):
             return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
-    def _dev(key, arr, want: Optional[str]):
+    def host_put(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr))
+
+    def _dev(key, arr, want: Optional[str], put):
         out = put(arr)
         if want is not None and _dtype_name(out.dtype) != want:
             raise FormatError(
@@ -166,8 +184,11 @@ def load_plan(path: str, device=None, *, put=None,
         nt_registry = _namedtuple_registry()
         files = set(z.files)
 
-        def build(prefix: str):
+        def build(prefix: str, put=put):
             cls = registry[meta[f"{prefix}__class__"]]
+            resident = getattr(cls, "HOST_RESIDENT", False)
+            if resident:
+                put = host_put   # its bands stay on the host
             kwargs = {}
             # cls(**kwargs) surfaces schema drift (a field added or removed
             # since the file was saved) as FormatError below
@@ -176,22 +197,25 @@ def load_plan(path: str, device=None, *, put=None,
                     continue
                 key = prefix + f.name
                 if f"{key}.__class__" in meta:
-                    kwargs[f.name] = build(key + ".")
+                    kwargs[f.name] = build(key + ".", put)
+                elif f"__list__{key}" in meta:
+                    kwargs[f.name] = [build(f"{key}[{i}].", put)
+                                      for i in range(meta[f"__list__{key}"])]
                 elif f"__shards__{key}" in meta:
                     kwargs[f.name] = tuple(
-                        build(f"{key}[{i}].")
+                        build(f"{key}[{i}].", put)
                         if f"{key}[{i}].__class__" in meta
                         and (rank is None or i == rank) else None
                         for i in range(meta[f"__shards__{key}"]))
                 elif f"a:{key}" in files:
                     kwargs[f.name] = _dev(f"a:{key}", z[f"a:{key}"],
-                                          dtypes.get(f"a:{key}"))
+                                          dtypes.get(f"a:{key}"), put)
                 elif f"n:{key}" in files:
                     kwargs[f.name] = z[f"n:{key}"]
                 elif f"__tuplelen__{key}" in meta:
                     kwargs[f.name] = tuple(
                         _dev(f"t:{key}:{i}", z[f"t:{key}:{i}"],
-                             dtypes.get(f"t:{key}:{i}"))
+                             dtypes.get(f"t:{key}:{i}"), put)
                         for i in range(meta[f"__tuplelen__{key}"]))
                 elif f"__nt__{key}" in meta:
                     kwargs[f.name] = nt_registry[meta[f"__nt__{key}"]](
@@ -211,6 +235,8 @@ def load_plan(path: str, device=None, *, put=None,
                 derived = cls.port_fields(host, kwargs)
                 kwargs.update({name: put(derived[name])
                                for name in missing})
+            if resident:
+                return cls(**kwargs).placed(device or "cpu")
             return cls(**kwargs)
 
         try:

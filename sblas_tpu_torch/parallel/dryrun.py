@@ -20,7 +20,10 @@ and SpMM, the two-tier modes (2 x n/2 groups for an even n >= 4, else
 1 x n), and the footprint-compressed x exchange: on the banded A with
 the default engine, on a small web graph W (hubs make a hot set) with
 the route engine forced, and over routed shards of U with the route
-engine (kernels K1 and K2' under the exchange).  It raises if any rank
+engine (kernels K1 and K2' under the exchange), and the host-streamed
+(UM) modes, each untuned and tuned: `spmv_um_dist` and `spmm_um_dist`
+over W's windowed-COO bands, `spmm_um_mode1` over A's ELL bands.  It
+raises if any rank
 fails; with `save_dir`, rank 0 writes every whole result to
 `save_dir/cases.npz`.
 """
@@ -42,6 +45,8 @@ ALPHA, BETA = 3.0, 4.0
 # the routed cases' thresholds, low enough for the tiny unstructured matrix
 ROUTED_CONFIG = dict(routed_min_nnz=256, routed_min_width=256)
 PLANNED_KINDS = ("bsr", "ell", "dia", "wcoo", "coo")
+# the UM cases' device-memory budgets: several bands of each matrix
+UM_BUDGET = dict(A=4 << 10, W=64 << 10)
 
 
 def hier_split(n: int):
@@ -63,6 +68,8 @@ def case_operands(n: int) -> dict:
     k = 2 * n
     return dict(A=A, U=U, W=W, xW=DenseVector.random(W.width),
                 yW=DenseVector.constant(W.height, 1.0),
+                BW=DenseMatrix.random(W.width, k),
+                CW=DenseMatrix.constant(W.height, k, 1.0),
                 B=DenseMatrix.random(A.width, k),
                 C=DenseMatrix.constant(A.height, k, 1.0),
                 x=DenseVector.random(A.width),
@@ -97,7 +104,8 @@ def run_cases(mesh) -> dict:
                 mv=spmv_cpu(A, op["x"], a, b, op["y"]),
                 mmU=spmm_cpu(U, op["BU"], a, b, op["CU"]),
                 mvU=spmv_cpu(U, op["xU"], a, b, op["yU"]),
-                mvW=spmv_cpu(W, op["xW"], a, b, op["yW"]))
+                mvW=spmv_cpu(W, op["xW"], a, b, op["yW"]),
+                mmW=spmm_cpu(W, op["BW"], a, b, op["CW"]))
     results = {}
 
     def case(name, out, oracle, dim=None, on=mesh):
@@ -157,6 +165,21 @@ def run_cases(mesh) -> dict:
     xs = partition_xfoot(U, n, kind="routed", extract="route", rank=rank,
                          config=SBlasConfig(**ROUTED_CONFIG), **kw)
     case("xfoot_routed", spmv_xfoot(xs, xU, a, b, yU, mesh), "mvU", 0)
+
+    # host-streamed (UM) modes, untuned then tuned
+    from ..memory import (host_resident_plan, host_resident_shards,
+                          spmm_um_dist, spmm_um_mode1, spmv_um_dist)
+    hs = host_resident_shards(W, n, hbm_budget_bytes=UM_BUDGET["W"],
+                              rank=rank, **kw)
+    hp = host_resident_plan(A, hbm_budget_bytes=UM_BUDGET["A"], **kw)
+    for tuning in (False, True):
+        tag = f"t{int(tuning)}"
+        case(f"um_spmv_dist_{tag}", spmv_um_dist(
+            hs, t["xW"], a, b, t["yW"], mesh, tuning=tuning), "mvW")
+        case(f"um_spmm_dist_{tag}", spmm_um_dist(
+            hs, t["BW"], a, b, t["CW"], mesh, tuning=tuning), "mmW")
+        case(f"um_mode1_{tag}", spmm_um_mode1(hp, B, a, b, C, mesh,
+                                              tuning=tuning), "mm", 1)
     return results
 
 

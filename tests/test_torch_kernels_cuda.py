@@ -641,3 +641,135 @@ def test_graph_true_with_shards_raises(dev):
     b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
     with pytest.raises(PartitionError, match="graph=True"):
         solvers.cg(sh, b, mesh=Mesh(None, 0, 1, dev), graph=True)
+
+
+# ---- host-streamed execution (the UM analog) ----
+
+def _um_case(dev, kind):
+    """A matrix whose host-resident f32 plan for `dev` has `kind` bands,
+    more of them than the in-flight window."""
+    from sblas_tpu_torch.io.generate import fem_shell_like
+    from sblas_tpu_torch.memory import host_resident_plan
+    from sblas_tpu_torch.memory.host import _INFLIGHT
+    if kind == "wcoo":
+        A, budget = webbase_like(n=200_000, dtype=np.float32), 2 << 20
+    else:
+        A = fem_shell_like(nx=51, ny=25, dof=6, n_target=51 * 25 * 6 - 1,
+                           dtype=np.float32)
+        budget = 1 << 20
+    hp = host_resident_plan(A, dtype=torch.float32,
+                            hbm_budget_bytes=budget, device=dev)
+    assert hp.kind == kind and hp.n_bands > _INFLIGHT
+    return A, hp
+
+
+def _slowed(monkeypatch, hp, dev, delay: str, cycles: int = 2_000_000):
+    """Hold the stream of every band `delay` ("copy" or "compute") busy
+    for about a millisecond first, so a missing event wait or an early
+    slot refill shows as a wrong result."""
+    import contextlib
+    from sblas_tpu_torch.memory import host as thost
+    real = thost.trace_scope
+    side = hp.copy_stream() if hp is not None else None
+
+    @contextlib.contextmanager
+    def slow(name, device=None):
+        if name.endswith(delay):
+            stream = (side if delay == "copy"
+                      else torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(cycles)
+        with real(name, device):
+            yield
+
+    monkeypatch.setattr(thost, "trace_scope", slow)
+
+
+@pytest.mark.parametrize("kind", ["wcoo", "ell"])
+@pytest.mark.parametrize("delay", ["copy", "compute"])
+def test_streamed_spmm_equals_tuned_under_delays(dev, kind, delay,
+                                                 monkeypatch):
+    """Untuned (streamed) spmm_um is bitwise the tuned loop for K3 and ELL
+    bands, with the copy or the compute stream delayed before each band;
+    so is spmv_um over ELL bands (WCOO SpMV adds with index_add_)."""
+    from sblas_tpu_torch.memory import host as thost
+    A, hp = _um_case(dev, kind)
+    g = torch.Generator(device=dev).manual_seed(7)
+    B = torch.rand((A.shape[1], 64), generator=g, device=dev)
+    C = torch.rand((A.shape[0], 64), generator=g, device=dev)
+    x, y = B[:, 0].contiguous(), C[:, 0].contiguous()
+    want = thost.spmm_um(hp, B, 3.0, 4.0, C, tuning=True)
+    want_v = thost.spmv_um(hp, x, 3.0, 4.0, y, tuning=True)
+    hp.remove_gpu_tuning()
+    _slowed(monkeypatch, hp, dev, delay)
+    got = thost.spmm_um(hp, B, 3.0, 4.0, C)
+    got_v = thost.spmv_um(hp, x, 3.0, 4.0, y)
+    torch.cuda.synchronize()
+    assert hp.last_stream.peak_resident == thost._INFLIGHT
+    assert torch.equal(got, want)
+    if kind == "ell":
+        assert torch.equal(got_v, want_v)
+    else:
+        torch.testing.assert_close(got_v, want_v, rtol=1e-5, atol=1e-5)
+
+
+def test_um_operands_are_pinned(dev, tmp_path):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.io.plancache import load_plan, save_plan
+    from sblas_tpu_torch.memory import (HostDense, host_resident_grid,
+                                        host_resident_plan,
+                                        host_resident_shards)
+    from sblas_tpu_torch.memory.host import tensor_fields
+    A = fem_banded_like(n=3000, half_band=10)
+    kw = dict(dtype=torch.float64, hbm_budget_bytes=64 << 10, device=dev)
+    hp = host_resident_plan(A, **kw)
+    save_plan(str(tmp_path / "um.npz"), hp)
+    plans = [*hp.bands, *load_plan(str(tmp_path / "um.npz"), dev).bands,
+             *host_resident_shards(A, 2, rank=1, **kw).local(1).bands,
+             *host_resident_grid(A, k=8, **kw).cells.values()]
+    assert all(getattr(p, f).is_pinned() for p in plans
+               for f in tensor_fields(p))
+    assert HostDense.from_array(np.ones((5, 3)), device=dev).values \
+        .is_pinned()
+
+
+def test_hostdense_result_is_ready_on_return(dev, monkeypatch):
+    """spmm_um_hostdense's result is read straight after the call, with
+    every band's compute delayed: the call waits for its last copy."""
+    from sblas_tpu_torch.containers import DenseMatrix
+    from sblas_tpu_torch.io.generate import fem_shell_like
+    from sblas_tpu_torch.memory import (HostDense, host_resident_grid,
+                                        spmm_um_hostdense)
+    from sblas_tpu_torch.ops.cpu_reference import spmm_cpu
+    from sblas_tpu_torch.utils.verify import check_equal
+    A = fem_shell_like(nx=51, ny=25, dof=6, n_target=51 * 25 * 6 - 1,
+                       dtype=np.float64)
+    grid = host_resident_grid(A, dtype=torch.float64,
+                              hbm_budget_bytes=1 << 20, k=16, device=dev)
+    assert grid.n_bands > 3
+    B = DenseMatrix.random(A.width, 16)
+    C = DenseMatrix.constant(A.height, 16, 1.0)
+    _slowed(monkeypatch, None, dev, "compute")
+    got = spmm_um_hostdense(grid, HostDense.from_array(B.values, device=dev),
+                            3.0, 4.0,
+                            HostDense.from_array(C.values, device=dev))
+    assert got.values.is_pinned()
+    assert check_equal(got.to_numpy(), spmm_cpu(A, B, 3.0, 4.0, C)).ok
+
+
+def test_spmm_um_wcoo_counts_k3_per_band_and_chunk(dev):
+    """A streamed spmm_um over WCOO bands calls K3 once per band per
+    K-chunk (K = 600: two chunks of at most 512)."""
+    from sblas_tpu_torch.memory import host as thost
+    from sblas_tpu_torch.ops import wcoo as tw
+    A, hp = _um_case(dev, "wcoo")
+    k = 600
+    kc = tw.k_chunk_width(hp.bands[0].n_tiles, k)
+    B = torch.rand((A.shape[1], k), device=dev)
+    C = torch.zeros((A.shape[0], k), device=dev)
+    tw.window_reduce.launches = 0
+    got = thost.spmm_um(hp, B, 1.0, 0.0, C)
+    torch.cuda.synchronize()
+    assert tw.window_reduce.launches == hp.n_bands * -(-k // kc) \
+        == hp.n_bands * 2
+    assert torch.equal(got, thost.spmm_um(hp, B, 1.0, 0.0, C, tuning=True))

@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 from jax.experimental import pallas as pl
 
+import sblas_tpu.memory as jmem
 import sblas_tpu.ops as jops
 from sblas_tpu import parallel as jpar
 from sblas_tpu.config import SBlasConfig as JConfig
@@ -59,6 +60,9 @@ ORACLE = {
     "halo_planned_spmv": "mv", "halo_planned_spmm": "mm",
     "hier_spmm": "mm", "hier_spmv": "mv", "hier_routed_spmv": "mvU",
     "xfoot": "mv", "xfoot_route": "mvW", "xfoot_routed": "mvU",
+    **{f"um_{op}_t{t}": oracle for t in (0, 1)
+       for op, oracle in (("spmv_dist", "mvW"), ("spmm_dist", "mmW"),
+                          ("mode1", "mm"))},
 }
 CASES = sorted(ORACLE)
 
@@ -81,7 +85,8 @@ def _operands(n):
                 mv=spmv_cpu(A, op["x"], A_, B_, op["y"]),
                 mmU=spmm_cpu(U, op["BU"], A_, B_, op["CU"]),
                 mvU=spmv_cpu(U, op["xU"], A_, B_, op["yU"]),
-                mvW=spmv_cpu(W, op["xW"], A_, B_, op["yW"]))
+                mvW=spmv_cpu(W, op["xW"], A_, B_, op["yW"]),
+                mmW=spmm_cpu(W, op["BW"], A_, B_, op["CW"]))
     return A, U, W, d, want
 
 
@@ -136,6 +141,17 @@ def _jax_cases(n):
         jpar.partition_xfoot(U, n, dtype=F64, kind="routed", extract="route",
                              config=JConfig(**dryrun.ROUTED_CONFIG)),
         xU, A_, B_, yU, mesh)
+    hs = jmem.host_resident_shards(W, n, dtype=F64,
+                                   hbm_budget_bytes=dryrun.UM_BUDGET["W"])
+    hp = jmem.host_resident_plan(A, dtype=F64,
+                                 hbm_budget_bytes=dryrun.UM_BUDGET["A"])
+    for t in (0, 1):
+        out[f"um_spmv_dist_t{t}"] = jmem.spmv_um_dist(
+            hs, d["xW"], A_, B_, d["yW"], mesh, tuning=bool(t))
+        out[f"um_spmm_dist_t{t}"] = jmem.spmm_um_dist(
+            hs, d["BW"], A_, B_, d["CW"], mesh, tuning=bool(t))
+        out[f"um_mode1_t{t}"] = jmem.spmm_um_mode1(hp, B, A_, B_, C, mesh,
+                                                   tuning=bool(t))
     return {k: np.asarray(jax.device_get(v)) for k, v in out.items()}
 
 

@@ -230,7 +230,11 @@ def test_port_imports_no_jax():
             "import sblas_tpu_torch.tools.k3_skew\n"
             "import sblas_tpu_torch.partition, sblas_tpu_torch.parallel\n"
             "import sblas_tpu_torch.parallel.dryrun\n"
-            "import sblas_tpu_torch.memory.host\n"
+            "import sblas_tpu_torch.memory, sblas_tpu_torch.memory.host\n"
+            "import sblas_tpu_torch.memory.dense, sblas_tpu_torch.memory.dist\n"
+            "import sblas_tpu_torch.cli.spmv_test_um\n"
+            "import sblas_tpu_torch.cli.spmm_test_um\n"
+            "import sblas_tpu_torch.profiling\n"
             "import sblas_tpu_torch.parallel.xfoot, sblas_tpu_torch.scaling\n"
             "import sblas_tpu_torch.io.plancache\n"
             "import sblas_tpu_torch.bench, sblas_tpu_torch.solvers\n"
