@@ -72,9 +72,30 @@ and the distribution layer in a world-1 NCCL group:
         pinned host memory, a budget below C's 23 MB), untuned and tuned,
         and spmv_um_hostdense
 
+    the 16-bit half, each bf16 variant held against its plain version
+    (K1, K2, K2' bitwise; K3, K4 within one bf16 ulp, deterministic) and
+    counted by variant (`_kernels.LAUNCHED`) on the path that runs it:
+    [bf16-kernels] K1 bf16/int16 at webbase-1M's main-route tables, K2 and
+        K2' f32 -> bf16 at that plan's tiles (and bf16 -> bf16 at a
+        bf16-valued plan's), K3 bf16 at webbase x K=64, K4 bf16 at
+        band-73 x K=256, with library yardsticks (`torch.gather` on int32
+        indices; bf16 `torch.sparse.mm` / `torch.addmm` on CSR where the
+        torch build has them)
+    [bf16-transport] the webbase-1M routed SpMV re-aimed with
+        `with_transport("bf16")`, gated at 2e-3 and timed beside f32 in
+        turns; `spmv_dist_planned` and `spmv_xfoot` at world 1 over
+        shards built with `routed_transport="bf16"` (K2' storing bf16)
+    [bf16-plans] plans with bf16 values against the oracle at the JAX
+        package's bf16 bound (rtol = atol = 0.15): the webbase routed SpMV
+        (K1 bf16, K2 bf16; and through K2' with `pregather`), the webbase
+        WCOO SpMM (K3), the shell DIA SpMM and SpMV, the band-73 BELL SpMM
+        at K=256 (K4)
+
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
-xfoot, and --mode xfoot --plan-cache saving then loading; `[cli um]`:
+xfoot, and --mode xfoot --plan-cache saving then loading; `[cli bf16]`:
+--transport bf16, with --plan-cache saving the bf16 plan and a default
+run re-aiming it; `[cli progressive]`; `[cli um]`:
 spmv_test_um and spmm_test_um methods 1 and 2, tuning 0 and 1, at a
 4 MiB budget), the `unit_test` CLI (`[unit_test]`), the profiling
 harness (`[profiling]`: its `--small` traces and one of a streamed WCOO
@@ -113,6 +134,13 @@ SEED = 211
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+BF16 = torch.bfloat16
+# the bf16 route transport's documented bar (the JAX CLI's and bench's),
+# and the JAX package's bound for bf16-valued plans (rtol = atol = 0.15,
+# tests/test_ops_single_chip.py::test_bfloat16_plans_run)
+BF16_TRANSPORT_BAR = 2e-3
+BF16_PLAN_TOL = 0.15
 # K3/K4 sum in another order than their plain versions (index_add_,
 # einsum): max |kernel - plain| / max(1, max |plain|) must stay below this
 F32_REL_TOL = 1e-5
@@ -148,10 +176,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def compare(name, kernel_fn, plain_fn, counter, rel_tol=0.0):
+def bf16_ulps(got, want) -> int:
+    """Largest per-element distance in bf16 ulps between two bf16 tensors
+    (ordered bit patterns, so +0 and -0 are one value)."""
+    def key(t):
+        b = t.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+    return int((key(got) - key(want)).abs().max()) if got.numel() else 0
+
+
+def compare(name, kernel_fn, plain_fn, counter, rel_tol=0.0, ulps=None):
     """Kernel vs plain version on the same inputs: two kernel launches
     must agree bitwise (deterministic); the kernel must equal the plain
-    version (rel_tol 0) or stay within rel_tol of it, normwise.  Returns
+    version (rel_tol 0), stay within rel_tol of it, normwise, or (bf16,
+    `ulps`) within that many bf16 ulps of it per element.  Returns
     (max_abs_err, rel_err, kernel ms, plain ms), medians of device time.
     Resets the launch counter afterwards, so these launches never count
     as a main path's."""
@@ -162,7 +200,10 @@ def compare(name, kernel_fn, plain_fn, counter, rel_tol=0.0):
         raise AssertionError(f"{name}: two launches differ")
     err = float((got.double() - want.double()).abs().max())
     rel = err / max(1.0, float(want.double().abs().max()))
-    ok = torch.equal(got, want) if rel_tol == 0.0 else rel <= rel_tol
+    if ulps is not None:
+        ok = bf16_ulps(got, want) <= ulps
+    else:
+        ok = torch.equal(got, want) if rel_tol == 0.0 else rel <= rel_tol
     if not ok:
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version (max_abs_err={err}, rel={rel})")
@@ -213,9 +254,12 @@ def checked(title, got, want):
 
 def launches_of(counters: dict, fn):
     """Run `fn` with every kernel counter set to 0 just before; return its
-    result and the counts just after."""
+    result and the counts just after (`_kernels.LAUNCHED`, cleared too,
+    then holds the run's launches by variant)."""
+    from sblas_tpu_torch import _kernels
     for c in counters.values():
         c.launches = 0
+    _kernels.LAUNCHED.clear()
     out = fn()
     torch.cuda.synchronize()
     return out, {name: c.launches for name, c in counters.items()}
@@ -227,13 +271,74 @@ def expect_launches(title, counts, expect):
                              f"{expect}")
 
 
-def sparse_csr(A, dev):
-    """A as a torch sparse CSR tensor on `dev` (f32), for the library
-    yardstick calls only."""
+def variant_launches(title, expect: dict) -> dict:
+    """The last `launches_of` run's launches by variant (launcher name
+    without its `sblas_` prefix), which must be `expect`."""
+    from sblas_tpu_torch import _kernels
+    got = {k[len("sblas_"):]: v for k, v in _kernels.LAUNCHED.items()}
+    if got != expect:
+        raise AssertionError(f"{title}: launches by variant {got}, "
+                             f"expected {expect}")
+    return got
+
+
+def checked_bf16(title, got, want, bar=None):
+    """A bf16 path's result against the f64 oracle: finite, of the
+    expected shape, and within `bar` relative (check_equal, the bf16
+    transport's gate) or, with no bar, the JAX package's bf16-plan bound
+    (|got - want| <= 0.15 + 0.15 |want|).  Returns the text with the
+    largest relative error, max |got - want| / max(1, |want|)."""
+    from sblas_tpu_torch.utils.verify import check_equal
+    got = got.float().cpu().numpy().astype(np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{title}: output shape {got.shape} (want "
+                             f"{want.shape}) or non-finite")
+    if bar is not None:
+        report = check_equal(got, want, error_bar=bar, relative=True)
+        if not report.ok:
+            raise AssertionError(f"{title} vs the CPU oracle at {bar}: "
+                                 f"{report}")
+        return str(report)
+    err = np.abs(got - want)
+    bad = int((err > BF16_PLAN_TOL + BF16_PLAN_TOL * np.abs(want)).sum())
+    rel = float((err / np.maximum(1.0, np.abs(want))).max())
+    if bad:
+        raise AssertionError(f"{title}: {bad} elements outside rtol=atol="
+                             f"{BF16_PLAN_TOL} (max_rel={rel:.3e})")
+    return f"within rtol=atol={BF16_PLAN_TOL} (max_rel={rel:.3e})"
+
+
+def kernel_rec(name, variant, source, replaces, err, ms, plain_ms,
+               library_ms, bnd) -> dict:
+    """One entry of the `kernels` JSON line; `launches` is filled in from
+    the main path's run."""
+    return dict(name=f"{name}[{variant}]", route="cuda",
+                source=f"sblas_tpu_torch/csrc/{source}", replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bnd)
+
+
+def library_or_none(title, fn):
+    """Device ms of one PyTorch library call used as a yardstick, or None
+    when this torch build has no such call for these operands (the reason
+    is printed); the yardstick is never used by the port."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        phase("library", call=title, library_ms=None,
+              reason=str(e).splitlines()[0][:160])
+        return None
+    return _device_ms(fn)
+
+
+def sparse_csr(A, dev, dtype=torch.float32):
+    """A as a torch sparse CSR tensor on `dev` (f32 unless named), for the
+    library yardstick calls only."""
     return torch.sparse_csr_tensor(
         torch.from_numpy(A.row_ptr), torch.from_numpy(A.col_idx),
-        torch.from_numpy(A.values.astype(np.float32)), size=A.shape,
-        device=dev, check_invariants=False)
+        torch.from_numpy(A.values.astype(np.float32)).to(dtype),
+        size=A.shape, device=dev, check_invariants=False)
 
 
 T_START = time.perf_counter()
@@ -381,7 +486,10 @@ def main() -> int:
     phase("tier0 coo", check=checked(
         "COO SpMV", spmv(coo, xd, ALPHA, BETA, yd), want),
           **call_times(lambda: spmv(coo, xd, ALPHA, BETA, yd), A.nnz))
-    del plan, coo, out
+    del coo, out
+    bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
+                       kernels)
+    del plan
 
     # ---- the distribution layer in a world-1 NCCL group ----
     mesh, mesh2 = nccl_world1(dev)
@@ -431,6 +539,7 @@ def main() -> int:
     phase("wcoo spmm", plan="WcooPlan", K=K, fill=f"{wplan.fill_ratio:.3f}",
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
+    bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels)
     spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
     um_webbase_phases(A, Bd, Cd, want, mesh, counters, none, kernels)
     del wplan, Cd, out, want
@@ -458,6 +567,7 @@ def main() -> int:
     phase("tier0 coo spmm", check=checked(
         "COO SpMM", spmm(coo, Bd, ALPHA, BETA, Cd), want),
           **call_times(lambda: spmm(coo, Bd, ALPHA, BETA, Cd), S.nnz, K))
+    bf16_shell_phases(S, Bd, Cd, want, counters, none)
     spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none)
     um_shell_phases(S, Bs, Cs, Bd, Cd, want, counters, none)
     import torch.distributed as dist
@@ -515,6 +625,7 @@ def main() -> int:
     phase("bell spmm", plan="BsrPlan", K=K4, launches=counts,
           check=checked("BELL SpMM K=256", out, want),
           **call_times(lambda: spmm(bplan, Bd, ALPHA, BETA, Cd), F.nnz, K4))
+    bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels)
     Bd, Cd = Bd[:, :K].contiguous(), Cd[:, :K].contiguous()
     want = want[:, :K]
     out, counts = launches_of(counters,
@@ -548,6 +659,7 @@ def main() -> int:
         run_line = next(ln for ln in text.splitlines() if "run time" in ln)
         phase("cli", rc=rc, nnz=W.nnz, plan="RoutedPlan", validation=True,
               run=run_line.strip())
+        cli_bf16_phases(spmv_test.main, path, W.nnz, tmp)
         text, rc = _cli(spmm_test.main, ["1", path, str(K), str(ALPHA),
                                          str(BETA), "1", "f32", "--device",
                                          "cuda"])
@@ -614,6 +726,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("um_launches",)   # K3's launches in [um]'s streamed SpMM
+    for rec in kernels.values():
+        missing = [k for k in keys if k not in rec]
+        if missing or rec["launches"] < 1:
+            raise AssertionError(f"kernel {rec['name']}: missing {missing} "
+                                 f"or not launched on its main path")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + extra if k in rec}
         for rec in kernels.values()]}))
@@ -762,6 +879,11 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
     phase("dist", path="spmv_dist_hier 1x1", launches=counts,
           check=checked("spmv_dist_hier", out, want))
     del sh1, p1
+    bf16_transport_dist(
+        A, xd, yd, want, mesh, counters, none, kernels,
+        lambda *a, **k: partition_row_plans(*a, op="spmv", **k),
+        lambda sh: spmv_dist_planned(sh, xd, ALPHA, BETA, yd, mesh),
+        "spmv_dist_planned psum bf16 transport")
 
     # ---- [shards4]: four ranks' compute, one after another on the card
     t0 = time.perf_counter()
@@ -793,6 +915,331 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
           check=checked("shards4", out, want))
     k2p(sh4.local(0), "shard 0 of 4")
     del sh4
+
+
+def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
+                       kernels) -> None:
+    """[bf16-kernels] K1 on bf16 lanes with the int16 main-route tables and
+    K2/K2' storing bf16, at the webbase-1M plan's shapes; [bf16-transport]
+    the routed SpMV re-aimed with `with_transport("bf16")`, gated at 2e-3
+    and timed beside f32 in turns; [bf16-plans] the routed SpMV of a plan
+    with bf16 values (K1 bf16/i32, K2 bf16), also through K2'
+    (`pregather`)."""
+    from sblas_tpu_torch.ops import make_plan, spmv
+    from sblas_tpu_torch.ops.route import LANES, lane_shuffle, \
+        lane_shuffle_plain
+    from sblas_tpu_torch.ops.rspmv import (SLAB, slab_gather,
+                                           slab_gather_plain, spmv_routed,
+                                           tile_gather, tile_gather_plain)
+    dev = xd.device
+    plan16 = plan.with_transport("bf16")
+    main_gathers = sum(op[0] == "gather" for op in plan16.schedule)
+    other_gathers = plan16.n_route_gathers - main_gathers
+
+    def k1(p, variant, title):
+        """K1 at `p`'s first main-route table; its library call is
+        torch.gather on int32 indices."""
+        idx = p.tables[0]
+        x2d = torch.rand(idx.shape, generator=gen, device=dev).to(BF16)
+        idx32 = idx.int()
+        err, _, ms, plain_ms = compare(
+            f"lane_shuffle[{variant}]", lambda: lane_shuffle(x2d, idx),
+            lambda: lane_shuffle_plain(x2d, idx), lane_shuffle)
+        lib_ms = _device_ms(lambda: torch.gather(x2d, 1, idx32))
+        bnd = bound(nbytes(x2d, idx, x2d), 0)
+        phase("bf16-kernels", kernel=f"K1 lane_shuffle[{variant}]",
+              tables=title, shape=tuple(idx.shape), bitwise_equal=True,
+              ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+              library_ms=f"{lib_ms:.5f}", bound_ms=f"{bnd['bound_ms']:.5f}",
+              share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+        kernels[f"lane_shuffle[{variant}]"] = kernel_rec(
+            "lane_shuffle", variant, "route_kernels.cu",
+            "sblas_tpu/ops/route.py:388", err, ms, plain_ms, lib_ms, bnd)
+
+    def k2(p, x_slabs, variant, title):
+        """K2 and K2' storing bf16 at `p`'s gather tiles."""
+        args = (p.gslab, x_slabs, p.gidx, p.gvals.to(x_slabs.dtype), BF16)
+        x_tiles = torch.index_select(x_slabs, 0, p.gslab)
+        targs = (x_tiles, *args[2:])
+        for name, fn, plain, a, reads in (
+                ("slab_gather", slab_gather, slab_gather_plain, args,
+                 args[:4]),
+                ("tile_gather", tile_gather, tile_gather_plain, targs,
+                 targs[:3])):
+            err, _, ms, plain_ms = compare(
+                f"{name}[{variant}]", lambda: fn(*a), lambda: plain(*a), fn)
+            out_bytes = p.n_gtiles * SLAB * 2
+            bnd = bound(nbytes(*reads) + out_bytes, 0)
+            phase("bf16-kernels", kernel=f"{name}[{variant}]", tiles=title,
+                  n_gtiles=p.n_gtiles, bitwise_equal=True, ms=f"{ms:.5f}",
+                  plain_ms=f"{plain_ms:.5f}",
+                  bound_ms=f"{bnd['bound_ms']:.5f}",
+                  share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+            kernels[f"{name}[{variant}]"] = kernel_rec(
+                name, variant, "rspmv_kernels.cu",
+                "sblas_tpu/ops/rspmv.py:" + ("582" if name == "slab_gather"
+                                             else "592"),
+                err, ms, plain_ms, None, bnd)
+
+    # ---- [bf16-kernels] at the bf16-transport plan's tables ----
+    n_slabs = -(-A.shape[1] // SLAB)
+    k1(plan16, "bf16_i16", "webbase-1M main route, bf16 transport")
+    x_slabs = torch.rand((n_slabs, LANES, LANES), generator=gen, device=dev)
+    k2(plan16, x_slabs, "f32_bf16", "webbase-1M plan")
+
+    # ---- [bf16-transport]: the routed SpMV, f32 and bf16 in turns ----
+    out, counts = launches_of(counters,
+                              lambda: spmv(plan16, xd, ALPHA, BETA, yd))
+    expect_launches("routed SpMV bf16 transport", counts, dict(
+        none, lane_shuffle=plan16.n_route_gathers, slab_gather=1))
+    by_variant = variant_launches("routed SpMV bf16 transport", {
+        "lane_shuffle_bf16_i16": main_gathers,
+        "lane_shuffle_f32": other_gathers, "slab_gather_f32_bf16": 1})
+    kernels["lane_shuffle[bf16_i16]"]["launches"] = by_variant[
+        "lane_shuffle_bf16_i16"]
+    kernels["slab_gather[f32_bf16]"]["launches"] = 1
+    check = checked_bf16("routed SpMV bf16 transport", out, want,
+                         bar=BF16_TRANSPORT_BAR)
+    times = {}
+    for label, p in (("f32", plan), ("bf16", plan16), ("bf16", plan16),
+                     ("f32", plan)):
+        t = call_times(lambda: spmv(p, xd, ALPHA, BETA, yd), A.nnz)
+        times.setdefault(label, []).append(t)
+    phase("bf16-transport", path="spmv RoutedPlan webbase-1M",
+          launches=counts, by_variant=by_variant, check=check,
+          **{f"{label}_{k}": "/".join(t[k] for t in ts)
+             for label, ts in times.items()
+             for k in ("wall_ms", "device_ms")})
+    del plan16, out
+
+    # ---- [bf16-plans]: the routed SpMV of a plan with bf16 values ----
+    t0 = time.perf_counter()
+    pv = make_plan(A, dtype=BF16, op="spmv", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if type(pv).__name__ != "RoutedPlan" or pv.dtype != BF16:
+        raise AssertionError(f"bf16 webbase SpMV plan {type(pv).__name__} "
+                             f"{pv.dtype}, expected a bf16 RoutedPlan")
+    k1(pv, "bf16", "webbase-1M main route, bf16 values")
+    k2(pv, x_slabs.to(BF16), "bf16", "webbase-1M bf16-valued plan")
+    del x_slabs
+    x16, y16 = xd.to(BF16), yd.to(BF16)
+    for pregather, kname in ((False, "slab_gather"), (True, "tile_gather")):
+        out, counts = launches_of(counters, lambda: spmv_routed(
+            pv, x16, ALPHA, BETA, y16, pregather=pregather))
+        expect_launches("routed SpMV bf16 values", counts, dict(
+            none, lane_shuffle=pv.n_route_gathers, **{kname: 1}))
+        by_variant = variant_launches("routed SpMV bf16 values", {
+            "lane_shuffle_bf16": pv.n_route_gathers, f"{kname}_bf16": 1})
+        kernels[f"{kname}[bf16]"]["launches"] = 1
+        if not pregather:
+            kernels["lane_shuffle[bf16]"]["launches"] = by_variant[
+                "lane_shuffle_bf16"]
+        phase("bf16-plans", path=f"spmv_routed bf16 values webbase-1M"
+              f"{' pregather (K2prime)' if pregather else ''}",
+              build_s=f"{build_s:.2f}", launches=counts,
+              by_variant=by_variant,
+              check=checked_bf16("routed SpMV bf16 values", out, want),
+              **call_times(lambda: spmv_routed(
+                  pv, x16, ALPHA, BETA, y16, pregather=pregather), A.nnz))
+    del pv, out
+
+
+def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
+    """[bf16-kernels] K3 in bf16 at webbase x K=64 against its plain
+    version (within one bf16 ulp); [bf16-plans] the WCOO SpMM of a plan
+    with bf16 values (K3 bf16), against the oracle and timed."""
+    from sblas_tpu_torch.ops import WcooPlan, make_plan, spmm
+    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
+                                          window_reduce_plain)
+    K = Bd.shape[1]
+    wp = make_plan(A, dtype=BF16, op="spmm", device=Bd.device)
+    if not isinstance(wp, WcooPlan) or wp.dtype != BF16:
+        raise AssertionError(f"bf16 webbase SpMM plan {type(wp).__name__}, "
+                             f"expected a bf16 WcooPlan")
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    kc = k_chunk_width(wp.n_tiles, K)
+    args = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane, B16, 0, kc)
+    err, rel, ms, plain_ms = compare(
+        "window_reduce[bf16]", lambda: window_reduce(*args),
+        lambda: window_reduce_plain(*args), window_reduce, ulps=1)
+    A_csr = sparse_csr(A, Bd.device, BF16)
+    lib_ms = library_or_none("torch.sparse.mm bf16 CSR x dense",
+                             lambda: torch.sparse.mm(A_csr, B16[:, :kc]))
+    del A_csr
+    bnd = bound(nbytes(wp.k3_units, wp.k3_rows, *args[1:6])
+                + B16.shape[0] * kc * 2 + wp.n_row_blocks * 128 * kc * 2,
+                2 * A.nnz * kc, rate=BF16_FLOPS)
+    phase("bf16-kernels", kernel="K3 window_reduce[bf16]", K=kc,
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    kernels["window_reduce[bf16]"] = kernel_rec(
+        "window_reduce", "bf16", "wcoo_kernels.cu",
+        "sblas_tpu/ops/wcoo.py:291", err, ms, plain_ms, lib_ms, bnd)
+    out, counts = launches_of(counters,
+                              lambda: spmm(wp, B16, ALPHA, BETA, C16))
+    expect_launches("WCOO SpMM bf16", counts,
+                    dict(none, window_reduce=-(-K // kc)))
+    by_variant = variant_launches("WCOO SpMM bf16",
+                                  {"window_reduce_bf16": -(-K // kc)})
+    kernels["window_reduce[bf16]"]["launches"] = by_variant[
+        "window_reduce_bf16"]
+    phase("bf16-plans", path="spmm WcooPlan bf16 webbase-1M", K=K,
+          launches=counts, by_variant=by_variant,
+          check=checked_bf16("WCOO SpMM bf16", out, want),
+          **call_times(lambda: spmm(wp, B16, ALPHA, BETA, C16), A.nnz, K))
+
+
+def bf16_shell_phases(S, Bd, Cd, want, counters, none) -> None:
+    """[bf16-plans] the shell with bf16 values: the DIA SpMM and SpMV
+    (plain torch, no kernel) against the oracle and timed; the auto
+    choice at bf16 is printed (the BELL byte cap halves against f32)."""
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.ops import choose_kind, make_plan, spmm, spmv
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    dp = make_plan(S, dtype=BF16, force="dia", device=Bd.device)
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    out, counts = launches_of(counters,
+                              lambda: spmm(dp, B16, ALPHA, BETA, C16))
+    expect_launches("DIA SpMM bf16", counts, none)
+    phase("bf16-plans", path="spmm DiaPlan bf16 shell", K=Bd.shape[1],
+          auto_kind_bf16=choose_kind(S, BF16, op="spmm"), launches=counts,
+          check=checked_bf16("DIA SpMM bf16", out, want),
+          **call_times(lambda: spmm(dp, B16, ALPHA, BETA, C16), S.nnz,
+                       Bd.shape[1]))
+    x = DenseVector.random(S.width, dtype=np.float32)
+    y = DenseVector.constant(S.height, 1.0, dtype=np.float32)
+    x16 = torch.from_numpy(x.values).to(Bd.device, BF16)
+    y16 = torch.from_numpy(y.values).to(Bd.device, BF16)
+    out, counts = launches_of(counters,
+                              lambda: spmv(dp, x16, ALPHA, BETA, y16))
+    expect_launches("DIA SpMV bf16", counts, none)
+    phase("bf16-plans", path="spmv DiaPlan bf16 shell",
+          auto_kind_bf16=choose_kind(S, BF16, op="spmv"), launches=counts,
+          check=checked_bf16("DIA SpMV bf16", out,
+                             spmv_cpu(S, x, ALPHA, BETA, y)),
+          **call_times(lambda: spmv(dp, x16, ALPHA, BETA, y16), S.nnz))
+
+
+def bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels) -> None:
+    """[bf16-kernels] K4 in bf16 at band-73 x K=256 against its plain
+    version (within one bf16 ulp); [bf16-plans] the BELL SpMM of a plan
+    with bf16 values (K4 once), against the oracle and timed."""
+    from sblas_tpu_torch.ops import BsrPlan, bell_stats, make_plan, spmm
+    from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
+    K4 = Bd.shape[1]
+    bp = make_plan(F, dtype=BF16, op="spmm", device=Bd.device)
+    if not isinstance(bp, BsrPlan) or bp.dtype != BF16:
+        raise AssertionError(f"bf16 band-73 SpMM plan {type(bp).__name__}, "
+                             f"expected a bf16 BsrPlan")
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    args = (bp.vals, bp.bcol, B16, C16, ALPHA, BETA)
+    err, rel, ms, plain_ms = compare(
+        "bell_spmm[bf16]", lambda: bell_spmm(*args),
+        lambda: bell_spmm_plain(*args), bell_spmm, ulps=1)
+    F_csr = sparse_csr(F, Bd.device, BF16)
+    lib_ms = library_or_none(
+        "torch.addmm bf16 CSR x dense",
+        lambda: torch.addmm(C16, F_csr, B16, beta=BETA, alpha=ALPHA))
+    del F_csr
+    flops = 2 * bell_stats(F)["n_blocks"] * 128 * 128 * K4
+    nb = nbytes(bp.vals, bp.bcol, B16, C16, C16)
+    bnd = bound(nb, flops, rate=BF16_FLOPS)
+    phase("bf16-kernels", kernel="K4 bell_spmm[bf16]", K=K4,
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}",
+          fp32_core_bound_ms=f"{bound(nb, flops)['bound_ms']:.5f}")
+    kernels["bell_spmm[bf16]"] = kernel_rec(
+        "bell_spmm", "bf16", "bsr_kernels.cu",
+        "sblas_tpu/ops/bsr_pallas.py:37", err, ms, plain_ms, lib_ms, bnd)
+    out, counts = launches_of(counters,
+                              lambda: spmm(bp, B16, ALPHA, BETA, C16))
+    expect_launches("BELL SpMM bf16", counts, dict(none, bell_spmm=1))
+    by_variant = variant_launches("BELL SpMM bf16", {"bell_spmm_bf16": 1})
+    kernels["bell_spmm[bf16]"]["launches"] = 1
+    phase("bf16-plans", path=f"spmm BsrPlan bf16 band-73 K={K4}",
+          launches=counts, by_variant=by_variant,
+          check=checked_bf16("BELL SpMM bf16", out, want),
+          **call_times(lambda: spmm(bp, B16, ALPHA, BETA, C16), F.nnz, K4))
+
+
+def cli_bf16_phases(main_fn, path, nnz, tmp) -> None:
+    """[cli bf16]: spmv_test --transport bf16 (its 2e-3 bar), then with
+    --plan-cache saving the bf16 plan and a default-transport run
+    re-aiming it; [cli progressive]: a validated first result from the
+    fast plan, then the steady state."""
+    base = [path, str(ALPHA), str(BETA), "1", "f32", "--mode", "single",
+            "--device", "cuda"]
+    cache = os.path.join(tmp, "webbase_200k_bf16.npz")
+    for argv, said in (
+            ([*base, "--transport", "bf16"], "plan RoutedPlan"),
+            ([*base, "--transport", "bf16", "--plan-cache", cache],
+             "plan cache: saved"),
+            ([*base, "--plan-cache", cache],
+             "plan cache: converted transport 'bf16' -> 'f32'")):
+        text, rc = _cli(main_fn, argv)
+        if rc != 0 or "Validation = True" not in text or said not in text:
+            raise AssertionError(f"CLI {' '.join(argv[len(base):])} failed "
+                                 f"(rc={rc}):\n{text}")
+        lines = text.splitlines()
+        phase("cli bf16", rc=rc, nnz=nnz, flags=" ".join(argv[len(base):]),
+              said=said, check=next(ln for ln in lines
+                                    if "max_rel" in ln).strip(),
+              run=next(ln for ln in lines if "run time" in ln).strip())
+    text, rc = _cli(main_fn, [*base, "--progressive"])
+    first = [ln for ln in text.splitlines() if ln.startswith("First result")]
+    if (rc != 0 or len(first) != 1 or "Validation = True" not in first[0]
+            or "Validation = True" not in text.split(first[0])[1]):
+        raise AssertionError(f"CLI --progressive failed (rc={rc}):\n{text}")
+    phase("cli progressive", rc=rc, nnz=nnz, first=first[0].strip(),
+          plan=next(ln for ln in text.splitlines()
+                    if ln.startswith("Matrix:")).split("plan ")[-1],
+          run=next(ln for ln in text.splitlines()
+                   if "run time" in ln).strip())
+
+
+def _fmt_ms(ms) -> str:
+    return "none" if ms is None else f"{ms:.5f}"
+
+
+def bf16_transport_dist(A, xd, yd, want, mesh, counters, none, kernels,
+                        partition, run, title) -> None:
+    """[bf16-transport] through a distributed path at world 1: shards of
+    `partition(A, 1, config=bf16 transport)`, run by `run(shards)`: K2'
+    stores bf16, K1 runs on the int16 main-route tables, gated at 2e-3."""
+    import dataclasses as dc
+
+    from sblas_tpu_torch.config import DEFAULT
+    cfg = dc.replace(DEFAULT, routed_transport="bf16")
+    t0 = time.perf_counter()
+    shards = partition(A, 1, dtype=torch.float32, config=cfg,
+                       device=mesh.device, rank=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    p = getattr(shards.local(0), "plan", shards.local(0))
+    if shards.kind != "routed" or p.transport != "bf16":
+        raise AssertionError(f"{title}: shards {shards.kind} at transport "
+                             f"{getattr(p, 'transport', None)}, expected "
+                             f"routed bf16")
+    main = sum(op[0] == "gather" for op in p.schedule)
+    out, counts = launches_of(counters, lambda: run(shards))
+    expect_launches(title, counts, dict(
+        none, lane_shuffle=p.n_route_gathers, tile_gather=1))
+    by_variant = variant_launches(title, {
+        "lane_shuffle_bf16_i16": main,
+        "lane_shuffle_f32": p.n_route_gathers - main,
+        "tile_gather_f32_bf16": 1})
+    kernels["tile_gather[f32_bf16]"]["launches"] = 1
+    phase("bf16-transport", path=f"{title} (world 1)",
+          build_s=f"{build_s:.2f}", launches=counts, by_variant=by_variant,
+          check=checked_bf16(title, out, want, bar=BF16_TRANSPORT_BAR),
+          **call_times(lambda: run(shards), A.nnz))
 
 
 def p1_compare(plan, x_slabs, title) -> dict:
@@ -875,6 +1322,10 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
           check=checked("spmv_xfoot_nocomm", out, want_nc),
           **call_times(run, A.nnz))
     del out, want_nc
+    bf16_transport_dist(
+        A, xd, yd, want, mesh, counters, none, kernels, partition_xfoot,
+        lambda xs: spmv_xfoot(xs, xd, ALPHA, BETA, yd, mesh),
+        "spmv_xfoot bf16 transport")
 
     # ---- [xfoot-extract]: rank 0's extraction, each engine forced ----
     per_elem = {}

@@ -2,8 +2,12 @@
 
 The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
 `rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, the
-probes' P1 and P2 `probe_kernels.cu`) each expose
-plain `extern "C"` launchers that return `cudaGetLastError()`.  At first
+probes' P1 and P2 `probe_kernels.cu`, and the shared header
+`value_types.cuh`) each expose
+plain `extern "C"` launchers that return `cudaGetLastError()`, one per
+variant: `sblas_<kernel>_<variant>`, the variant naming the value type
+(`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
+`bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16).  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
 loaded with ctypes: nothing is built or imported when the package is
@@ -24,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -36,12 +41,29 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
            "bsr_kernels.cu", "probe_kernels.cu")
+HEADERS = ("value_types.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+_p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+# kernel -> (argument types before the stream, its variants)
+LAUNCHERS = {
+    "lane_shuffle": ([_p, _p, _p, _i64], ("f32", "f64", "bf16", "bf16_i16")),
+    "slab_gather": ([_p] * 5 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
+    "tile_gather": ([_p] * 4 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
+    "window_reduce": ([_p] * 10 + [_i64] * 5, ("f32", "f64", "bf16")),
+    "bell_spmm": ([_p] * 5 + [_i64] * 5 + [_f64, _f64], ("f32", "f64", "bf16")),
+    "stage_fuse_gather": ([_p] * 6 + [_i64], ("f32", "f64")),
+    "window_lane_gather": ([_p] * 4 + [_i64, _i64], ("f32", "f64")),
+}
 
 _lib: Optional[ctypes.CDLL] = None
+
+# launches since the last clear, by launcher name (one count per variant;
+# each wrapper's own `launches` counts all of its variants)
+LAUNCHED: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -57,7 +79,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Path of the built library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"libsblas_kernels_{h.hexdigest()[:16]}.so")
@@ -106,20 +128,10 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-        argtypes = {
-            "lane_shuffle": [p, p, p, i64, p],
-            "slab_gather": [p, p, p, p, p, i64, p],
-            "tile_gather": [p, p, p, p, i64, p],
-            "window_reduce": [p] * 10 + [i64] * 5 + [p],
-            "bell_spmm": [p] * 5 + [i64] * 5 + [f64, f64, p],
-            "stage_fuse_gather": [p] * 6 + [i64, p],
-            "window_lane_gather": [p] * 4 + [i64, i64, p],
-        }
-        for name, types in argtypes.items():
-            for sfx in SUFFIX.values():
+        for name, (types, variants) in LAUNCHERS.items():
+            for sfx in variants:
                 fn = getattr(lib, f"sblas_{name}_{sfx}")
-                fn.argtypes = types
+                fn.argtypes = types + [_p]    # the stream last
                 fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -140,13 +152,22 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def value_suffix(dtype: torch.dtype) -> str:
     require(dtype in SUFFIX, KernelError,
-            f"kernels take float32 or float64 values, got {dtype}")
+            f"kernels take float32, float64 or bfloat16 values, got {dtype}")
     return SUFFIX[dtype]
 
 
+def launcher(kernel: str, variant: str) -> str:
+    """The launcher's name, `sblas_<kernel>_<variant>`; raises
+    `KernelError` for a variant the kernel does not have."""
+    require(variant in LAUNCHERS[kernel][1], KernelError,
+            f"kernel {kernel} has no {variant} variant (it has "
+            f"{', '.join(LAUNCHERS[kernel][1])})")
+    return f"sblas_{kernel}_{variant}"
+
+
 def launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call launcher `fn_name` with tensor pointers / ints on the current
-    stream of `device`; raise on a refused launch."""
+    """Call launcher `fn_name` (see `launcher`) with tensor pointers / ints
+    on the current stream of `device`; raise on a refused launch."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -155,3 +176,4 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         rc = getattr(lib, fn_name)(*c_args, stream)
     require(rc == 0, KernelError,
             f"{fn_name} launch failed: cudaError {rc}")
+    LAUNCHED[fn_name] += 1

@@ -6,6 +6,7 @@
                                                     xfoot|hier|single]
                                             [--slices S] [--plan-cache PATH]
                                             [--transport f32|bf16]
+                                            [--progressive]
                                             [--device cuda|cpu]
 
 Port of `sblas_tpu/cli/spmv_test.py` (same positional contract,
@@ -24,8 +25,24 @@ y' = beta*y + alpha*A@x, verify against the CPU oracle.  Modes:
 `--plan-cache PATH` keeps the built plan or shards (`io/plancache.py`):
 the first run builds every shard on the host and saves them (rank 0),
 later runs load them, each rank only its own shard.  A file built for
-another shape, nnz or shard count raises `FormatError`, as does a routed
-plan of another transport than f32.
+another shape, nnz or shard count raises `FormatError`.
+
+`--transport bf16` sets `config.routed_transport` (the routed engine's
+opt-in bf16 route transport: bf16 contributions through the main route,
+kernels K2/K2' storing bf16 and K1 on 16-bit lanes) and checks at the
+JAX CLI's 2e-3 relative bar instead of 1e-3; plans without a route
+ignore it.  A cached single `RoutedPlan` of the other transport is
+re-aimed with `with_transport` (`plan cache: converted transport ...`);
+cached shards of the other transport raise `FormatError`, as in the JAX
+package.
+
+`--progressive` (`--mode single` only; other modes print a notice and
+ignore it): a worker thread builds the final plan on the host, or loads
+it from `--plan-cache`, while the first result comes from
+`make_plan_fast` on the device and is checked against the oracle
+(`First result (<Plan>) in <s> s: Validation = ...`); the final plan is
+placed on the device after the thread ends, and the steady state is that
+of the plain run.
 
 The distributed modes run one process per rank: under `torchrun` each
 rank joins the launcher's group (NCCL on cuda, gloo on cpu), without it
@@ -33,9 +50,7 @@ the CLI runs a group of one (`cli.common.setup_devices`).  Rank 0 prints
 the report; the exit code is non-zero if validation fails on any rank.
 For dist, distp and xfoot on more than one rank it also times the
 per-rank compute alone (the `*_nocomm` twin) and reports the difference
-as the exposed collective time.  `--transport f32` is every port plan's
-route transport and changes nothing; `--transport bf16` and
-`--progressive` raise `NotPortedError`.  `--device`
+as the exposed collective time.  `--device`
 (default cuda) names the device; with cuda and no GPU the CLI exits
 non-zero.  On cuda it reports the median wall time per synchronous call
 (nnz/s is taken over it) and the device's busy time from CUDA events; on
@@ -52,13 +67,16 @@ from .common import (all_ranks_ok, cuda_missing, ensure_dtype, finish,
 USAGE = ("usage: python -m sblas_tpu_torch.cli.spmv_test "
          "<A.mtx> <alpha> <beta> <n_devices> [f32|f64] "
          "[--mode dist|distp|halo|halop|xfoot|hier|single] [--slices S] "
-         "[--plan-cache PATH] [--transport f32|bf16] [--device cuda|cpu]")
+         "[--plan-cache PATH] [--transport f32|bf16] [--progressive] "
+         "[--device cuda|cpu]")
 
 MODES = ("dist", "distp", "halo", "halop", "xfoot", "hier", "single")
 TRANSPORTS = ("f32", "bf16")
 
 
 def main(argv=None) -> int:
+    import time
+    t_main0 = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     path, alpha, beta, n_dev = positional(
         argv, range(4), (str, float, float, int), USAGE)
@@ -68,30 +86,35 @@ def main(argv=None) -> int:
     slices = flag_value(rest, "--slices", 2, int, usage=USAGE)
     device = flag_value(rest, "--device", "cuda", usage=USAGE)
     cache_path = flag_value(rest, "--plan-cache", None, usage=USAGE)
-    transport = flag_value(rest, "--transport", "f32", usage=USAGE)
+    transport = flag_value(rest, "--transport", None, usage=USAGE)
+    progressive = "--progressive" in rest
 
-    from ..utils.errors import NotPortedError
-    if mode not in MODES or transport not in TRANSPORTS:
+    if mode not in MODES or transport not in (None, *TRANSPORTS):
         print(USAGE, file=sys.stderr)
         raise SystemExit(2)
-    if transport == "bf16":
-        raise NotPortedError("--transport bf16 is not ported to "
-                             "sblas_tpu_torch yet")
-    if "--progressive" in rest:
-        raise NotPortedError("--progressive is not ported to sblas_tpu_torch "
-                             "yet")
+    if progressive and mode != "single":
+        print(f"[sblas] --progressive applies to --mode single only "
+              f"(mode {mode} plans per-shard); ignoring")
+        progressive = False
     if device not in ("cuda", "cpu"):
         print(USAGE, file=sys.stderr)
         raise SystemExit(2)
     np_dtype, torch_dtype = ensure_dtype(dtype_name, USAGE)
     if cuda_missing(device):
         return 2
+    import dataclasses
+
+    from ..config import DEFAULT
+    cfg = (DEFAULT if transport is None
+           else dataclasses.replace(DEFAULT, routed_transport=transport))
+    # the bf16 transport's documented bar (the JAX CLI's), else 1e-3
+    bar = 2e-3 if transport == "bf16" else None
     if mode == "single":
         return _single(path, alpha, beta, np_dtype, torch_dtype, device,
-                       cache_path)
+                       cache_path, cfg, bar, progressive, t_main0)
     with setup_devices(n_dev, device) as (mesh, n):
         return _distributed(path, alpha, beta, np_dtype, torch_dtype, mode,
-                            slices, mesh, n, cache_path)
+                            slices, mesh, n, cache_path, cfg, bar)
 
 
 def _operands(path, np_dtype):
@@ -103,13 +126,15 @@ def _operands(path, np_dtype):
     return A, x, y
 
 
-def _cached(cache_path, A, n_shards, build, device, rank=None):
+def _cached(cache_path, A, n_shards, build, device, transport, rank=None):
     """Build-once, run-many (`--plan-cache`): load the plan or shards at
     `cache_path` when the file exists, else `build(device, rank)`.  With a
     path, a missing file is filled from `build("cpu", None)` (every shard,
     on the host) by rank 0 and each rank places its own shard.  A loaded
     file must be bound to this run (shape, nnz and, when sharded, the
-    shard count) and hold f32 route transport; otherwise `FormatError`."""
+    shard count), otherwise `FormatError`; a routed plan of another route
+    transport than `transport` is re-aimed (`with_transport`), routed
+    shards of another one raise `FormatError`."""
     import os
 
     from ..io.plancache import load_plan, place, save_plan
@@ -128,12 +153,20 @@ def _cached(cache_path, A, n_shards, build, device, rank=None):
                 f"run is {tuple(A.shape)}/{A.nnz}/{n_shards}: delete the "
                 f"file or point --plan-cache elsewhere")
         held = [p for p in getattr(obj, "plans", (obj,)) if p is not None]
-        transport = {getattr(getattr(p, "plan", p), "transport", "f32")
-                     for p in held}
-        if transport - {"f32"}:
-            raise FormatError(
-                f"plan cache {cache_path} holds routed_transport "
-                f"{sorted(transport)}; only f32 is ported")
+        got = {getattr(getattr(p, "plan", p), "transport", None)
+               for p in held} - {None}
+        if got - {transport}:
+            if hasattr(obj, "with_transport"):
+                # transport is execution-side (the main route's tables
+                # change width): re-aim the cached plan, no rebuild
+                say(f"plan cache: converted transport {obj.transport!r} "
+                    f"-> {transport!r}")
+                obj = obj.with_transport(transport)
+            else:
+                raise FormatError(
+                    f"plan cache {cache_path} was built with "
+                    f"routed_transport={sorted(got)}; this run requests "
+                    f"{transport!r}: delete the file or match --transport")
         say(f"plan cache: loaded {cache_path}")
         return obj
     obj = build("cpu", None)
@@ -144,7 +177,9 @@ def _cached(cache_path, A, n_shards, build, device, rank=None):
 
 
 def _single(path, alpha, beta, np_dtype, torch_dtype, device,
-            cache_path) -> int:
+            cache_path, cfg, bar, progressive, t_main0) -> int:
+    import time
+
     import numpy as np
     import torch
 
@@ -153,16 +188,25 @@ def _single(path, alpha, beta, np_dtype, torch_dtype, device,
     from ..utils.timing import nnz_per_s, timed
     from ..utils.verify import check_equal
 
+    def build(d, r):
+        return make_plan(A, dtype=torch_dtype, op="spmv", config=cfg,
+                         device=d)
+
     times: dict = {}
     with timed("Load time", times, device=device):
         A, x, y = _operands(path, np_dtype)
-        plan = _cached(cache_path, A, None, lambda d, r: make_plan(
-            A, dtype=torch_dtype, op="spmv", device=d), device)
+        xd = torch.from_numpy(x.values).to(device)
+        yd = torch.from_numpy(y.values).to(device)
+        if progressive:
+            plan = _progressive(lambda: _cached(
+                cache_path, A, None, build, "cpu", cfg.routed_transport),
+                A, x, y, xd, yd, alpha, beta, np_dtype, torch_dtype, device,
+                cfg, t_main0)
+        else:
+            plan = _cached(cache_path, A, None, build, device,
+                           cfg.routed_transport)
     print(f"Matrix: {A.height} x {A.width}, nnz {A.nnz}, 1 device(s) "
           f"({device}), mode single, plan {type(plan).__name__}")
-
-    xd = torch.from_numpy(x.values).to(device)
-    yd = torch.from_numpy(y.values).to(device)
 
     def run():
         return spmv(plan, xd, alpha, beta, yd)
@@ -174,14 +218,55 @@ def _single(path, alpha, beta, np_dtype, torch_dtype, device,
     with timed("CPU run time", times):
         want = spmv_cpu(A, x, alpha, beta, y)
 
-    report = check_equal(got.cpu().numpy(), want,
+    report = check_equal(got.cpu().numpy(), want, error_bar=bar,
                          relative=(np_dtype == np.float32))
     print(report)
     return finish(report.ok, times)
 
 
+def _progressive(build_final, A, x, y, xd, yd, alpha, beta, np_dtype,
+                 torch_dtype, device, cfg, t_main0):
+    """`--progressive`: `build_final()` (the final plan on the host, built
+    or loaded) runs in a worker thread while the first result comes from
+    `make_plan_fast` on `device` and is checked against the oracle; the
+    final plan is placed on `device` after the thread ends.  No CUDA work
+    runs on the worker thread."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from ..ops import make_plan_fast, spmv
+    from ..ops.cpu_reference import spmv_cpu
+    from ..utils.verify import check_equal
+    holder: dict = {}
+
+    def worker():
+        try:
+            holder["plan"] = build_final()
+        except BaseException as e:   # re-raised after join
+            holder["err"] = e
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    try:
+        fast = make_plan_fast(A, dtype=torch_dtype, config=cfg,
+                              device=device)
+        got = spmv(fast, xd, alpha, beta, yd)
+        rep = check_equal(got.cpu().numpy(), spmv_cpu(A, x, alpha, beta, y),
+                          relative=(np_dtype == np.float32))
+        print(f"First result ({type(fast).__name__}) in "
+              f"{time.perf_counter() - t_main0:.1f} s: "
+              f"Validation = {rep.ok}", flush=True)
+    finally:
+        thread.join()
+    if "err" in holder:
+        raise holder["err"]
+    return holder["plan"].to(device)
+
+
 def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
-                 mesh, n, cache_path) -> int:
+                 mesh, n, cache_path, cfg, bar) -> int:
     import numpy as np
     import torch
 
@@ -207,7 +292,8 @@ def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
     def cached(partition, **pkw):
         """The partition `partition(A, n, ...)` through --plan-cache."""
         return _cached(cache_path, A, n, lambda d, r: partition(
-            A, n, dtype=torch_dtype, device=d, rank=r, **pkw), dev, rank)
+            A, n, dtype=torch_dtype, device=d, rank=r, **pkw), dev,
+            cfg.routed_transport, rank)
 
     with timed("Load time", times, device=dev):
         A, x, y = _operands(path, np_dtype)
@@ -215,7 +301,7 @@ def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
             segs = partition_nnz_balanced(A, n, **kw)
             say(partition_report(segs))
         elif mode == "distp":
-            shards = cached(partition_row_plans, op="spmv")
+            shards = cached(partition_row_plans, op="spmv", config=cfg)
             say(f"per-shard plans: kind={shards.kind}, "
                 f"band_rows={shards.band_rows}")
         elif mode == "halo":
@@ -230,7 +316,7 @@ def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
                 f"{hshards.rows_per_shard}")
             dim = 0
         elif mode == "xfoot":
-            xshards = cached(partition_xfoot)
+            xshards = cached(partition_xfoot, config=cfg)
             st = xshards.stats
             say(f"xfoot shards: kind={xshards.kind}, hot {st.hot_total}, "
                 f"packets {st.packet_pad}/pair, extract {st.extract_mode}")
@@ -239,7 +325,7 @@ def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
             require(slices >= 1 and n % slices == 0, PartitionError,
                     f"--slices {slices} does not divide {n} devices")
             mesh2 = make_mesh2(slices, n // slices, device=dev)
-            shards = cached(partition_row_plans, op="spmv")
+            shards = cached(partition_row_plans, op="spmv", config=cfg)
             say(f"hier {slices}x{n // slices}: per-shard plans "
                 f"kind={shards.kind}")
             gather_on, dim = mesh2.chips, 0
@@ -277,7 +363,8 @@ def _distributed(path, alpha, beta, np_dtype, torch_dtype, mode, slices,
     whole = sync_to_host(got, gather_on, dim)
     with timed("CPU run time", times):
         want = spmv_cpu(A, x, alpha, beta, y)
-    report = check_equal(whole, want, relative=(np_dtype == np.float32))
+    report = check_equal(whole, want, error_bar=bar,
+                         relative=(np_dtype == np.float32))
     ok = all_ranks_ok(report.ok, mesh)
     if rank != 0:
         return 0 if ok else 1

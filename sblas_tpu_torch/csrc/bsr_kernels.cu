@@ -48,11 +48,24 @@
 // (value block and B tile staged in contraction chunks of 16, an 8 x 4
 // register tile per thread).
 //
+// bf16: the same tiled GEMM on the CUDA cores, the simplest correct
+// kernel.  Values, B and C are read as bf16 and widened to f32 as they are
+// staged, products and sums are f32 FMAs, alpha and beta are folded in
+// f32, and each output element is rounded to bf16 once, on store.  The
+// JAX kernel accumulated the slots in its bf16 output block (one rounding
+// per slot); this kernel rounds once, so it is at least as accurate, and
+// its plain version (an f32 einsum, rounded once) agrees within one bf16
+// ulp.  It leaves the bf16 tensor cores unused: at band-73 x K = 256 its
+// 17.8 GFLOP can take no less than 0.27 ms on the f32 CUDA cores against
+// 0.018 ms on the tensor cores, so bf16 mma (or wgmma) is the next step.
+//
 // Each output element sums its products in one fixed order, so both
 // paths are deterministic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -249,7 +262,7 @@ bell_spmm_tf32x3_kernel(const float* __restrict__ vals,
   }
 }
 
-// ---- f64: shared-memory tiled GEMM on the CUDA cores ----
+// ---- f64 and bf16: shared-memory tiled GEMM on the CUDA cores ----
 
 constexpr int kCols = 64;             // output columns per thread block
 constexpr int kThreads = 256;         // 16 x 16 threads
@@ -257,44 +270,48 @@ constexpr int kRowsPerThread = kBlock / 16;   // 8
 constexpr int kColsPerThread = kCols / 16;    // 4
 constexpr int kDepth = 16;
 
+// T is the storage type, A = Acc<T> the one products and sums are formed
+// in (double for f64, float for bf16)
+template <typename T, typename A = typename sblas::Acc<T>::type>
 __global__ void __launch_bounds__(kThreads)
-bell_spmm_f64_kernel(const double* __restrict__ vals,
-                     const int32_t* __restrict__ bcol,
-                     const double* __restrict__ B,
-                     const double* __restrict__ Cin,
-                     double* __restrict__ out, int slots, int64_t m,
-                     int64_t n, int64_t k, double alpha, double beta) {
-  __shared__ double As[kDepth][kBlock + 1];   // As[c][r] = block[r][c0 + c]
-  __shared__ double Bs[kDepth][kCols];        // Bs[c][j] = B[brow0+c0+c][n0+j]
+bell_spmm_cuda_core_kernel(const T* __restrict__ vals,
+                           const int32_t* __restrict__ bcol,
+                           const T* __restrict__ B, const T* __restrict__ Cin,
+                           T* __restrict__ out, int slots, int64_t m,
+                           int64_t n, int64_t k, A alpha, A beta) {
+  using sblas::narrow;
+  using sblas::widen;
+  __shared__ A As[kDepth][kBlock + 1];   // As[c][r] = block[r][c0 + c]
+  __shared__ A Bs[kDepth][kCols];        // Bs[c][j] = B[brow0+c0+c][n0+j]
 
   const int64_t i = blockIdx.x;
   const int64_t n0 = static_cast<int64_t>(blockIdx.y) * kCols;
   const int tx = threadIdx.x % 16;       // columns tx + 16 j
   const int ty = threadIdx.x / 16;       // rows ty + 16 r
 
-  double acc[kRowsPerThread][kColsPerThread];
+  A acc[kRowsPerThread][kColsPerThread];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r)
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.0;
+    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = A(0);
 
   for (int s = 0; s < slots; ++s) {
-    const double* blk = vals + (i * slots + s) * kBlock * kBlock;
+    const T* blk = vals + (i * slots + s) * kBlock * kBlock;
     const int64_t brow0 = static_cast<int64_t>(bcol[i * slots + s]) * kBlock;
     for (int c0 = 0; c0 < kBlock; c0 += kDepth) {
       for (int e = threadIdx.x; e < kBlock * kDepth; e += kThreads) {
         const int r = e / kDepth, c = e % kDepth;
-        As[c][r] = blk[r * kBlock + c0 + c];
+        As[c][r] = widen(blk[r * kBlock + c0 + c]);
       }
       for (int e = threadIdx.x; e < kDepth * kCols; e += kThreads) {
         const int c = e / kCols, j = e % kCols;
         const int64_t row = brow0 + c0 + c, col = n0 + j;
-        Bs[c][j] = (row < n && col < k) ? B[row * k + col] : 0.0;
+        Bs[c][j] = (row < n && col < k) ? widen(B[row * k + col]) : A(0);
       }
       __syncthreads();
 #pragma unroll
       for (int c = 0; c < kDepth; ++c) {
-        double a[kRowsPerThread], b[kColsPerThread];
+        A a[kRowsPerThread], b[kColsPerThread];
 #pragma unroll
         for (int r = 0; r < kRowsPerThread; ++r) a[r] = As[c][ty + 16 * r];
 #pragma unroll
@@ -318,10 +335,27 @@ bell_spmm_f64_kernel(const double* __restrict__ vals,
       const int64_t col = n0 + tx + 16 * j;
       if (col < k) {
         const int64_t o = row * k + col;
-        out[o] = beta * Cin[o] + alpha * acc[r][j];
+        out[o] = narrow<T>(beta * widen(Cin[o]) + alpha * acc[r][j]);
       }
     }
   }
+}
+
+template <typename T>
+int launch_cuda_core(const T* vals, const int32_t* bcol, const T* B,
+                     const T* C, T* out, int64_t n_brows, int64_t slots,
+                     int64_t m, int64_t n, int64_t k, double alpha,
+                     double beta, void* stream) {
+  using A = typename sblas::Acc<T>::type;
+  if (n_brows > 0 && k > 0) {
+    dim3 grid(static_cast<unsigned int>(n_brows),
+              static_cast<unsigned int>((k + kCols - 1) / kCols));
+    bell_spmm_cuda_core_kernel<T><<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        vals, bcol, B, C, out, static_cast<int>(slots), m, n, k,
+        static_cast<A>(alpha), static_cast<A>(beta));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -358,14 +392,17 @@ int sblas_bell_spmm_f64(const double* vals, const int32_t* bcol,
                         const double* B, const double* C, double* out,
                         int64_t n_brows, int64_t slots, int64_t m, int64_t n,
                         int64_t k, double alpha, double beta, void* stream) {
-  if (n_brows > 0 && k > 0) {
-    dim3 grid(static_cast<unsigned int>(n_brows),
-              static_cast<unsigned int>((k + kCols - 1) / kCols));
-    bell_spmm_f64_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        vals, bcol, B, C, out, static_cast<int>(slots), m, n, k, alpha, beta);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cuda_core(vals, bcol, B, C, out, n_brows, slots, m, n, k,
+                          alpha, beta, stream);
+}
+
+int sblas_bell_spmm_bf16(const __nv_bfloat16* vals, const int32_t* bcol,
+                         const __nv_bfloat16* B, const __nv_bfloat16* C,
+                         __nv_bfloat16* out, int64_t n_brows, int64_t slots,
+                         int64_t m, int64_t n, int64_t k, double alpha,
+                         double beta, void* stream) {
+  return launch_cuda_core(vals, bcol, B, C, out, n_brows, slots, m, n, k,
+                          alpha, beta, stream);
 }
 
 }  // extern "C"

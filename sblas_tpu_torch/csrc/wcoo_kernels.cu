@@ -35,17 +35,27 @@
 //   exactly once and summed in one fixed order, with no atomics: two
 //   launches agree bitwise.  The f32 TPU path split each contribution
 //   into two bf16 parts; here sums are in the working type.
+// - bf16 plans: values and B rows are read as bf16 (4-byte column pairs),
+//   each product is formed in f32 (exact: two 8-bit mantissas), rows and
+//   carries are summed in f32, and each output element is rounded to bf16
+//   once, on store.  The JAX kernel summed each tile's one-hot product in
+//   f32 but accumulated across the tiles of a run in its bf16 output
+//   block, rounding once per tile; this kernel rounds once per element,
+//   so it is at least as accurate.  Its plain version sums in f32 too, in
+//   another order, so the two agree within one bf16 ulp.
 // - A tile's trailing padding is never read: units stop at its last real
 //   slot.
 //
 // What bounds it on the H100: device-memory bytes.  Each entry reads one
-// 256-byte row segment of B per 64 columns, scattered over B (256 MB at
-// webbase K = 64, more than the 50 MB L2, which catches the hub and
-// nearby columns), against 2 FLOPs per element; the index streams are
-// 16 bytes a slot, read once per slab.
+// 256-byte (bf16: 128-byte) row segment of B per 64 columns, scattered
+// over B (256 MB at webbase K = 64 in f32, more than the 50 MB L2, which
+// catches the hub and nearby columns), against 2 FLOPs per element; the
+// index streams are 16 bytes a slot, read once per slab.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -56,29 +66,43 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLenMask = 0xffff;      // k3_units[:, 1]: length, then flags
 constexpr int kLeft = 1 << 16, kRight = 1 << 17;
 
+using sblas::narrow;
+using sblas::widen;
+
 // B loads in flight per lane, and resident blocks asked of the compiler:
 // in f32 four blocks (32 warps an SM, at most 64 registers) with 8 loads
-// each measured faster than two blocks with 16
+// each measured faster than two blocks with 16.  bf16 rows are half as
+// long, and there the opposite holds: one load in flight and eight blocks
+// (a full SM, at most 32 registers) measured fastest at webbase x K=64,
+// about 30 % less time than f32's setting.  `Acc` is the type rows and
+// carries are summed in.
 template <typename T> struct Pair;
 template <> struct Pair<float> {
   using type = float2;
+  using Acc = float;
   static constexpr int kInFlight = 8, kMinBlocks = 4;
 };
 template <> struct Pair<double> {
   using type = double2;
+  using Acc = double;
   static constexpr int kInFlight = 8, kMinBlocks = 2;
 };
+template <> struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  using Acc = float;
+  static constexpr int kInFlight = 1, kMinBlocks = 8;
+};
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, typename A = typename Pair<T>::Acc>
 __device__ __forceinline__ void load_pair(const T* p, bool ok0, bool ok1,
-                                          T& x0, T& x1) {
+                                          A& x0, A& x1) {
   if (kVec && ok1) {
     const auto v = *reinterpret_cast<const typename Pair<T>::type*>(p);
-    x0 = v.x;
-    x1 = v.y;
+    x0 = widen(v.x);
+    x1 = widen(v.y);
   } else {
-    x0 = ok0 ? p[0] : T(0);
-    x1 = ok1 ? p[1] : T(0);
+    x0 = ok0 ? widen(p[0]) : A(0);
+    x1 = ok1 ? widen(p[1]) : A(0);
   }
 }
 
@@ -92,7 +116,8 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
                    const int32_t* __restrict__ lane,
                    const T* __restrict__ B, int64_t ldb, int64_t k0,
                    int64_t width, T* __restrict__ out,
-                   T* __restrict__ carry) {
+                   typename Pair<T>::Acc* __restrict__ carry) {
+  using A = typename Pair<T>::Acc;
   constexpr int kInFlight = Pair<T>::kInFlight;
   const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
   const int64_t u = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
@@ -105,16 +130,21 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
   const bool left = info & kLeft, right = info & kRight;
   const int row0 = wb[start / kTile] * 128;
 
-  T acc0 = T(0), acc1 = T(0);
+  A acc0 = A(0), acc1 = A(0);
   int cur = -1;
   bool first = true;
-  // a finished row goes to a carry (see the head note) or to the output
+  // a finished row goes to a carry (see the head note), unrounded, or to
+  // the output, rounded once
   auto flush = [&](bool last) {
-    T* dst = first && left    ? carry + (2 * u) * width
-             : last && right  ? carry + (2 * u + 1) * width
-                              : out + static_cast<int64_t>(cur) * width;
-    if (ok0) dst[col] = acc0;
-    if (ok1) dst[col + 1] = acc1;
+    if ((first && left) || (last && right)) {
+      A* dst = carry + (2 * u + (first && left ? 0 : 1)) * width;
+      if (ok0) dst[col] = acc0;
+      if (ok1) dst[col + 1] = acc1;
+    } else {
+      T* dst = out + static_cast<int64_t>(cur) * width;
+      if (ok0) dst[col] = narrow<T>(acc0);
+      if (ok1) dst[col + 1] = narrow<T>(acc1);
+    }
     first = false;
   };
 
@@ -123,11 +153,11 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
     const int e = start + e0 + ln;
     const bool in = ln < n;
     const int r = in ? row0 + relrow[e] : 0;
-    const T v = in ? vals[e] : T(0);
+    const A v = in ? widen(vals[e]) : A(0);
     const int c = in ? xblk[e] * 128 + lane[e] : 0;
     for (int j = 0; j < n; j += kInFlight) {
       int rs[kInFlight];
-      T vs[kInFlight], x0[kInFlight], x1[kInFlight];
+      A vs[kInFlight], x0[kInFlight], x1[kInFlight];
 #pragma unroll
       for (int q = 0; q < kInFlight; ++q) {
         const int s = (j + q) & 31;
@@ -145,7 +175,7 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
           if (rs[q] != cur) {
             if (cur >= 0) flush(false);
             cur = rs[q];
-            acc0 = acc1 = T(0);
+            acc0 = acc1 = A(0);
           }
           acc0 += vs[q] * x0[q];
           acc1 += vs[q] * x1[q];
@@ -158,10 +188,10 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
 
 // One warp per k3_rows entry (row, u0, u1): carry 1 of u0 plus carry 0 of
 // u0+1 .. u1, or 0 for the empty range (u0 > u1).
-template <typename T>
+template <typename T, typename A = typename Pair<T>::Acc>
 __global__ void __launch_bounds__(kWarps * 32)
 carry_combine_kernel(const int32_t* __restrict__ rows, int64_t n_rows,
-                     const T* __restrict__ carry, int64_t width,
+                     const A* __restrict__ carry, int64_t width,
                      T* __restrict__ out) {
   const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
@@ -169,26 +199,28 @@ carry_combine_kernel(const int32_t* __restrict__ rows, int64_t n_rows,
   const int64_t row = rows[3 * i];
   const int64_t u0 = rows[3 * i + 1], u1 = rows[3 * i + 2];
   for (int64_t c = ln; c < width; c += 32) {
-    T s = T(0);
+    A s = A(0);
     if (u0 < u1) {
       s = carry[(2 * u0 + 1) * width + c];
       for (int64_t v = u0 + 1; v <= u1; ++v) s += carry[2 * v * width + c];
     }
-    out[row * width + c] = s;
+    out[row * width + c] = narrow<T>(s);
   }
 }
 
 template <typename T>
 int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
            const int32_t* relrow, const T* vals, const int32_t* xblk,
-           const int32_t* lane, const T* B, T* out, T* carry,
+           const int32_t* lane, const T* B, T* out,
+           typename Pair<T>::Acc* carry,
            int64_t n_units, int64_t n_rows, int64_t ldb, int64_t k0,
            int64_t width, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (width > 0 && n_units > 0) {
     dim3 grid(static_cast<unsigned int>((n_units + kWarps - 1) / kWarps),
               static_cast<unsigned int>((width + kSlab - 1) / kSlab));
-    // 8-byte (f32) / 16-byte (f64) column pairs need an even offset
+    // 4-byte (bf16) / 8-byte (f32) / 16-byte (f64) column pairs need an
+    // even offset
     const bool vec = ldb % 2 == 0 && k0 % 2 == 0 &&
                      reinterpret_cast<uintptr_t>(B) % (2 * sizeof(T)) == 0;
     if (vec) {
@@ -218,8 +250,9 @@ extern "C" {
 
 // units (n_units, 2), rows (n_rows, 3) from k3_tables; wb (T,); relrow,
 // vals, xblk, lane (T * 512,); B (n, ldb) with columns k0 .. k0 + width - 1
-// read; out (nb * 128, width); carry (n_units, 2, width) scratch; all
-// contiguous on the device of `stream`.  Two launches on `stream`.
+// read; out (nb * 128, width); carry (n_units, 2, width) scratch, in the
+// summing type (f32 for bf16); all contiguous on the device of `stream`.
+// Two launches on `stream`.
 int sblas_window_reduce_f32(const int32_t* units, const int32_t* rows,
                             const int32_t* wb, const int32_t* relrow,
                             const float* vals, const int32_t* xblk,
@@ -240,6 +273,18 @@ int sblas_window_reduce_f64(const int32_t* units, const int32_t* rows,
                             int64_t width, void* stream) {
   return launch<double>(units, rows, wb, relrow, vals, xblk, lane, B, out,
                         carry, n_units, n_rows, ldb, k0, width, stream);
+}
+
+int sblas_window_reduce_bf16(const int32_t* units, const int32_t* rows,
+                             const int32_t* wb, const int32_t* relrow,
+                             const __nv_bfloat16* vals, const int32_t* xblk,
+                             const int32_t* lane, const __nv_bfloat16* B,
+                             __nv_bfloat16* out, float* carry,
+                             int64_t n_units, int64_t n_rows, int64_t ldb,
+                             int64_t k0, int64_t width, void* stream) {
+  return launch<__nv_bfloat16>(units, rows, wb, relrow, vals, xblk, lane, B,
+                               out, carry, n_units, n_rows, ldb, k0, width,
+                               stream);
 }
 
 }  // extern "C"

@@ -64,7 +64,7 @@ def stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1) -> torch.Tensor:
     dev = x_slabs.device
     require(dev.type == "cuda", KernelError,
             f"stage_fuse_gather runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(x_slabs.dtype)
+    fn = _kernels.launcher("stage_fuse_gather", _kernels.value_suffix(x_slabs.dtype))
     require(x_slabs.dim() == 3 and tuple(x_slabs.shape[1:]) == (LANES, LANES),
             KernelError, f"x_slabs must be (n_slabs, {LANES}, {LANES}), "
             f"got {tuple(x_slabs.shape)}")
@@ -77,8 +77,7 @@ def stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1) -> torch.Tensor:
     _kernels.check_operand(gvals, "gvals", x_slabs.dtype, tile_shape, dev)
     _kernels.check_operand(i1, "i1", torch.int32, tile_shape, dev)
     out = torch.empty(tile_shape, dtype=x_slabs.dtype, device=dev)
-    _kernels.launch(f"sblas_stage_fuse_gather_{sfx}", dev, gslab, x_slabs,
-                    gidx, gvals, i1, out, T_g)
+    _kernels.launch(fn, dev, gslab, x_slabs, gidx, gvals, i1, out, T_g)
     stage_fuse_gather.launches += 1
     return out
 
@@ -111,6 +110,8 @@ def spmv_routed_fused1(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
     from ..utils.errors import PlanError, require
     require(plan.schedule[0][0] == "gather", PlanError,
             "pass-1 fusion requires the main route to start with a gather")
+    require(plan.transport == "f32", PlanError,
+            "P1 has no bf16 transport variant (the JAX probe has none)")
     tiles1 = stage_fuse_gather(*pass1_operands(plan, x))
     parts = [tiles1.reshape(-1)]
     if plan.n_prows:

@@ -60,7 +60,7 @@ def window_lane_gather(B, wblk, idx) -> torch.Tensor:
     dev = B.device
     require(dev.type == "cuda", KernelError,
             f"window_lane_gather runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(B.dtype)
+    fn = _kernels.launcher("window_lane_gather", _kernels.value_suffix(B.dtype))
     require(B.dim() == 2 and B.shape[0] % LANES == 0, KernelError,
             f"B must be (n_pad, K) with n_pad a multiple of {LANES}, got "
             f"{tuple(B.shape)}")
@@ -69,8 +69,7 @@ def window_lane_gather(B, wblk, idx) -> torch.Tensor:
     _kernels.check_operand(wblk, "wblk", torch.int32, (T,), dev)
     _kernels.check_operand(idx, "idx", torch.int32, (T, 1, LANES), dev)
     out = torch.empty((T, k, LANES), dtype=B.dtype, device=dev)
-    _kernels.launch(f"sblas_window_lane_gather_{sfx}", dev, B, wblk, idx,
-                    out, T, k)
+    _kernels.launch(fn, dev, B, wblk, idx, out, T, k)
     window_lane_gather.launches += 1
     return out
 

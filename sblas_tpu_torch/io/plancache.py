@@ -27,6 +27,13 @@ missing from a file are derived by its `port_fields`.  Tensors load
 through `put`, by default onto the `device` the caller names: there is
 no implicit device, and a host-resident plan's bands load to the host
 for that device.
+
+A bf16-transport `RoutedPlan` (float32 values, int16 main-route tables)
+round-trips like any other.  A plan with bfloat16 values cannot be
+saved: numpy has no bfloat16, and the JAX package's `save_plan` writes
+such values as raw 2-byte records (`|V2`) that its own `load_plan`
+refuses, so `save_plan` raises `FormatError` rather than write a file no
+package can load.
 """
 
 from __future__ import annotations
@@ -82,6 +89,16 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _host(key: str, t: torch.Tensor) -> np.ndarray:
+    """A tensor as the numpy array the file stores; bfloat16 raises."""
+    require(t.dtype != torch.bfloat16, FormatError,
+            f"save_plan: {key!r} holds bfloat16 values, which no plan file "
+            f"can hold (numpy has no bfloat16; the JAX package writes them "
+            f"as raw |V2 records its load_plan refuses, so neither package "
+            f"could load the file): build bfloat16 plans at run time")
+    return t.detach().cpu().numpy()
+
+
 def _flatten(obj, prefix: str, arrays: dict, meta: dict, dtypes: dict,
              registry: dict) -> None:
     meta[f"{prefix}__class__"] = type(obj).__name__
@@ -108,14 +125,14 @@ def _flatten(obj, prefix: str, arrays: dict, meta: dict, dtypes: dict,
                     _flatten(e, f"{key}[{i}].", arrays, meta, dtypes,
                              registry)
         elif isinstance(v, torch.Tensor):
-            arrays[f"a:{key}"] = v.detach().cpu().numpy()
+            arrays[f"a:{key}"] = _host(key, v)
             dtypes[f"a:{key}"] = _dtype_name(v.dtype)
         elif isinstance(v, np.ndarray):
             arrays[f"n:{key}"] = v
         elif (isinstance(v, tuple) and v
               and all(isinstance(e, torch.Tensor) for e in v)):
             for i, e in enumerate(v):
-                arrays[f"t:{key}:{i}"] = e.detach().cpu().numpy()
+                arrays[f"t:{key}:{i}"] = _host(key, e)
                 dtypes[f"t:{key}:{i}"] = _dtype_name(e.dtype)
             meta[f"__tuplelen__{key}"] = len(v)
         elif (isinstance(v, tuple) and hasattr(v, "_fields")

@@ -13,7 +13,10 @@ Port of `sblas_tpu/ops/__init__.py`.  Six device layouts, chosen by
 * padded COO (gather + `index_add_`) — the universal fallback and tier-0
   baseline.
 
-The chooser's thresholds were calibrated on a TPU v5e by the JAX package;
+Every kind takes float32, float64 or bfloat16 values, as the JAX
+package's do; the ladder's BELL byte caps scale with the value dtype's
+size, so a bf16 plan may take another kind than an f32 one.  The
+chooser's thresholds were calibrated on a TPU v5e by the JAX package;
 re-calibrating them for the H100 is later work.
 """
 
@@ -56,8 +59,10 @@ def takes_k4(plan, k: int, on_cuda: bool) -> bool:
             and tuple(plan.block) == (128, 128))
 
 
-def _choose_kind(A, dtype, config, op) -> str:
-    """The JAX package's `make_plan` ladder (ops/__init__.py:86-125)."""
+def choose_kind(A, dtype=torch.float32, config=DEFAULT, op=None) -> str:
+    """The kind `make_plan(A, dtype, config, op=op)` builds, without
+    building it: the JAX package's `make_plan` ladder
+    (ops/__init__.py:86-125)."""
     kind = None
     m, n = A.shape
     bst = bell_stats(A, config.bsr_block)
@@ -97,10 +102,10 @@ def make_plan(A, dtype=None, config=DEFAULT, force=None, op=None, *,
 
     Same choice as `sblas_tpu.ops.make_plan`: `force` in {"dia", "routed",
     "bsr", "ell", "wcoo", "coo"} overrides; `op` in {None, "spmv",
-    "spmm"} biases the choice toward that kernel.  `dtype` is a torch
-    float dtype (default float32)."""
+    "spmm"} biases the choice toward that kernel.  `dtype` is
+    torch.float32 (the default), torch.float64 or torch.bfloat16."""
     dtype = dtype or torch.float32
-    kind = force if force is not None else _choose_kind(A, dtype, config, op)
+    kind = force if force is not None else choose_kind(A, dtype, config, op)
     kw = dict(dtype=dtype, config=config, device=device)
     if kind == "bsr":
         return BsrPlan.from_csr(A, block=config.bsr_block, **kw)

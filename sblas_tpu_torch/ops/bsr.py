@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..utils.errors import KernelError, require
-from .plans import Plan, _round_up, np_value_dtype
+from .plans import Plan, _round_up, host_value_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +59,10 @@ class BsrPlan(Plan):
                  config: SBlasConfig = DEFAULT, *, device) -> "BsrPlan":
         vals, bcol = bell_arrays(A, block)
         return cls.from_numpy(
-            dict(vals=vals.astype(np_value_dtype(dtype)),
+            dict(vals=vals.astype(host_value_dtype(dtype)),
                  bcol=bcol.astype(np.int32)),
-            dict(shape=A.shape, nnz=A.nnz, block=tuple(block)), device)
+            dict(shape=A.shape, nnz=A.nnz, block=tuple(block)), device,
+            dtype=dtype)
 
 
 def bell_arrays(A: CsrMatrix, block: Tuple[int, int] = (128, 128)):

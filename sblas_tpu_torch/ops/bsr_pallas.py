@@ -8,7 +8,9 @@ one launch: one CUDA thread block per (block-row, column tile) loops
 over the slots itself and writes beta*C + alpha*acc once.  In f32 it runs
 3xTF32 on the tensor cores (each operand split into two TF32 parts, three
 products kept), about f32's accuracy whatever torch's TF32 flag says; in
-f64 it runs f64 FMAs.
+f64 it runs f64 FMAs; in bf16 f32 FMAs on the CUDA cores, with alpha and
+beta folded in f32 and each output element rounded to bf16 once (the JAX
+kernel accumulated the slots in its bf16 output block).
 
 `make_plan`'s dispatcher takes this path for K >= 256 on CUDA
 (`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.
@@ -28,14 +30,19 @@ BLOCK = 128   # K4's block edge: R = C = 128
 
 def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     """Plain PyTorch K4: beta*C + alpha*(A @ B) with A in BELL layout
-    (vals (n_brows, L, R, Cb), bcol (n_brows, L)), B (n, K), C (m, K)."""
+    (vals (n_brows, L, R, Cb), bcol (n_brows, L)), B (n, K), C (m, K).
+    bf16 is summed and scaled in f32 and rounded once."""
+    out_dtype = vals.dtype
+    if out_dtype == torch.bfloat16:
+        vals, B, C = vals.float(), B.float(), C.float()
     require_true_f32(vals)
     n_brows, _, R, Cb = vals.shape
     n, k = B.shape
     blocks = F.pad(B, (0, 0, 0, _round_up(n, Cb) - n)).reshape(-1, Cb, k)
     tiles = blocks[bcol]                              # (n_brows, L, Cb, K)
     acc = torch.einsum("ilrc,ilck->irk", vals, tiles)
-    return beta * C + alpha * acc.reshape(n_brows * R, k)[: C.shape[0]]
+    out = beta * C + alpha * acc.reshape(n_brows * R, k)[: C.shape[0]]
+    return out.to(out_dtype)
 
 
 def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
@@ -48,7 +55,7 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     dev = vals.device
     require(dev.type == "cuda", KernelError,
             f"bell_spmm runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(vals.dtype)
+    fn = _kernels.launcher("bell_spmm", _kernels.value_suffix(vals.dtype))
     require(vals.dim() == 4 and tuple(vals.shape[2:]) == (BLOCK, BLOCK),
             KernelError, f"K4 takes ({BLOCK}, {BLOCK}) blocks, got vals "
             f"{tuple(vals.shape)}")
@@ -61,8 +68,8 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     _kernels.check_operand(B, "B", vals.dtype, (n, k), dev)
     _kernels.check_operand(C, "C", vals.dtype, (m, k), dev)
     out = torch.empty((m, k), dtype=vals.dtype, device=dev)
-    _kernels.launch(f"sblas_bell_spmm_{sfx}", dev, vals, bcol, B, C, out,
-                    n_brows, L, m, n, k, float(alpha), float(beta))
+    _kernels.launch(fn, dev, vals, bcol, B, C, out, n_brows, L, m, n, k,
+                    float(alpha), float(beta))
     bell_spmm.launches += 1
     return out
 

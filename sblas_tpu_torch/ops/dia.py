@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from .plans import Plan, np_value_dtype
+from .plans import Plan, host_value_dtype
 
 
 def dia_stats(A: CsrMatrix) -> dict:
@@ -72,9 +72,10 @@ class DiaPlan(Plan):
     def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
                  config: SBlasConfig = DEFAULT, *, device) -> "DiaPlan":
         vals, offs = dia_arrays(A)
-        return cls.from_numpy(dict(vals=vals.astype(np_value_dtype(dtype))),
-                              dict(offsets=offs, shape=A.shape, nnz=A.nnz),
-                              device)
+        return cls.from_numpy(
+            dict(vals=vals.astype(host_value_dtype(dtype))),
+            dict(offsets=offs, shape=A.shape, nnz=A.nnz), device,
+            dtype=dtype)
 
     @classmethod
     def is_profitable(cls, A: CsrMatrix,

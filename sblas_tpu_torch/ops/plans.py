@@ -10,7 +10,11 @@ below; the routed plan (`rspmv.py`) has its own.
 
 Every plan's host arrays are built by the JAX package's numpy code,
 carried over, so they are byte-identical to its plan's; `from_numpy`
-takes either.  Indices are int32 on the device.
+takes either.  Indices are int32 on the device.  Single-device plans
+take float32, float64 or bfloat16 values; numpy has no bfloat16, so a
+bf16 plan's host arrays are float32 (`host_value_dtype`) and its values
+are narrowed once as they are placed, and its ops compute at bf16, as
+the JAX package's XLA code does.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from ..containers import CsrMatrix
 from ..utils.errors import PlanError, require
 
 NP_VALUE = {torch.float32: np.float32, torch.float64: np.float64}
+# value dtype -> the host layout's: bf16 plans are laid out in f32
+HOST_VALUE = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.bfloat16: np.float32}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -33,10 +40,27 @@ def _round_up(x: int, m: int) -> int:
 
 
 def np_value_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy value type of a plan of torch `dtype` (float32/64)."""
+    """The numpy value type of a plan of torch `dtype` (float32/64; the
+    distributed and host-streamed plans take no bfloat16)."""
     require(dtype in NP_VALUE, PlanError,
             f"plans take torch.float32 or torch.float64, got {dtype}")
     return np.dtype(NP_VALUE[dtype])
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a plan's scatter sums and K3's row sums run in: f32 for
+    bf16 (a bf16 running sum stops growing on a long row: at 256 its ulp
+    is 2, and a term below 1 then adds nothing), else the value type."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def host_value_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type a single-device plan of torch `dtype` is laid out in
+    on the host: float32 for bfloat16 (narrowed by `from_numpy`)."""
+    require(dtype in HOST_VALUE, PlanError,
+            f"plans take torch.float32, torch.float64 or torch.bfloat16, "
+            f"got {dtype}")
+    return np.dtype(HOST_VALUE[dtype])
 
 
 class Plan:
@@ -60,19 +84,24 @@ class Plan:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
     @classmethod
-    def from_numpy(cls, fields: dict, meta: dict, device):
+    def from_numpy(cls, fields: dict, meta: dict, device, dtype=None):
         """Plan from host arrays: `fields` maps each tensor field to a numpy
         array (the JAX package's plan fields, `np.asarray` of each, are
-        taken as they are), `meta` each static field to its value."""
+        taken as they are), `meta` each static field to its value.
+        `dtype` (e.g. torch.bfloat16) narrows every floating field once,
+        as it is placed."""
         def tensor(a):
             a = np.ascontiguousarray(a)
             if not a.flags.writeable:   # e.g. np.asarray of a jax.Array
                 a = a.copy()
-            return torch.from_numpy(a).to(device)
+            t = torch.from_numpy(a).to(device)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            return t
 
         data = {k: tensor(v) for k, v in fields.items()}
-        require(data["vals"].dtype in NP_VALUE, PlanError,
-                f"plans hold float32 or float64 values, got "
+        require(data["vals"].dtype in HOST_VALUE, PlanError,
+                f"plans hold float32, float64 or bfloat16 values, got "
                 f"{data['vals'].dtype}")
         meta = dict(meta, shape=tuple(int(d) for d in meta["shape"]))
         return cls(**data, **meta)
@@ -94,7 +123,7 @@ class CooPlan(Plan):
     @classmethod
     def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
                  config: SBlasConfig = DEFAULT, *, device) -> "CooPlan":
-        np_val = np_value_dtype(dtype)
+        np_val = host_value_dtype(dtype)
         coo = A.to_coo()
         nnz_pad = max(_round_up(max(A.nnz, 1), config.nnz_tile),
                       config.nnz_tile)
@@ -107,7 +136,7 @@ class CooPlan(Plan):
         return cls.from_numpy(
             dict(rows=rows.astype(np.int32), cols=cols.astype(np.int32),
                  vals=vals.astype(np_val)),
-            dict(shape=A.shape, nnz=A.nnz), device)
+            dict(shape=A.shape, nnz=A.nnz), device, dtype=dtype)
 
 
 def ell_arrays(A: CsrMatrix):
@@ -144,11 +173,11 @@ class EllPlan(Plan):
     @classmethod
     def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
                  config: SBlasConfig = DEFAULT, *, device) -> "EllPlan":
-        np_val = np_value_dtype(dtype)
+        np_val = host_value_dtype(dtype)
         cols, vals = ell_arrays(A)
         return cls.from_numpy(
             dict(cols=cols.astype(np.int32), vals=vals.astype(np_val)),
-            dict(shape=A.shape, nnz=A.nnz), device)
+            dict(shape=A.shape, nnz=A.nnz), device, dtype=dtype)
 
     @classmethod
     def is_profitable(cls, A: CsrMatrix,

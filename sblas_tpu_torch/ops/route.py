@@ -21,6 +21,11 @@ byte-identical.  The device executor `apply_route` runs in torch: each
 `torch.gather` along the block-row axis.  Whether routing still pays on a
 GPU, which has a fast arbitrary gather, is an open question the H100
 numbers in PERF.md answer first.
+
+Tables are int32, or int16 for the main route under the bf16 transport
+(lane indices are below 128 and mix ranks below the layer arity, exact in
+int16): K1 reads int16 tables as they are, and the plain paths upcast
+them to int32 at use, since `torch.gather` takes no int16 index.
 """
 
 from __future__ import annotations
@@ -385,29 +390,37 @@ def apply_route_np(prog: RouteProgram, x: np.ndarray) -> np.ndarray:
 # Device executor (torch) and kernel K1
 # ---------------------------------------------------------------------------
 
+def _index(t: torch.Tensor) -> torch.Tensor:
+    """A table as `torch.gather` takes it: int16 upcast to int32."""
+    return t.to(torch.int32) if t.dtype == torch.int16 else t
+
+
 def lane_shuffle_plain(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K1: out[r, j] = x2d[r, idx[r, j]]."""
-    return torch.gather(x2d, 1, idx)
+    return torch.gather(x2d, 1, _index(idx))
 
 
 def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx int32 in
-    [0, 128).  CPU tensors take the plain version; CUDA tensors launch
-    kernel K1 (csrc/route_kernels.cu) or raise."""
+    """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx in
+    [0, 128): int32, or int16 with bf16 values.  CPU tensors take the
+    plain version; CUDA tensors launch kernel K1 (csrc/route_kernels.cu)
+    or raise."""
     if x2d.device.type == "cpu":
         return lane_shuffle_plain(x2d, idx)
     from ..utils.errors import KernelError, require
     require(x2d.device.type == "cuda", KernelError,
             f"lane_shuffle runs on cpu or cuda, not {x2d.device}")
-    sfx = _kernels.value_suffix(x2d.dtype)
+    require(idx.dtype in (torch.int32, torch.int16), KernelError,
+            f"idx has dtype {idx.dtype}, expected int32 or int16")
+    fn = _kernels.launcher("lane_shuffle", _kernels.value_suffix(x2d.dtype)
+                           + ("_i16" if idx.dtype == torch.int16 else ""))
     require(x2d.dim() == 2 and x2d.shape[1] == LANES, KernelError,
             f"lane_shuffle takes an (R, {LANES}) view, got "
             f"{tuple(x2d.shape)}")
     _kernels.check_operand(x2d, "x2d", x2d.dtype, x2d.shape, x2d.device)
-    _kernels.check_operand(idx, "idx", torch.int32, x2d.shape, x2d.device)
+    _kernels.check_operand(idx, "idx", idx.dtype, x2d.shape, x2d.device)
     out = torch.empty_like(x2d)
-    _kernels.launch(f"sblas_lane_shuffle_{sfx}", x2d.device, x2d, idx, out,
-                    x2d.numel())
+    _kernels.launch(fn, x2d.device, x2d, idx, out, x2d.numel())
     lane_shuffle.launches += 1
     return out
 
@@ -415,10 +428,12 @@ def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 lane_shuffle.launches = 0   # K1 launches since the last reset
 
 
-def route_tables(prog: RouteProgram, device) -> Tuple[torch.Tensor, ...]:
-    """Index tables (int32) on `device`, in schedule order (pass to
-    `apply_route` with `prog.schedule`)."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(op[1], np.int32)
+def route_tables(prog: RouteProgram, device, index_dtype=np.int32
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Index tables (`index_dtype`: int32, or int16 for a route that moves
+    bf16) on `device`, in schedule order (pass to `apply_route` with
+    `prog.schedule`)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(op[1], index_dtype)
                                   ).to(device)
                  for op in prog.ops if op[0] in ("gather", "mix"))
 
@@ -446,7 +461,8 @@ def apply_route(prog_or_schedule, x: torch.Tensor, tables) -> torch.Tensor:
             ti += 1
             nb = n // (A * LANES)
             cur = torch.gather(cur.reshape(nb, A, LANES), 1,
-                               rho.reshape(nb, A, LANES)).reshape(-1)
+                               _index(rho).reshape(nb, A, LANES)
+                               ).reshape(-1)
         else:
             _, shape, axes = op
             cur = cur.reshape(shape).permute(axes).contiguous().reshape(-1)

@@ -28,6 +28,18 @@ Hub columns (in-degree >= config.routed_peel_threshold) bypass the slab
 buckets: their entries fill whole 128-lane rows that each broadcast one x
 element.
 
+Route transport (`config.routed_transport`, the JAX package's opt-in):
+"f32" routes the contributions at the value dtype; "bf16" (float32 values
+only) forms each product at f32, rounds it once to bf16 as K2 or K2'
+stores it, moves it through the main route as bf16 with int16 tables (K1
+on 16-bit lanes: half the bytes of every pass), and upcasts the stack to
+x's dtype before the segment sum.  The x-relabel and unrank routes stay
+at x's dtype with int32 tables.  `RoutedPlan.with_transport` switches an
+existing plan either way.  Plans also take bfloat16 values (at f32
+transport): the host layout is built in float32 and narrowed once when
+it is placed, and every stage computes at x's dtype, as the JAX
+package's does.
+
 The plan layout (`RoutedPlan.from_csr` and the helpers below) is the JAX
 package's numpy code, carried over so both packages build byte-identical
 arrays; plans are frozen dataclasses of torch tensors on an explicit
@@ -50,6 +62,7 @@ from .. import _kernels
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..io import native
+from .plans import HOST_VALUE, host_value_dtype
 from .route import LANES, apply_route, build_route, routable_size
 
 SLAB = 128 * 128     # x window served by one gather tile
@@ -326,7 +339,9 @@ META_FIELDS = ("schedule", "unrank_schedule", "xroute_schedule", "shape",
                "transport")
 _TABLE_FIELDS = ("tables", "unrank_tables", "xroute_tables")
 
-_NP_VALUE = {torch.float32: np.float32, torch.float64: np.float64}
+TRANSPORTS = ("f32", "bf16")
+# index dtype of the main route's tables under each transport
+_MAIN_INDEX = {"f32": torch.int32, "bf16": torch.int16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,7 +364,9 @@ class RoutedPlan:
     xroute_tables / xroute_schedule  route layers: x -> relabelled x
                              (empty when xroute_n == 0)
 
-    The route source space is [gather slots | peeled slots]."""
+    The route source space is [gather slots | peeled slots].  `transport`
+    is the main route's element precision ("f32": the value dtype;
+    "bf16": bf16 contributions, int16 `tables`)."""
 
     gslab: torch.Tensor
     gidx: torch.Tensor
@@ -376,7 +393,7 @@ class RoutedPlan:
     route_n: int
     unrank_n: int
     xroute_n: int  # 0 = no balanced relabel (no residual entries)
-    transport: str = "f32"   # route element precision (only f32 ported)
+    transport: str = "f32"   # main-route element precision, TRANSPORTS
 
     @property
     def device(self) -> torch.device:
@@ -405,6 +422,24 @@ class RoutedPlan:
 
     PORT_FIELDS = ("brow_offsets",)
 
+    def with_transport(self, transport: str) -> "RoutedPlan":
+        """The same plan at another route transport, without a rebuild: the
+        main route's tables change width with it (int16 under bf16, int32
+        under f32).  Returns `self` when the transport does not change."""
+        from ..utils.errors import PlanError, require
+        require(transport in TRANSPORTS, PlanError,
+                f"routed_transport must be 'f32' or 'bf16', "
+                f"got {transport!r}")
+        if transport == self.transport:
+            return self
+        require(transport == "f32" or self.dtype == torch.float32,
+                PlanError,
+                "bf16 route transport is only valid with float32 values")
+        idx = _MAIN_INDEX[transport]
+        return dataclasses.replace(
+            self, transport=transport,
+            tables=tuple(t.to(idx) for t in self.tables))
+
     @staticmethod
     def port_fields(fields: dict, meta: dict) -> dict:
         """The port-only fields, from the plan's host `brow_ids` and
@@ -423,16 +458,20 @@ class RoutedPlan:
         return dataclasses.replace(self, **moved)
 
     @classmethod
-    def from_numpy(cls, fields: dict, meta: dict, device) -> "RoutedPlan":
+    def from_numpy(cls, fields: dict, meta: dict, device,
+                   dtype=None) -> "RoutedPlan":
         """Plan from host arrays: `fields` maps each of DATA_FIELDS to a
         numpy array (the three table fields to sequences of arrays), `meta`
         each of META_FIELDS to its value.  Accepts the JAX package's plan
-        fields (`np.asarray` of each) as they are: the port-only fields
-        (`PORT_FIELDS`) are derived when absent."""
+        fields (`np.asarray` of each) as they are, a bf16-transport plan's
+        int16 tables included: the port-only fields (`PORT_FIELDS`) are
+        derived when absent.  `dtype` (e.g. torch.bfloat16, whose host
+        layout is float32) narrows the values once, as they are placed."""
         from ..utils.errors import PlanError, require
-        require(meta.get("transport", "f32") == "f32", PlanError,
-                f"route transport {meta.get('transport')!r} is not ported "
-                f"(f32 only)")
+        transport = meta.get("transport", "f32")
+        require(transport in TRANSPORTS, PlanError,
+                f"routed_transport must be 'f32' or 'bf16', "
+                f"got {transport!r}")
 
         def tensor(a):
             a = np.ascontiguousarray(a)
@@ -445,9 +484,15 @@ class RoutedPlan:
         data = {name: (tuple(tensor(t) for t in fields[name])
                        if name in _TABLE_FIELDS else tensor(fields[name]))
                 for name in DATA_FIELDS + cls.PORT_FIELDS}
-        require(data["gvals"].dtype in _NP_VALUE, PlanError,
-                f"routed plans hold float32 or float64 values, got "
-                f"{data['gvals'].dtype}")
+        if dtype is not None:
+            for name in ("gvals", "pvals"):
+                data[name] = data[name].to(dtype)
+        require(data["gvals"].dtype in HOST_VALUE, PlanError,
+                f"routed plans hold float32, float64 or bfloat16 values, "
+                f"got {data['gvals'].dtype}")
+        require(transport == "f32" or data["gvals"].dtype == torch.float32,
+                PlanError, "bf16 route transport is only valid with float32 "
+                "values")
         m = {name: meta[name] for name in META_FIELDS if name in meta}
         m["shape"] = tuple(int(d) for d in m["shape"])
         return cls(**data, **m)
@@ -470,7 +515,7 @@ class RoutedPlan:
         fields, meta = routed_plan_arrays(
             A, dtype, config, min_gtiles=min_gtiles, min_srows=min_srows,
             min_prows=min_prows, min_sranks=min_sranks)
-        return cls.from_numpy(fields, meta, device)
+        return cls.from_numpy(fields, meta, device, dtype=dtype)
 
     @classmethod
     def is_profitable(cls, A: CsrMatrix,
@@ -487,13 +532,17 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
                        min_srows: int = 0, min_prows: int = 0,
                        min_sranks: int = 0):
     """Host-side plan build: (fields, meta) as `RoutedPlan.from_numpy`
-    takes them; the `min_*` sizes as in `RoutedPlan.from_csr`."""
+    takes them (the values in float32 for a bfloat16 plan: pass `dtype`
+    there); the `min_*` sizes as in `RoutedPlan.from_csr`."""
     from ..utils.errors import PlanError, require
-    require(dtype in _NP_VALUE, PlanError,
-            f"routed plans take torch.float32 or torch.float64, got {dtype}")
+    np_val = host_value_dtype(dtype)
     transport = str(config.routed_transport)
-    require(transport == "f32", PlanError,
-            f"routed_transport {transport!r} is not ported (f32 only)")
+    require(transport in TRANSPORTS, PlanError,
+            f"routed_transport must be 'f32' or 'bf16', got {transport!r}")
+    require(transport == "f32" or dtype == torch.float32, PlanError,
+            "bf16 route transport is only valid with float32 values "
+            "(f64 would lose 45 mantissa bits; bf16 values already route "
+            "at width)")
     m, n = A.shape
     coo = A.to_coo()  # CSR order (rows ascending)
     nnz = A.nnz
@@ -501,7 +550,6 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
             "routed plans are int32-indexed")
     rows = coo.row_idx.astype(np.int32)
     cols = coo.col_idx.astype(np.int32)
-    np_val = np.dtype(_NP_VALUE[dtype])
     vals_np = coo.values.astype(np_val)
 
     # ---- hub peel: high-in-degree columns bypass the slab buckets ----
@@ -595,9 +643,14 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
     perm2 = np.concatenate([rank, np.arange(m, N2, dtype=np.int32)])
     prog2 = build_route(perm2)
 
-    def tables(pr):
-        return tuple(op[1].astype(np.int32, copy=False)
+    def tables(pr, idx_dtype=np.int32):
+        return tuple(op[1].astype(idx_dtype, copy=False)
                      for op in pr.ops if op[0] in ("gather", "mix"))
+
+    # bf16 transport: the main route's tables are int16 (lane indices
+    # < 128 and mix ranks < the layer arity are exact in int16): the
+    # index stream halves with the value stream
+    main_idx = np.int16 if transport == "bf16" else np.int32
 
     fields = dict(
         gslab=gslab_arr,
@@ -605,7 +658,7 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
         gvals=gvals.reshape(T_g, LANES, LANES),
         pvals=pvals_flat.reshape(R_p, LANES),
         prow_col=prow_col.astype(np.int32),
-        tables=tables(prog),
+        tables=tables(prog, main_idx),
         brow_ids=brow_ids,
         # each block's first stack row; the pad rows join the last block
         brow_offsets=np.append(off64[:-1], S).astype(np.int64),
@@ -627,24 +680,41 @@ def routed_plan_arrays(A: CsrMatrix, dtype=torch.float32,
 # Kernel K2 and the SpMV
 # ---------------------------------------------------------------------------
 
-def slab_gather_plain(gslab, x_slabs, gidx, gvals) -> torch.Tensor:
+def _variant(dtype: torch.dtype, out_dtype) -> str:
+    """K2/K2' variant: the value type, then the stored type where it
+    differs (`f32_bf16`: the bf16 transport's cast on store)."""
+    sfx = _kernels.value_suffix(dtype)
+    if out_dtype is None or out_dtype == dtype:
+        return sfx
+    return f"{sfx}_{_kernels.value_suffix(out_dtype)}"
+
+
+def _stored(prod: torch.Tensor, out_dtype) -> torch.Tensor:
+    """A product as K2 stores it: rounded once to `out_dtype`."""
+    return prod if out_dtype is None else prod.to(out_dtype)
+
+
+def slab_gather_plain(gslab, x_slabs, gidx, gvals,
+                      out_dtype=None) -> torch.Tensor:
     """Plain PyTorch K2:
-    out[t, r, c] = gvals[t, r, c] * x_slabs[gslab[t], r, gidx[t, r, c]]."""
+    out[t, r, c] = gvals[t, r, c] * x_slabs[gslab[t], r, gidx[t, r, c]],
+    formed at the values' dtype and stored as `out_dtype` (default the
+    same)."""
     tiles = torch.index_select(x_slabs, 0, gslab)
-    return gvals * torch.gather(tiles, 2, gidx)
+    return _stored(gvals * torch.gather(tiles, 2, gidx), out_dtype)
 
 
-def slab_gather(gslab, x_slabs, gidx, gvals) -> torch.Tensor:
+def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None) -> torch.Tensor:
     """Slab-bucket gather (see `slab_gather_plain`) over (T_g, 128, 128)
     tiles.  CPU tensors take the plain version; CUDA tensors launch kernel
     K2 (csrc/rspmv_kernels.cu) or raise."""
     if x_slabs.device.type == "cpu":
-        return slab_gather_plain(gslab, x_slabs, gidx, gvals)
+        return slab_gather_plain(gslab, x_slabs, gidx, gvals, out_dtype)
     from ..utils.errors import KernelError, require
     dev = x_slabs.device
     require(dev.type == "cuda", KernelError,
             f"slab_gather runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(x_slabs.dtype)
+    fn = _kernels.launcher("slab_gather", _variant(x_slabs.dtype, out_dtype))
     require(x_slabs.dim() == 3 and tuple(x_slabs.shape[1:]) == (LANES, LANES),
             KernelError, f"x_slabs must be (n_slabs, {LANES}, {LANES}), "
             f"got {tuple(x_slabs.shape)}")
@@ -655,9 +725,9 @@ def slab_gather(gslab, x_slabs, gidx, gvals) -> torch.Tensor:
                            dev)
     _kernels.check_operand(gidx, "gidx", torch.int32, tile_shape, dev)
     _kernels.check_operand(gvals, "gvals", x_slabs.dtype, tile_shape, dev)
-    out = torch.empty(tile_shape, dtype=x_slabs.dtype, device=dev)
-    _kernels.launch(f"sblas_slab_gather_{sfx}", dev, gslab, x_slabs, gidx,
-                    gvals, out, T_g)
+    out = torch.empty(tile_shape, dtype=out_dtype or x_slabs.dtype,
+                      device=dev)
+    _kernels.launch(fn, dev, gslab, x_slabs, gidx, gvals, out, T_g)
     slab_gather.launches += 1
     return out
 
@@ -665,33 +735,34 @@ def slab_gather(gslab, x_slabs, gidx, gvals) -> torch.Tensor:
 slab_gather.launches = 0   # K2 launches since the last reset
 
 
-def tile_gather_plain(x_tiles, gidx, gvals) -> torch.Tensor:
+def tile_gather_plain(x_tiles, gidx, gvals, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch K2':
-    out[t, r, c] = gvals[t, r, c] * x_tiles[t, r, gidx[t, r, c]]."""
-    return gvals * torch.gather(x_tiles, 2, gidx)
+    out[t, r, c] = gvals[t, r, c] * x_tiles[t, r, gidx[t, r, c]], stored
+    as `out_dtype` (see `slab_gather_plain`)."""
+    return _stored(gvals * torch.gather(x_tiles, 2, gidx), out_dtype)
 
 
-def tile_gather(x_tiles, gidx, gvals) -> torch.Tensor:
+def tile_gather(x_tiles, gidx, gvals, out_dtype=None) -> torch.Tensor:
     """Tile gather over slabs pre-gathered per tile (see
     `tile_gather_plain`), (T_g, 128, 128) throughout.  CPU tensors take
     the plain version; CUDA tensors launch kernel K2'
     (csrc/rspmv_kernels.cu) or raise."""
     if x_tiles.device.type == "cpu":
-        return tile_gather_plain(x_tiles, gidx, gvals)
+        return tile_gather_plain(x_tiles, gidx, gvals, out_dtype)
     from ..utils.errors import KernelError, require
     dev = x_tiles.device
     require(dev.type == "cuda", KernelError,
             f"tile_gather runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(x_tiles.dtype)
+    fn = _kernels.launcher("tile_gather", _variant(x_tiles.dtype, out_dtype))
     T_g = x_tiles.shape[0]
     tile_shape = (T_g, LANES, LANES)
     _kernels.check_operand(x_tiles, "x_tiles", x_tiles.dtype, tile_shape,
                            dev)
     _kernels.check_operand(gidx, "gidx", torch.int32, tile_shape, dev)
     _kernels.check_operand(gvals, "gvals", x_tiles.dtype, tile_shape, dev)
-    out = torch.empty(tile_shape, dtype=x_tiles.dtype, device=dev)
-    _kernels.launch(f"sblas_tile_gather_{sfx}", dev, x_tiles, gidx, gvals,
-                    out, T_g)
+    out = torch.empty(tile_shape, dtype=out_dtype or x_tiles.dtype,
+                      device=dev)
+    _kernels.launch(fn, dev, x_tiles, gidx, gvals, out, T_g)
     tile_gather.launches += 1
     return out
 
@@ -712,9 +783,16 @@ def x_slabs_of(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, n_slabs * SLAB - n)).reshape(n_slabs, LANES, LANES)
 
 
+def contrib_dtype(plan: RoutedPlan, x: torch.Tensor) -> torch.dtype:
+    """The dtype the contributions route in: bf16 under the bf16
+    transport, else x's."""
+    return torch.bfloat16 if plan.transport == "bf16" else x.dtype
+
+
 def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
                       pregather: bool = False) -> torch.Tensor:
-    """(T_g*SLAB,) contributions vals[i]*x[col[i]] in gather order.
+    """(T_g*SLAB,) contributions vals[i]*x[col[i]] in gather order,
+    formed at x's dtype and stored as `contrib_dtype`.
 
     `pregather` takes the JAX package's `shard_map` branch: each tile's
     slab is first copied out with one row-granular `index_select` (plain
@@ -723,23 +801,33 @@ def _gathered_contrib(plan: RoutedPlan, x: torch.Tensor,
     single-device SpMV keeps K2, as the JAX package does."""
     x_slabs = x_slabs_of(plan, x)
     gvals = plan.gvals.to(x.dtype)
+    out_dtype = contrib_dtype(plan, x)
     if pregather:
         x_tiles = torch.index_select(x_slabs, 0, plan.gslab)
-        return tile_gather(x_tiles, plan.gidx, gvals).reshape(-1)
-    return slab_gather(plan.gslab, x_slabs, plan.gidx, gvals).reshape(-1)
+        return tile_gather(x_tiles, plan.gidx, gvals,
+                           out_dtype).reshape(-1)
+    return slab_gather(plan.gslab, x_slabs, plan.gidx, gvals,
+                       out_dtype).reshape(-1)
 
 
 def peel_contrib(plan: RoutedPlan, x: torch.Tensor) -> torch.Tensor:
     """(R_p, 128) contributions of the peeled hub columns: one x element
-    per 128-lane row, broadcast."""
+    per 128-lane row, broadcast; formed at x's dtype and stored as
+    `contrib_dtype` (casting x itself would square the rounding)."""
     xp = torch.index_select(x, 0, plan.prow_col)
-    return plan.pvals.to(x.dtype) * xp[:, None]
+    return _stored(plan.pvals.to(x.dtype) * xp[:, None],
+                   contrib_dtype(plan, x))
 
 
-def reduce_routed(plan: RoutedPlan, routed: torch.Tensor) -> torch.Tensor:
+def reduce_routed(plan: RoutedPlan, routed: torch.Tensor,
+                  dtype=None) -> torch.Tensor:
     """A@x (m,) from the contributions in lane-stack order: the sorted
-    segment sum, the heavy-row merge and the un-relabel route."""
+    segment sum, the heavy-row merge and the un-relabel route.  The
+    stack is summed in `dtype` (x's; default the contributions'): the
+    bf16 transport's contributions are upcast to it first."""
     stack = routed[: plan.n_srows * LANES].reshape(plan.n_srows, LANES)
+    if dtype is not None:
+        stack = stack.to(dtype)
     # sorted segment sum over the stack rows: brow_ids is sorted, so each
     # block's rows are one run (brow_offsets), summed in row order (no
     # atomics: the same bits on every run, and the CPU's index_add_ order)
@@ -770,4 +858,4 @@ def spmv_routed(plan: RoutedPlan, x: torch.Tensor, alpha, beta,
         contrib = torch.cat([contrib, peel_contrib(plan, x).reshape(-1)])
     contrib = F.pad(contrib, (0, plan.route_n - contrib.shape[0]))
     routed = apply_route(plan.schedule, contrib, plan.tables)
-    return beta * y + alpha * reduce_routed(plan, routed)
+    return beta * y + alpha * reduce_routed(plan, routed, x.dtype)

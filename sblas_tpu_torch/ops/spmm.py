@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .plans import CooPlan, EllPlan
+from .plans import CooPlan, EllPlan, sum_dtype
 
 # Cap on the materialised gather intermediate, in elements (1 GiB of f32).
 _MAX_GATHER_ELEMS = 256 * 1024 * 1024
@@ -31,9 +31,11 @@ def segment_spmm(rows, cols, vals, B, m: int, n_chunks: int = 1):
     for k0 in range(0, max(k, 1), kc):   # k = 0 still yields (m, 0)
         contrib = vals[:, None] * torch.index_select(B[:, k0:k0 + kc], 0,
                                                      cols)
-        outs.append(torch.zeros((m, contrib.shape[1]), dtype=contrib.dtype,
+        acc = sum_dtype(contrib.dtype)
+        outs.append(torch.zeros((m, contrib.shape[1]), dtype=acc,
                                 device=contrib.device).index_add_(
-                                    0, rows, contrib))
+                                    0, rows, contrib.to(acc)
+                                ).to(contrib.dtype))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 

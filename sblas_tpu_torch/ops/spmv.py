@@ -5,20 +5,24 @@ multiply, and sum per row; the JAX package's sorted `segment_sum` becomes
 `index_add_`, which on CUDA adds with atomics in no fixed order.  ELL:
 gather x into the (m_pad, L) slots and sum each row, no scatter.  COO is
 the baseline the other layouts are measured against.
+
+A bf16 plan's products are bf16, as the JAX package's are, but its
+scatter sums run in f32 and round once (`plans.sum_dtype`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .plans import CooPlan, EllPlan
+from .plans import CooPlan, EllPlan, sum_dtype
 
 
 def segment_spmv(rows, cols, vals, x, m: int) -> torch.Tensor:
     """Sorted COO triplets x vector -> (m,) partial result."""
     contrib = vals * torch.index_select(x, 0, cols)
-    return torch.zeros(m, dtype=contrib.dtype,
-                       device=contrib.device).index_add_(0, rows, contrib)
+    acc = sum_dtype(contrib.dtype)
+    return torch.zeros(m, dtype=acc, device=contrib.device).index_add_(
+        0, rows, contrib.to(acc)).to(contrib.dtype)
 
 
 def spmv_coo(plan: CooPlan, x: torch.Tensor, alpha, beta,

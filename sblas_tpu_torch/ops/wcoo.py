@@ -24,6 +24,11 @@ port-only plan fields, built once with the plan and derived from the
 JAX package's arrays when a plan comes from there or from an older
 cache file.  `visit0`/`visit1` stay for parity of the arrays, though no
 kernel here needs them.
+
+bf16 plans: K3 reads bf16 values and B rows, sums each unit's rows and
+carries in f32 and rounds each output element once; its plain version
+sums in f32 and rounds once too (the JAX kernel accumulated across tiles
+in its bf16 output block, so both are at least as accurate as it).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from .. import _kernels
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..utils.errors import KernelError, PlanError, require
-from .plans import Plan, _round_up, np_value_dtype
+from .plans import Plan, _round_up, host_value_dtype, sum_dtype
 
 TILE = 512          # nnz per tile
 WINDOW = 256        # row-window depth (two 128 blocks)
@@ -104,12 +109,13 @@ class WcooPlan(Plan):
                          int(meta["n_row_blocks"]))
 
     @classmethod
-    def from_numpy(cls, fields: dict, meta: dict, device) -> "WcooPlan":
+    def from_numpy(cls, fields: dict, meta: dict, device,
+                   dtype=None) -> "WcooPlan":
         """As `Plan.from_numpy`; the port-only fields are derived when the
         fields (e.g. the JAX package's plan) lack them."""
         if any(k not in fields for k in cls.PORT_FIELDS):
             fields = dict(cls.port_fields(fields, meta), **fields)
-        return super().from_numpy(fields, meta, device)
+        return super().from_numpy(fields, meta, device, dtype=dtype)
 
     @classmethod
     def from_csr(cls, A: CsrMatrix, dtype=torch.float32,
@@ -117,12 +123,12 @@ class WcooPlan(Plan):
                  min_tiles: int = 0, device) -> "WcooPlan":
         """`min_tiles` pads the tile count (pad tiles carry val=0 anchored
         at the last window and contribute nothing)."""
-        arr = wcoo_plan_arrays(A, min_tiles=min_tiles,
-                               np_val=np_value_dtype(dtype))
+        np_val = host_value_dtype(dtype)
+        arr = wcoo_plan_arrays(A, min_tiles=min_tiles, np_val=np_val)
         meta = {k: arr.pop(k) for k in ("n_tiles", "n_row_blocks")}
-        arr["vals"] = arr["vals"].astype(np_value_dtype(dtype))
+        arr["vals"] = arr["vals"].astype(np_val)
         return cls.from_numpy(arr, dict(meta, shape=A.shape, nnz=A.nnz),
-                              device)
+                              device, dtype=dtype)
 
 
 class K3Schedule(NamedTuple):
@@ -323,10 +329,13 @@ def _row_ids(wb: torch.Tensor, relrow: torch.Tensor) -> torch.Tensor:
 
 
 def _window_reduce(plan: WcooPlan, contrib: torch.Tensor) -> torch.Tensor:
-    """(T*TILE,) contributions -> (n_row_blocks*128,) y."""
-    return torch.zeros(plan.n_row_blocks * 128, dtype=contrib.dtype,
+    """(T*TILE,) contributions -> (n_row_blocks*128,) y (bf16 summed in
+    f32 and rounded once, as K3 does)."""
+    acc = sum_dtype(contrib.dtype)
+    return torch.zeros(plan.n_row_blocks * 128, dtype=acc,
                        device=contrib.device).index_add_(
-                           0, _row_ids(plan.wb, plan.relrow), contrib)
+                           0, _row_ids(plan.wb, plan.relrow),
+                           contrib.to(acc)).to(contrib.dtype)
 
 
 def spmv_wcoo(plan: WcooPlan, x: torch.Tensor, alpha, beta,
@@ -344,13 +353,15 @@ def window_reduce_plain(k3: K3Schedule, wb, relrow, vals, xblk, lane, B,
                         k0: int, width: int) -> torch.Tensor:
     """Plain PyTorch K3: (nb*128, width) rows of A @ B[:, k0:k0+width]
     on the plan's padded row grid, nb = `k3.n_row_blocks`: every slot adds
-    vals * B[xblk*128 + lane, k0:k0+width] into row wb*128 + relrow."""
+    vals * B[xblk*128 + lane, k0:k0+width] into row wb*128 + relrow.  bf16
+    sums in f32 and rounds once."""
+    acc = sum_dtype(vals.dtype)
     cols = xblk.long() * 128 + lane
-    contrib = vals[:, None] * torch.index_select(B[:, k0:k0 + width], 0,
-                                                 cols)
-    return torch.zeros((k3.n_row_blocks * 128, width), dtype=vals.dtype,
+    contrib = vals.to(acc)[:, None] * torch.index_select(
+        B[:, k0:k0 + width], 0, cols).to(acc)
+    return torch.zeros((k3.n_row_blocks * 128, width), dtype=acc,
                        device=vals.device).index_add_(
-                           0, _row_ids(wb, relrow), contrib)
+                           0, _row_ids(wb, relrow), contrib).to(vals.dtype)
 
 
 def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
@@ -364,7 +375,7 @@ def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
     dev = vals.device
     require(dev.type == "cuda", KernelError,
             f"window_reduce runs on cpu or cuda, not {dev}")
-    sfx = _kernels.value_suffix(vals.dtype)
+    fn = _kernels.launcher("window_reduce", _kernels.value_suffix(vals.dtype))
     T = wb.shape[0]
     U, R = k3.units.shape[0], k3.rows.shape[0]
     require(B.dim() == 2 and 0 <= k0 and k0 + width <= B.shape[1],
@@ -380,10 +391,10 @@ def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
     _kernels.check_operand(B, "B", vals.dtype, tuple(B.shape), dev)
     out = torch.empty((k3.n_row_blocks * 128, width), dtype=vals.dtype,
                       device=dev)
-    carry = torch.empty((U, 2, width), dtype=vals.dtype, device=dev)
-    _kernels.launch(f"sblas_window_reduce_{sfx}", dev, k3.units, k3.rows,
-                    wb, relrow, vals, xblk, lane, B, out, carry, U, R,
-                    B.shape[1], k0, width)
+    carry = torch.empty((U, 2, width), dtype=sum_dtype(vals.dtype),
+                        device=dev)
+    _kernels.launch(fn, dev, k3.units, k3.rows, wb, relrow, vals, xblk, lane,
+                    B, out, carry, U, R, B.shape[1], k0, width)
     window_reduce.launches += 1
     return out
 

@@ -20,7 +20,10 @@ and SpMM, the two-tier modes (2 x n/2 groups for an even n >= 4, else
 1 x n), and the footprint-compressed x exchange: on the banded A with
 the default engine, on a small web graph W (hubs make a hot set) with
 the route engine forced, and over routed shards of U with the route
-engine (kernels K1 and K2' under the exchange), and the host-streamed
+engine (kernels K1 and K2' under the exchange), the planned, two-tier
+and xfoot SpMVs over routed shards of U at the bf16 route transport (f32
+values, K2' storing bf16, K1 on int16 tables; held at the transport's
+1e-2 relative bar), and the host-streamed
 (UM) modes, each untuned and tuned: `spmv_um_dist` and `spmm_um_dist`
 over W's windowed-COO bands, `spmm_um_mode1` over A's ELL bands.  It
 raises if any rank
@@ -44,6 +47,9 @@ import torch.distributed as dist
 ALPHA, BETA = 3.0, 4.0
 # the routed cases' thresholds, low enough for the tiny unstructured matrix
 ROUTED_CONFIG = dict(routed_min_nnz=256, routed_min_width=256)
+# the bf16 route transport's bar against the oracle (relative), the JAX
+# package's for its CPU tests (tests/test_rspmv.py::TestBf16Transport)
+TRANSPORT_BAR = 1e-2
 PLANNED_KINDS = ("bsr", "ell", "dia", "wcoo", "coo")
 # the UM cases' device-memory budgets: several bands of each matrix
 UM_BUDGET = dict(A=4 << 10, W=64 << 10)
@@ -87,7 +93,8 @@ def run_cases(mesh) -> dict:
     from ..ops import make_plan
     from ..ops.cpu_reference import spmm_cpu, spmv_cpu
     from ..partition import partition_nnz_balanced, partition_row_blocks
-    from ..utils.verify import assert_equal
+    from ..utils.errors import PartitionError, require
+    from ..utils.verify import assert_equal, check_equal
     from . import (make_mesh2, partition_halo_dia, partition_row_plans,
                    partition_xfoot, spmm_halo_planned, spmm_mode1,
                    spmm_mode2, spmm_mode2_hier, spmm_mode2_planned,
@@ -108,9 +115,14 @@ def run_cases(mesh) -> dict:
                 mmW=spmm_cpu(W, op["BW"], a, b, op["CW"]))
     results = {}
 
-    def case(name, out, oracle, dim=None, on=mesh):
+    def case(name, out, oracle, dim=None, on=mesh, bar=None):
         whole = sync_to_host(out, on, dim)
-        assert_equal(whole, want[oracle])
+        if bar is None:
+            assert_equal(whole, want[oracle])
+        else:
+            report = check_equal(whole, want[oracle], error_bar=bar,
+                                 relative=True)
+            require(report.ok, PartitionError, f"{name}: {report}")
         results[name] = whole
 
     kw = dict(dtype=f64, device=dev)
@@ -165,6 +177,20 @@ def run_cases(mesh) -> dict:
     xs = partition_xfoot(U, n, kind="routed", extract="route", rank=rank,
                          config=SBlasConfig(**ROUTED_CONFIG), **kw)
     case("xfoot_routed", spmv_xfoot(xs, xU, a, b, yU, mesh), "mvU", 0)
+
+    # the bf16 route transport over routed shards (f32 values)
+    cfg16 = SBlasConfig(routed_transport="bf16", **ROUTED_CONFIG)
+    kw32 = dict(dtype=torch.float32, device=dev, rank=rank, config=cfg16)
+    xU32, yU32 = xU.float(), yU.float()
+    r16 = partition_row_plans(U, n, kind="routed", **kw32)
+    case("planned_routed_bf16", spmv_dist_planned(r16, xU32, a, b, yU32,
+                                                  mesh), "mvU",
+         bar=TRANSPORT_BAR)
+    case("hier_routed_bf16", spmv_dist_hier(r16, xU32, a, b, yU32, mesh2),
+         "mvU", 0, mesh2.chips, bar=TRANSPORT_BAR)
+    xs = partition_xfoot(U, n, kind="routed", extract="route", **kw32)
+    case("xfoot_routed_bf16", spmv_xfoot(xs, xU32, a, b, yU32, mesh), "mvU",
+         0, bar=TRANSPORT_BAR)
 
     # host-streamed (UM) modes, untuned then tuned
     from ..memory import (host_resident_plan, host_resident_shards,

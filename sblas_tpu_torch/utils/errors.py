@@ -49,8 +49,3 @@ class KernelError(SBlasError):
     """A hand-written CUDA kernel cannot run: `nvcc` is missing, the build
     failed, the launch was refused, or an operand is not what the kernel
     takes (device, dtype, contiguity).  There is no fallback path."""
-
-
-class NotPortedError(SBlasError):
-    """The JAX package has this feature (a distribution mode, a CLI flag)
-    and the PyTorch port does not have it yet."""

@@ -773,3 +773,173 @@ def test_spmm_um_wcoo_counts_k3_per_band_and_chunk(dev):
     assert tw.window_reduce.launches == hp.n_bands * -(-k // kc) \
         == hp.n_bands * 2
     assert torch.equal(got, thost.spmm_um(hp, B, 1.0, 0.0, C, tuning=True))
+
+
+# ---- the 16-bit variants: K1 on bf16 lanes, K2/K2' storing bf16, K3 and
+# K4 in bf16, and the paths that take them ----
+
+BF16 = torch.bfloat16
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per-element distance in bf16 ulps (ordered bit patterns)."""
+    def key(t):
+        b = t.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+    return (key(got) - key(want)).abs()
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("rows", [1, 37, 32768])
+def test_lane_shuffle_bf16_kernel_matches_plain(dev, idx_dtype, rows):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn((rows, 128), generator=g, device=dev).to(BF16)
+    idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
+                        dtype=torch.int32).to(idx_dtype)
+    before = troute.lane_shuffle.launches
+    got = troute.lane_shuffle(x, idx)
+    torch.cuda.synchronize()
+    assert troute.lane_shuffle.launches == before + 1
+    assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
+
+
+def test_lane_shuffle_refuses_int16_with_wide_values(dev):
+    x = torch.zeros((4, 128), device=dev)
+    idx = torch.zeros((4, 128), device=dev, dtype=torch.int16)
+    with pytest.raises(KernelError):
+        troute.lane_shuffle(x, idx)
+
+
+@pytest.mark.parametrize("variant", ["f32_bf16", "bf16"])
+@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (188, 62)])
+def test_gather_bf16_kernels_match_plain(dev, variant, n_tiles, n_slabs):
+    """K2 and K2' storing bf16 (from f32 or bf16 operands): bitwise
+    their plain versions."""
+    dt = torch.float32 if variant == "f32_bf16" else BF16
+    g = torch.Generator(device=dev).manual_seed(n_tiles)
+    shape = (n_tiles, 128, 128)
+    x_slabs = torch.randn((n_slabs, 128, 128), generator=g,
+                          device=dev).to(dt)
+    gslab = torch.randint(0, n_slabs, (n_tiles,), generator=g, device=dev,
+                          dtype=torch.int32)
+    gidx = torch.randint(0, 128, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    gvals = torch.randn(shape, generator=g, device=dev).to(dt)
+    before = (tr.slab_gather.launches, tr.tile_gather.launches)
+    got = tr.slab_gather(gslab, x_slabs, gidx, gvals, BF16)
+    tiles = torch.index_select(x_slabs, 0, gslab)
+    got_t = tr.tile_gather(tiles, gidx, gvals, BF16)
+    torch.cuda.synchronize()
+    assert (tr.slab_gather.launches, tr.tile_gather.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == got_t.dtype == BF16
+    assert torch.equal(got, tr.slab_gather_plain(gslab, x_slabs, gidx,
+                                                 gvals, BF16))
+    assert torch.equal(got_t, tr.tile_gather_plain(tiles, gidx, gvals,
+                                                   BF16))
+    with pytest.raises(KernelError):      # no f64 -> bf16 variant
+        tr.slab_gather(gslab, x_slabs.double(), gidx, gvals.double(), BF16)
+
+
+@pytest.mark.parametrize("case,k0,width", [
+    ("web20k", 0, 64), ("web3k", 13, 31), ("web20k", 13, 65),
+    ("long_row", 0, 64), ("min_tiles", 2, 78)])
+def test_window_reduce_bf16_kernel_within_one_ulp(dev, case, k0, width):
+    """K3 in bf16 sums in f32 and rounds once, as its plain version does:
+    the two agree within one bf16 ulp (positive operands: no
+    cancellation), and two launches bitwise."""
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, k = _k3_case(dev, BF16, case)
+    assert plan.vals.dtype == BF16
+    g = torch.Generator(device=dev).manual_seed(k0 + width)
+    B = torch.rand((plan.shape[1], k), generator=g, device=dev).to(BF16)
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+            plan.lane, B, k0, width)
+    got, again = tw.window_reduce(*args), tw.window_reduce(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and torch.equal(got, again)
+    assert int(_ulps(got, tw.window_reduce_plain(*args)).max()) <= 1
+
+
+@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 256),
+                                           (20_000, 36, 300)])
+def test_bell_spmm_bf16_kernel_within_one_ulp(dev, n, half_band, k):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=n, half_band=half_band)
+    plan = BsrPlan.from_csr(A, dtype=BF16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    B = torch.rand((n, k), generator=g, device=dev).to(BF16)
+    C = torch.rand((n, k), generator=g, device=dev).to(BF16)
+    args = (plan.vals, plan.bcol, B, C, 3.0, 4.0)
+    got, again = tb.bell_spmm(*args), tb.bell_spmm(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and torch.equal(got, again)
+    assert int(_ulps(got, tb.bell_spmm_plain(*args)).max()) <= 1
+
+
+def test_spmv_routed_bf16_transport_on_card(dev):
+    """The bf16 transport on the card: K2 stores bf16, K1 runs on 16-bit
+    lanes with int16 tables, and y meets the CPU run to f32 order and the
+    oracle at the transport's 1e-2."""
+    import dataclasses
+
+    from sblas_tpu_torch.config import DEFAULT
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.utils.verify import check_equal
+    A = webbase_like(n=100_000, avg_deg=4.0, dtype=np.float32)
+    cfg = dataclasses.replace(DEFAULT, routed_transport="bf16")
+    plan = make_plan(A, dtype=torch.float32, op="spmv", config=cfg,
+                     device="cpu")
+    assert plan.transport == "bf16"
+    xh = DenseVector.random(A.width, dtype=np.float32)
+    x = torch.from_numpy(xh.values)
+    y = torch.ones(A.height)
+    want = spmv(plan, x, 3.0, 4.0, y)
+    on_card = plan.to(dev)
+    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    got = spmv(on_card, x.to(dev), 3.0, 4.0, y.to(dev)).cpu()
+    assert troute.lane_shuffle.launches == plan.n_route_gathers
+    assert tr.slab_gather.launches == 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert check_equal(got.numpy(), spmv_cpu(
+        A, xh, 3.0, 4.0, DenseVector.constant(A.height, 1.0)),
+        error_bar=1e-2, relative=True).ok
+
+
+@pytest.mark.parametrize("kind", ["routed", "wcoo", "bsr", "ell", "coo",
+                                  "dia"])
+def test_bf16_plans_on_card_match_cpu(dev, kind):
+    """bf16-valued plans of every kind on the card: SpMV (and SpMM, K=256
+    so BELL takes K4) against the same plan on the CPU at the JAX bf16
+    test's bound, and the kernels each path runs counted."""
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops import spmm
+    from sblas_tpu_torch.ops import wcoo as tw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = (webbase_like(n=20_000, avg_deg=4.0, dtype=np.float32)
+         if kind in ("routed", "wcoo")
+         else fem_banded_like(n=3000, half_band=36))
+    plan = make_plan(A, dtype=BF16, force=kind, device="cpu")
+    on_card = plan.to(dev)
+    x = torch.rand(A.width).to(BF16)
+    y = torch.ones(A.height, dtype=BF16)
+    torch.testing.assert_close(
+        spmv(on_card, x.to(dev), 1.0, 1.0, y.to(dev)).cpu().float(),
+        spmv(plan, x, 1.0, 1.0, y).float(), rtol=0.15, atol=0.15)
+    if kind == "routed":
+        return
+    B = torch.rand((A.width, 256)).to(BF16)
+    C = torch.ones((A.height, 256), dtype=BF16)
+    tw.window_reduce.launches = tb.bell_spmm.launches = 0
+    got = spmm(on_card, B.to(dev), 1.0, 1.0, C.to(dev)).cpu()
+    assert tw.window_reduce.launches == (kind == "wcoo")
+    assert tb.bell_spmm.launches == (kind == "bsr")
+    torch.testing.assert_close(got.float(),
+                               spmm(plan, B, 1.0, 1.0, C).float(),
+                               rtol=0.15, atol=0.15)

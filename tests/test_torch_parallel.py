@@ -3,7 +3,9 @@ distributed mode per rank, in a group of one and in a group of four
 (gloo on the CPU), the process-group bootstrap and the distributed CLIs.
 
 Results are held against the JAX package (make_mesh(1), make_mesh(4),
-make_mesh2(2, 2)) to 1e-12 in f64, and against the numpy oracle.  The
+make_mesh2(2, 2)) to 1e-12 in f64, and against the numpy oracle; the
+bf16-transport cases (f32 values, bf16 contributions) to f32 summation
+order, 1e-5 relative, and the oracle at the transport's 1e-2 relative.  The
 four-rank results come from one spawned run of
 `sblas_tpu_torch.parallel.dryrun.dryrun_multichip(4)`, which also checks
 every case against the oracle on every rank."""
@@ -60,6 +62,8 @@ ORACLE = {
     "halo_planned_spmv": "mv", "halo_planned_spmm": "mm",
     "hier_spmm": "mm", "hier_spmv": "mv", "hier_routed_spmv": "mvU",
     "xfoot": "mv", "xfoot_route": "mvW", "xfoot_routed": "mvU",
+    "planned_routed_bf16": "mvU", "hier_routed_bf16": "mvU",
+    "xfoot_routed_bf16": "mvU",
     **{f"um_{op}_t{t}": oracle for t in (0, 1)
        for op, oracle in (("spmv_dist", "mvW"), ("spmm_dist", "mmW"),
                           ("mode1", "mm"))},
@@ -141,6 +145,18 @@ def _jax_cases(n):
         jpar.partition_xfoot(U, n, dtype=F64, kind="routed", extract="route",
                              config=JConfig(**dryrun.ROUTED_CONFIG)),
         xU, A_, B_, yU, mesh)
+    cfg16 = JConfig(routed_transport="bf16", **dryrun.ROUTED_CONFIG)
+    xU32, yU32 = xU.astype(jnp.float32), yU.astype(jnp.float32)
+    r16 = jpar.partition_row_plans(U, n, dtype=jnp.float32, kind="routed",
+                                   config=cfg16)
+    out["planned_routed_bf16"] = jpar.spmv_dist_planned(
+        r16, xU32, A_, B_, yU32, mesh)
+    out["hier_routed_bf16"] = jpar.spmv_dist_hier(r16, xU32, A_, B_, yU32,
+                                                  mesh2)
+    out["xfoot_routed_bf16"] = jpar.spmv_xfoot(
+        jpar.partition_xfoot(U, n, dtype=jnp.float32, kind="routed",
+                             extract="route", config=cfg16),
+        xU32, A_, B_, yU32, mesh)
     hs = jmem.host_resident_shards(W, n, dtype=F64,
                                    hbm_budget_bytes=dryrun.UM_BUDGET["W"])
     hp = jmem.host_resident_plan(A, dtype=F64,
@@ -159,6 +175,12 @@ def _assert_case(n, name, got):
     want_j = _jax_cases(n)[name]
     oracle = _operands(n)[4][ORACLE[name]]
     assert got.shape == want_j.shape == oracle.shape
+    if name.endswith("_bf16"):
+        assert got.dtype == np.float32
+        assert check_equal(got, want_j, error_bar=1e-5, relative=True).ok
+        assert all(check_equal(v, oracle, error_bar=dryrun.TRANSPORT_BAR,
+                               relative=True).ok for v in (got, want_j))
+        return
     np.testing.assert_allclose(got, want_j, rtol=1e-12, atol=1e-12)
     assert check_equal(got, oracle).ok and check_equal(want_j, oracle).ok
 

@@ -191,18 +191,32 @@ def test_plan_to_moves_every_tensor():
     assert moved.schedule == tp.schedule and moved.shape == tp.shape
 
 
-def test_bf16_transport_is_not_ported():
+def test_bf16_transport_plan_from_jax_fields():
+    """A JAX-built bf16-transport plan (f32 values, int16 main-route
+    tables) loads through `from_numpy` as it is and equals the port's own
+    build; its transport refuses f64 values and unknown names."""
     A = _matrix("row_skew")
     At = CsrMatrix(A.row_ptr, A.col_idx, A.values, A.shape)
     cfg = dataclasses.replace(DEFAULT, routed_transport="bf16")
-    with pytest.raises(PlanError, match="bf16"):
-        tr.RoutedPlan.from_csr(At, dtype=torch.float32, config=cfg,
-                               device="cpu")
-    jp, _ = _plans("row_skew", "f64")
+    jp = jr.RoutedPlan.from_csr(A, dtype=jnp.float32, config=cfg)
     meta = {f: getattr(jp, f) for f in tr.META_FIELDS}
-    meta["transport"] = "bf16"
-    with pytest.raises(PlanError, match="bf16"):
-        tr.RoutedPlan.from_numpy(_jax_fields(jp), meta, "cpu")
+    conv = tr.RoutedPlan.from_numpy(_jax_fields(jp), meta, "cpu")
+    own = tr.RoutedPlan.from_csr(At, dtype=torch.float32, config=cfg,
+                                 device="cpu")
+    _assert_same_plan(jp, own)
+    assert conv.transport == own.transport == "bf16"
+    assert all(t.dtype == torch.int16 for t in conv.tables)
+    x = torch.from_numpy(JDenseVector.random(A.width).values.astype(
+        np.float32))
+    assert torch.equal(tr.spmv_routed(conv, x, 2.0, 0.0, x[: A.height]),
+                       tr.spmv_routed(own, x, 2.0, 0.0, x[: A.height]))
+    jp64, _ = _plans("row_skew", "f64")
+    meta64 = {f: getattr(jp64, f) for f in tr.META_FIELDS}
+    for transport in ("bf16", "f16"):
+        with pytest.raises(PlanError):
+            tr.RoutedPlan.from_numpy(_jax_fields(jp64),
+                                     dict(meta64, transport=transport),
+                                     "cpu")
 
 
 def test_slab_gather_plain_and_refusal():

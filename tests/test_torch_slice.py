@@ -26,7 +26,7 @@ from sblas_tpu_torch.config import SBlasConfig as TConfig
 from sblas_tpu_torch.containers import CsrMatrix, DenseVector
 from sblas_tpu_torch.io import generate as tgen
 from sblas_tpu_torch.io.mmio import read_csr_arrays, write_mtx
-from sblas_tpu_torch.utils.errors import KernelError, NotPortedError
+from sblas_tpu_torch.utils.errors import KernelError
 from sblas_tpu_torch.utils.timing import (device_time_ms, gflops, nnz_per_s,
                                           wall_time_ms)
 from sblas_tpu_torch.utils.verify import check_equal
@@ -186,12 +186,17 @@ def test_cli_single_cpu(tmp_path, capsys, name, dtype, kind):
     assert "cpu host clock" in out
 
 
-@pytest.mark.parametrize("flag", ["--transport bf16", "--progressive"])
-def test_cli_other_flags_not_ported(tmp_path, flag):
-    path = _write(tmp_path, MATRICES["tiny"](), "t.mtx")
-    with pytest.raises(NotPortedError, match=flag.split()[0]):
-        spmv_test.main([path, "3", "4", "1", "--mode", "single",
-                        "--device", "cpu", *flag.split()])
+@pytest.mark.parametrize("flag,said", [
+    ("--transport bf16", "plan RoutedPlan"),
+    ("--progressive", "First result (CooPlan)")])
+def test_cli_bf16_and_progressive_flags(tmp_path, capsys, flag, said):
+    """`--transport bf16` routes bf16 contributions and checks at its
+    2e-3 bar; `--progressive` answers first from `make_plan_fast`."""
+    path = _write(tmp_path, MATRICES["webbase100k"](), "w.mtx")
+    assert spmv_test.main([path, "3", "4", "1", "f32", "--mode", "single",
+                           "--device", "cpu", *flag.split()]) == 0
+    out = capsys.readouterr().out
+    assert said in out and out.count("Validation = True") >= 2
 
 
 def test_cli_transport_f32_is_accepted(tmp_path, capsys):
@@ -245,9 +250,11 @@ def test_port_imports_no_jax():
             "import sblas_tpu_torch.examples.pagerank_dist\n"
             "import sblas_tpu_torch.experiments.stage_fuse_probe\n"
             "import sblas_tpu_torch.experiments.wcoo_gather_probe\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'sblas_tpu.')) "
-            "or m == 'sblas_tpu')\n"
+            "import sblas_tpu_torch.experiments.plan_matrix\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', "
+            "'sblas_tpu', 'ml_dtypes') "
+            "or m.startswith(('jax.', 'jaxlib', 'sblas_tpu.', "
+            "'ml_dtypes.')))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
