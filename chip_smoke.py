@@ -77,10 +77,13 @@ and the distribution layer in a world-1 NCCL group:
     counted by variant (`_kernels.LAUNCHED`) on the path that runs it:
     [bf16-kernels] K1 bf16/int16 at webbase-1M's main-route tables, K2 and
         K2' f32 -> bf16 at that plan's tiles (and bf16 -> bf16 at a
-        bf16-valued plan's), K3 bf16 at webbase x K=64, K4 bf16 at
-        band-73 x K=256, with library yardsticks (`torch.gather` on int32
-        indices; bf16 `torch.sparse.mm` / `torch.addmm` on CSR where the
-        torch build has them)
+        bf16-valued plan's), K3 bf16 at webbase x K=64, K4 bf16 (wgmma
+        fed by TMA, its `bf16` variant, checked) at band-73 x K=256 and
+        (`bf16_ragged`, mma.sync with element copies, checked) at K=263,
+        with library yardsticks (`torch.gather` on int32 indices; bf16
+        `torch.sparse.mm` / `torch.addmm` on CSR where the torch build
+        has them); informational, K4 bf16 on the shell's bf16 BELL plan
+        at K=64 beside the `spmm_bsr` matmuls `ops.spmm` runs there
     [bf16-transport] the webbase-1M routed SpMV re-aimed with
         `with_transport("bf16")`, gated at 2e-3 and timed beside f32 in
         turns; `spmv_dist_planned` and `spmv_xfoot` at world 1 over
@@ -89,7 +92,7 @@ and the distribution layer in a world-1 NCCL group:
         package's bf16 bound (rtol = atol = 0.15): the webbase routed SpMV
         (K1 bf16, K2 bf16; and through K2' with `pregather`), the webbase
         WCOO SpMM (K3), the shell DIA SpMM and SpMV, the band-73 BELL SpMM
-        at K=256 (K4)
+        at K=256 and K=263 (K4, each variant once)
 
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
@@ -568,6 +571,7 @@ def main() -> int:
         "COO SpMM", spmm(coo, Bd, ALPHA, BETA, Cd), want),
           **call_times(lambda: spmm(coo, Bd, ALPHA, BETA, Cd), S.nnz, K))
     bf16_shell_phases(S, Bd, Cd, want, counters, none)
+    bf16_shell_k4_record(S, Bd, Cd, want, counters, none)
     spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none)
     um_shell_phases(S, Bs, Cs, Bd, Cd, want, counters, none)
     import torch.distributed as dist
@@ -1124,10 +1128,48 @@ def bf16_shell_phases(S, Bd, Cd, want, counters, none) -> None:
           **call_times(lambda: spmv(dp, x16, ALPHA, BETA, y16), S.nnz))
 
 
+def bf16_shell_k4_record(S, Bd, Cd, want, counters, none) -> None:
+    """[bf16-kernels], informational: K4[bf16] on the BELL plan that
+    `make_plan` picks for the shell at bf16, at K=64, within one bf16 ulp
+    of its plain version and timed beside the `spmm_bsr` batched matmuls
+    that `ops.spmm` runs there (K < 256: no K4 launch, checked).  A record
+    for a later decision on K4's gate; the path is not changed."""
+    from sblas_tpu_torch.ops import BsrPlan, bell_stats, make_plan, spmm
+    from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
+    K = Bd.shape[1]
+    bp = make_plan(S, dtype=BF16, op="spmm", device=Bd.device)
+    if not isinstance(bp, BsrPlan):
+        raise AssertionError(f"bf16 shell SpMM plan {type(bp).__name__}, "
+                             f"expected a bf16 BsrPlan")
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    args = (bp.vals, bp.bcol, B16, C16, ALPHA, BETA)
+    err, _, ms, plain_ms = compare(
+        "bell_spmm[bf16] shell K=64", lambda: bell_spmm(*args),
+        lambda: bell_spmm_plain(*args), bell_spmm, ulps=1)
+    out, counts = launches_of(counters,
+                              lambda: spmm(bp, B16, ALPHA, BETA, C16))
+    expect_launches("BELL SpMM bf16 shell K=64", counts, none)
+    spmm_bsr_ms = _device_ms(lambda: spmm(bp, B16, ALPHA, BETA, C16))
+    flops = 2 * bell_stats(S)["n_blocks"] * 128 * 128 * K
+    bnd = bound(nbytes(bp.vals, bp.bcol, B16, C16, C16), flops,
+                rate=BF16_FLOPS)
+    phase("bf16-kernels", kernel="K4 bell_spmm[bf16] shell, informational",
+          K=K, n_brows=bp.vals.shape[0], slots=bp.slots,
+          max_abs_err=f"{err:.3e}", ulps=1, ms=f"{ms:.5f}",
+          spmm_bsr_ms=f"{spmm_bsr_ms:.5f}",
+          plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}",
+          spmm_check=checked_bf16("BELL SpMM bf16 shell K=64", out, want))
+
+
 def bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels) -> None:
     """[bf16-kernels] K4 in bf16 at band-73 x K=256 against its plain
     version (within one bf16 ulp); [bf16-plans] the BELL SpMM of a plan
-    with bf16 values (K4 once), against the oracle and timed."""
+    with bf16 values (K4 once), against the oracle and timed.  Then the
+    same at K=263, where TMA cannot take B's rows (K % 8 != 0), through
+    K4's `bf16_ragged` variant."""
+    from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import BsrPlan, bell_stats, make_plan, spmm
     from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
     K4 = Bd.shape[1]
@@ -1137,36 +1179,91 @@ def bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels) -> None:
                              f"expected a bf16 BsrPlan")
     B16, C16 = Bd.to(BF16), Cd.to(BF16)
     args = (bp.vals, bp.bcol, B16, C16, ALPHA, BETA)
+    _kernels.LAUNCHED.clear()
     err, rel, ms, plain_ms = compare(
         "bell_spmm[bf16]", lambda: bell_spmm(*args),
         lambda: bell_spmm_plain(*args), bell_spmm, ulps=1)
+    variants = sorted(k[len("sblas_bell_spmm_"):] for k in _kernels.LAUNCHED)
+    if variants != ["bf16"]:
+        raise AssertionError(f"K4[bf16] at K={K4} ran variants {variants}, "
+                             f"expected the wgmma one, bf16")
     F_csr = sparse_csr(F, Bd.device, BF16)
     lib_ms = library_or_none(
         "torch.addmm bf16 CSR x dense",
         lambda: torch.addmm(C16, F_csr, B16, beta=BETA, alpha=ALPHA))
-    del F_csr
     flops = 2 * bell_stats(F)["n_blocks"] * 128 * 128 * K4
     nb = nbytes(bp.vals, bp.bcol, B16, C16, C16)
     bnd = bound(nb, flops, rate=BF16_FLOPS)
+    out, counts = launches_of(counters,
+                              lambda: spmm(bp, B16, ALPHA, BETA, C16))
+    expect_launches("BELL SpMM bf16", counts, dict(none, bell_spmm=1))
+    by_variant = variant_launches("BELL SpMM bf16", {"bell_spmm_bf16": 1})
     phase("bf16-kernels", kernel="K4 bell_spmm[bf16]", K=K4,
+          variant=variants[0], main_path_launches=by_variant,
           max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
           deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
           library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
           bound_by=bnd["bound_by"],
           share_of_bound=f"{bnd['bound_ms'] / ms:.3f}",
           fp32_core_bound_ms=f"{bound(nb, flops)['bound_ms']:.5f}")
-    kernels["bell_spmm[bf16]"] = kernel_rec(
+    kernels["bell_spmm[bf16]"] = dict(kernel_rec(
         "bell_spmm", "bf16", "bsr_kernels.cu",
-        "sblas_tpu/ops/bsr_pallas.py:37", err, ms, plain_ms, lib_ms, bnd)
-    out, counts = launches_of(counters,
-                              lambda: spmm(bp, B16, ALPHA, BETA, C16))
-    expect_launches("BELL SpMM bf16", counts, dict(none, bell_spmm=1))
-    by_variant = variant_launches("BELL SpMM bf16", {"bell_spmm_bf16": 1})
-    kernels["bell_spmm[bf16]"]["launches"] = 1
+        "sblas_tpu/ops/bsr_pallas.py:37", err, ms, plain_ms, lib_ms, bnd),
+        launches=by_variant["bell_spmm_bf16"])
     phase("bf16-plans", path=f"spmm BsrPlan bf16 band-73 K={K4}",
           launches=counts, by_variant=by_variant,
           check=checked_bf16("BELL SpMM bf16", out, want),
           **call_times(lambda: spmm(bp, B16, ALPHA, BETA, C16), F.nnz, K4))
+    bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
+                       kernels)
+
+
+def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
+                       kernels) -> None:
+    """K4[bf16_ragged] at band-73 x K=263: B and C's columns 256-262
+    repeat 0-6, so the oracle's do too."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import bell_stats, spmm
+    from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
+    extra = 7
+    KR = B16.shape[1] + extra
+    BR = torch.cat([B16, B16[:, :extra]], 1)
+    CR = torch.cat([C16, C16[:, :extra]], 1)
+    want = np.concatenate([want, want[:, :extra]], 1)
+    args = (bp.vals, bp.bcol, BR, CR, ALPHA, BETA)
+    _kernels.LAUNCHED.clear()
+    err, rel, ms, plain_ms = compare(
+        "bell_spmm[bf16_ragged]", lambda: bell_spmm(*args),
+        lambda: bell_spmm_plain(*args), bell_spmm, ulps=1)
+    variants = sorted(k[len("sblas_bell_spmm_"):] for k in _kernels.LAUNCHED)
+    if variants != ["bf16_ragged"]:
+        raise AssertionError(f"K4[bf16] at K={KR} ran variants {variants}, "
+                             f"expected bf16_ragged")
+    lib_ms = library_or_none(
+        f"torch.addmm bf16 CSR x dense, K={KR}",
+        lambda: torch.addmm(CR, F_csr, BR, beta=BETA, alpha=ALPHA))
+    flops = 2 * bell_stats(F)["n_blocks"] * 128 * 128 * KR
+    bnd = bound(nbytes(bp.vals, bp.bcol, BR, CR, CR), flops, rate=BF16_FLOPS)
+    out, counts = launches_of(counters, lambda: spmm(bp, BR, ALPHA, BETA, CR))
+    expect_launches(f"BELL SpMM bf16 K={KR}", counts,
+                    dict(none, bell_spmm=1))
+    by_variant = variant_launches(f"BELL SpMM bf16 K={KR}",
+                                  {"bell_spmm_bf16_ragged": 1})
+    phase("bf16-kernels", kernel="K4 bell_spmm[bf16_ragged]", K=KR,
+          variant=variants[0], main_path_launches=by_variant,
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    kernels["bell_spmm[bf16_ragged]"] = dict(kernel_rec(
+        "bell_spmm", "bf16_ragged", "bsr_kernels.cu",
+        "sblas_tpu/ops/bsr_pallas.py:37", err, ms, plain_ms, lib_ms, bnd),
+        launches=by_variant["bell_spmm_bf16_ragged"])
+    phase("bf16-plans", path=f"spmm BsrPlan bf16 band-73 K={KR}",
+          launches=counts, by_variant=by_variant,
+          check=checked_bf16(f"BELL SpMM bf16 K={KR}", out, want),
+          **call_times(lambda: spmm(bp, BR, ALPHA, BETA, CR), F.nnz, KR))
 
 
 def cli_bf16_phases(main_fn, path, nnz, tmp) -> None:

@@ -48,21 +48,38 @@
 // (value block and B tile staged in contraction chunks of 16, an 8 x 4
 // register tile per thread).
 //
-// bf16: the same tiled GEMM on the CUDA cores, the simplest correct
-// kernel.  Values, B and C are read as bf16 and widened to f32 as they are
-// staged, products and sums are f32 FMAs, alpha and beta are folded in
-// f32, and each output element is rounded to bf16 once, on store.  The
+// bf16: wgmma on the bf16 tensor cores, fed by TMA (variant `bf16`: K %
+// 8 == 0, operands 16-byte aligned).  bf16 x bf16 products are exact and
+// summed in f32 (m64n128k16, f32 accumulators), alpha and beta are folded
+// in f32, and each output element is rounded to bf16 once, on store.  The
 // JAX kernel accumulated the slots in its bf16 output block (one rounding
-// per slot); this kernel rounds once, so it is at least as accurate, and
-// its plain version (an f32 einsum, rounded once) agrees within one bf16
-// ulp.  It leaves the bf16 tensor cores unused: at band-73 x K = 256 its
-// 17.8 GFLOP can take no less than 0.27 ms on the f32 CUDA cores against
-// 0.018 ms on the tensor cores, so bf16 mma (or wgmma) is the next step.
+// per slot); this kernel rounds once, so its plain version (an f32
+// einsum, rounded once) agrees within one bf16 ulp.  What bounds it on the
+// H100: at band-73 x K = 256 the work is 17.8 GFLOP (0.018 ms at 989
+// TFLOP/s) against 208.4 MB of bytes (0.062 ms at 3.35 TB/s), 44 % of
+// them C and out, and a tile contracts only 3 slots x 128 deep (six
+// depth chunks of 64), so a kernel that fills and drains its pipeline
+// once a tile spends much of its life in prologue and epilogue.  The
+// design therefore keeps one persistent block an SM: a producer warp
+// keeps a ring of depth chunks (and each tile's C) in flight by TMA
+// across tiles, so the next tile's loads overlap this tile's epilogue,
+// and two consumer warpgroups run wgmma on operands straight from
+// shared memory (128-byte swizzle, no fragment loads) and write out by
+// TMA.  It reaches about 80 % of its byte bound.
 //
-// Each output element sums its products in one fixed order, so both
-// paths are deterministic.
+// bf16 for any K and alignment (variant `bf16_ragged`): mma.sync
+// m16n8k16 with ldmatrix fragments (A row-major, B by ldmatrix.trans) on
+// the same 128 x 128 tiles, operands staged through registers by 2-byte
+// loads into a ring of padded rows, two blocks an SM, the out tile staged
+// in shared memory as f32 and written a row per warp.  Its element copies
+// hold it to about a fifth of the byte bound.
+//
+// Each output element sums its products in one fixed order, so every
+// kernel here is deterministic.
 
+#include <climits>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "value_types.cuh"
@@ -262,7 +279,500 @@ bell_spmm_tf32x3_kernel(const float* __restrict__ vals,
   }
 }
 
-// ---- f64 and bf16: shared-memory tiled GEMM on the CUDA cores ----
+// ---- bf16: mma.sync m16n8k16 on the bf16 tensor cores ----
+
+constexpr int kHK = 64;                    // depth chunk: 128 B of a row
+constexpr int kHStages = 3;                // ring depth, at two blocks an SM
+constexpr int kHAStride = kHK + 8;         // 144 B: ldmatrix rows hit
+constexpr int kHBStride = kTN + 8;         // 272 B:   distinct banks
+constexpr int kHAStage = kTM * kHAStride;  // elements
+constexpr int kHBStage = kHK * kHBStride;
+constexpr int kOStride = kTN + 8;          // f32 staging of the out tile
+constexpr int kSmemRing = kHStages * (kHAStage + kHBStage) * 2;
+constexpr int kSmemOut = kTM * kOStride * 4;
+constexpr int kSmemBf16 = kSmemRing > kSmemOut ? kSmemRing : kSmemOut;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// the ring is filled by 2-byte loads staged through registers, so any K
+// and any bf16-aligned operand will do
+__global__ void __launch_bounds__(kThreadsTc, 2)
+bell_spmm_bf16_mma_kernel(const uint16_t* __restrict__ vals,
+                          const int32_t* __restrict__ bcol,
+                          const uint16_t* __restrict__ B,
+                          const uint16_t* __restrict__ Cin,
+                          uint16_t* __restrict__ out, int slots, int64_t m,
+                          int64_t n, int64_t k, float alpha, float beta) {
+  extern __shared__ __align__(16) uint16_t hsmem[];
+  uint16_t* As = hsmem;                        // [stage][128][kHAStride]
+  uint16_t* Bs = hsmem + kHStages * kHAStage;  // [stage][64][kHBStride]
+
+  const int64_t n_ctiles = (k + kTN - 1) / kTN;
+  const int64_t i = blockIdx.x / n_ctiles;
+  const int64_t n0 = (blockIdx.x % n_ctiles) * kTN;
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const int wm = warp % 2, wn = warp / 2;  // warp tile rows 64wm, cols 32wn
+  const int g = ln / 4, t = ln % 4;
+  constexpr int kChunks = kBlock / kHK;    // 2 depth chunks per slot
+  const int steps = slots * kChunks;
+
+  auto load = [&](int step) {
+    const int s = step / kChunks, c0 = (step % kChunks) * kHK;
+    const uint16_t* blk = vals + ((i * slots + s) * kBlock) * kBlock + c0;
+    uint16_t* as = As + (step % kHStages) * kHAStage;
+    const int64_t brow0 = static_cast<int64_t>(bcol[i * slots + s]) * kBlock
+                          + c0;
+    uint16_t* bs = Bs + (step % kHStages) * kHBStage;
+#pragma unroll 8
+    for (int p = tid; p < kTM * kHK; p += kThreadsTc) {
+      const int r = p / kHK, q = p % kHK;
+      as[r * kHAStride + q] = blk[r * kBlock + q];
+    }
+#pragma unroll 8
+    for (int p = tid; p < kHK * kTN; p += kThreadsTc) {
+      const int r = p / kTN, q = p % kTN;
+      const int64_t row = brow0 + r, col = n0 + q;
+      bs[r * kHBStride + q] = row < n && col < k ? B[row * k + col] : 0;
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  // ldmatrix addresses: lane l names row l % 16 and 8-column half l / 16
+  // of a 16 x 16 piece (A: rows m, columns depth; B: rows depth, columns
+  // n, read transposed), so the four 8 x 8 matrices land as mma's a0..a3
+  // and as b0, b1 of two n8 tiles
+  const int lrow = ln % 16, lcol = (ln / 16) * 8;
+#pragma unroll
+  for (int st = 0; st < kHStages - 1; ++st)
+    if (st < steps) load(st);
+  for (int step = 0; step < steps; ++step) {
+    __syncthreads();   // chunk `step` stored; chunk step-1's stage is free
+    if (step + kHStages - 1 < steps) load(step + kHStages - 1);
+    const uint32_t as = smem_addr(As + (step % kHStages) * kHAStage +
+                                  (wm * 64 + lrow) * kHAStride + lcol);
+    const uint32_t bs = smem_addr(Bs + (step % kHStages) * kHBStage +
+                                  lrow * kHBStride + wn * 32 + lcol);
+#pragma unroll
+    for (int kk = 0; kk < kHK; kk += 16) {
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], as + 2 * (mt * 16 * kHAStride + kk));
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], bs + 2 * (kk * kHBStride + np * 16));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], b[nt / 2][2 * (nt % 2)],
+                   b[nt / 2][2 * (nt % 2) + 1]);
+    }
+  }
+  __syncthreads();   // every warp is done with the ring: stage the tile
+
+  float* st = reinterpret_cast<float*>(hsmem);   // [128][kOStride]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(
+            st + (wm * 64 + mt * 16 + g + 8 * h) * kOStride + wn * 32 +
+            nt * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  __syncthreads();
+
+  // a warp writes whole rows: lane l owns columns 4l .. 4l + 3, so C's
+  // reads and out's writes are 256 contiguous bytes a row
+  const int64_t col = n0 + 4 * ln;
+#pragma unroll 4
+  for (int r = warp; r < kTM; r += kThreadsTc / 32) {
+    const int64_t row = i * kBlock + r;
+    if (row >= m) break;
+    const float4 a = *reinterpret_cast<const float4*>(st + r * kOStride +
+                                                      4 * ln);
+    const int64_t o = row * k + col;
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < k) {
+        const __nv_bfloat16 v = __float2bfloat16_rn(
+            beta * bf16_lo(Cin[o + e]) + alpha * av[e]);
+        out[o + e] = *reinterpret_cast<const uint16_t*>(&v);
+      }
+  }
+}
+
+int launch_bf16_mma(const __nv_bfloat16* vals, const int32_t* bcol,
+                    const __nv_bfloat16* B, const __nv_bfloat16* C,
+                    __nv_bfloat16* out, int64_t n_brows, int64_t slots,
+                    int64_t m, int64_t n, int64_t k, double alpha,
+                    double beta, void* stream) {
+  if (n_brows > 0 && k > 0) {
+    auto kernel = bell_spmm_bf16_mma_kernel;
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16));
+    if (rc != 0) return rc;
+    const auto grid =
+        static_cast<unsigned int>(n_brows * ((k + kTN - 1) / kTN));
+    kernel<<<grid, kThreadsTc, kSmemBf16,
+             static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const uint16_t*>(vals), bcol,
+        reinterpret_cast<const uint16_t*>(B),
+        reinterpret_cast<const uint16_t*>(C),
+        reinterpret_cast<uint16_t*>(out), static_cast<int>(slots), m, n, k,
+        static_cast<float>(alpha), static_cast<float>(beta));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16: wgmma fed by TMA, persistent blocks ----
+//
+// One block an SM walks the output tiles t = blockIdx.x, + gridDim.x, ...
+// (tile t: block row t / n_ctiles, column tile t % n_ctiles).  Warp 8
+// is the producer: its lane 0 keeps a ring of kWStages depth chunks full
+// by TMA (the value block's 128 x 64 piece, B's 64 x 128 piece as two
+// 64 x 64 boxes, all in the 128-byte swizzle) and loads each tile's C
+// into one of two C buffers; the ring's step count runs across tiles, so
+// the next tile's chunks are loaded while this tile's epilogue runs.
+// Warps 0-7 are two consumer warpgroups, rows 0-63 and 64-127 of the
+// tile: wgmma m64n128k16 (A K-major, B MN-major: `tnspB`), f32
+// accumulators in registers; the epilogue folds alpha, beta and C in
+// f32 in place in the C buffer and TMA stores it (rows past m clipped).
+
+constexpr int kWStages = 5;              // 5 x 32 KB + two 32 KB C buffers
+constexpr int kWThreads = 288;           // 2 consumer warpgroups + 1 warp
+constexpr int kWAStage = kTM * kHK * 2;  // 16 KB: 128 rows x 128 B
+constexpr int kWBStage = kHK * kTN * 2;  // 16 KB: two 64 x 64 boxes
+constexpr int kWCBuf = kTM * kTN * 2;    // 32 KB: two 128 x 64 boxes
+constexpr int kWSmem = 1024 + kWStages * (kWAStage + kWBStage) + 2 * kWCBuf
+                       + 8 * (2 * kWStages + 4);
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// a wait that has not ended after 2^28 polls (seconds) traps: a broken
+// ring fails its launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(bar) : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int c0,
+                                          int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// d += A @ B over one k16 step (scale_d 0: d = A @ B)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+#pragma unroll
+  for (int x = 0; x < 64; ++x) asm volatile("" : "+f"(d[x])::"memory");
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+bell_spmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_vals,
+                            const __grid_constant__ CUtensorMap tm_b,
+                            const __grid_constant__ CUtensorMap tm_c,
+                            const __grid_constant__ CUtensorMap tm_out,
+                            const int32_t* __restrict__ bcol, int slots,
+                            int n_tiles, int n_ctiles, float alpha,
+                            float beta) {
+  extern __shared__ uint8_t wsmem_raw[];
+  // the swizzled tiles want 1024-byte alignment
+  const uint32_t base = (smem_addr(wsmem_raw) + 1023) & ~1023u;
+  const uint32_t sA = base, sB = sA + kWStages * kWAStage;
+  const uint32_t sC = sB + kWStages * kWBStage;
+  const uint32_t bars = sC + 2 * kWCBuf;    // full[S], empty[S], cf[2], ce[2]
+  uint8_t* cbuf = wsmem_raw + (sC - smem_addr(wsmem_raw));
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kWStages + s); };
+  auto cfull = [&](int b) { return bars + 8 * (2 * kWStages + b); };
+  auto cempty = [&](int b) { return bars + 8 * (2 * kWStages + 2 + b); };
+
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);           // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(cfull(b), 1);
+      mbar_init(cempty(b), 2);          // one per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int steps = slots * (kBlock / kHK);
+
+  if (warp == 8) {                      // ---- producer ----
+    int gstep = 0, j = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+      const int i = tile / n_ctiles, n0 = (tile % n_ctiles) * kTN;
+      int bc = 0;
+      for (int step = 0; step < steps; ++step, ++gstep) {
+        const int s = step / 2, c0 = (step % 2) * kHK;
+        if (step % 64 == 0)             // the tile's block columns, 32 a load
+          bc = s + ln < slots ? bcol[static_cast<int64_t>(i) * slots + s + ln]
+                              : 0;
+        const int brow = __shfl_sync(0xffffffffu, bc, s % 32) * kBlock + c0;
+        if (ln == 0) {
+          const int st = gstep % kWStages;
+          mbar_wait(empty(st), ((gstep / kWStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), kWAStage + kWBStage);
+          tma_load(sA + st * kWAStage, &tm_vals, c0,
+                   (i * slots + s) * kBlock, full(st));
+          tma_load(sB + st * kWBStage, &tm_b, n0, brow, full(st));
+          tma_load(sB + st * kWBStage + kWBStage / 2, &tm_b, n0 + 64, brow,
+                   full(st));
+        }
+      }
+      if (ln == 0) {
+        const int b = j % 2;
+        mbar_wait(cempty(b), ((j / 2) & 1) ^ 1);
+        mbar_expect_tx(cfull(b), kWCBuf);
+        tma_load(sC + b * kWCBuf, &tm_c, n0, i * kBlock, cfull(b));
+        tma_load(sC + b * kWCBuf + kWCBuf / 2, &tm_c, n0 + 64, i * kBlock,
+                 cfull(b));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  const int wg = warp / 4, wq = warp % 4, g = ln / 4, t = ln % 4;
+  float d[64] = {};
+  int gstep = 0, j = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+    const int i = tile / n_ctiles, n0 = (tile % n_ctiles) * kTN;
+    for (int step = 0; step < steps; ++step, ++gstep) {
+      const int st = gstep % kWStages;
+      mbar_wait(full(st), (gstep / kWStages) & 1);
+      const uint32_t a0 = sA + st * kWAStage + wg * (kWAStage / 2);
+      const uint32_t b0 = sB + st * kWBStage;
+      acc_fence(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kHK / 16; ++kk)
+        // A: +32 B a k16 step inside the swizzled 128-byte rows, 8-row
+        // groups 1024 B apart; B: 16 rows (2048 B) a step, the second
+        // 64-column box 8 KB on, 8-row groups 1024 B apart
+        wgmma_m64n128k16(d, sw128_desc(a0 + 32 * kk, 16, 1024),
+                         sw128_desc(b0 + 2048 * kk, kWBStage / 2, 1024),
+                         step > 0 || kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      acc_fence(d);
+      if (ln == 0) mbar_arrive(empty(st));
+    }
+
+    // epilogue, in place in C buffer b: the thread's accumulators d[4c +
+    // 2h + e] are row 64 wg + 16 wq + g + 8h, column 8c + 2t + e; in the
+    // swizzle, 16-byte chunk q of row r sits at chunk q ^ (r % 8)
+    const int b = j % 2;
+    mbar_wait(cfull(b), (j / 2) & 1);
+    uint8_t* cb = cbuf + b * kWCBuf;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * wg + 16 * wq + g + 8 * h;
+        uint32_t* p = reinterpret_cast<uint32_t*>(
+            cb + (c / 8) * (kWCBuf / 2) + r * 128 + (((c % 8) ^ g) * 16) +
+            4 * t);
+        const uint32_t cv = *p;
+        *p = pack_bf16(beta * bf16_lo(cv) + alpha * d[4 * c + 2 * h],
+                       beta * bf16_hi(cv) + alpha * d[4 * c + 2 * h + 1]);
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid % 128 == 0) {
+      const uint32_t src = sC + b * kWCBuf + wg * (kWCBuf / 4);
+      tma_store(&tm_out, n0, i * kBlock + 64 * wg, src);
+      tma_store(&tm_out, n0 + 64, i * kBlock + 64 * wg, src + kWCBuf / 2);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(cempty(b));
+    }
+  }
+  if (tid % 128 == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix read or written in boxes of
+// (box_rows, 64) in the 128-byte swizzle, zeros outside it
+bool bf16_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols,
+              int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16_wgmma(const __nv_bfloat16* vals, const int32_t* bcol,
+                      const __nv_bfloat16* B, const __nv_bfloat16* C,
+                      __nv_bfloat16* out, int64_t n_brows, int64_t slots,
+                      int64_t m, int64_t n, int64_t k, double alpha,
+                      double beta, void* stream) {
+  const auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  // TMA: 16-byte aligned bases and row strides, a slot to read; int32
+  // coordinates
+  if (k % 8 != 0 || !a16(vals) || !a16(B) || !a16(C) || !a16(out) ||
+      slots < 1 || n_brows * slots * kBlock > INT32_MAX || n > INT32_MAX ||
+      k > INT32_MAX || n_brows * ((k + kTN - 1) / kTN) > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_brows == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  CUtensorMap tm_vals, tm_b, tm_c, tm_out;
+  if (!bf16_map(&tm_vals, vals, n_brows * slots * kBlock, kBlock, kTM) ||
+      !bf16_map(&tm_b, B, n, k, kHK) || !bf16_map(&tm_c, C, m, k, kTM) ||
+      !bf16_map(&tm_out, out, m, k, kTM / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        bell_spmm_bf16_wgmma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem));
+  if (rc != 0) return rc;
+  const int n_ctiles = static_cast<int>((k + kTN - 1) / kTN);
+  const int n_tiles = static_cast<int>(n_brows) * n_ctiles;
+  bell_spmm_bf16_wgmma_kernel<<<n_tiles < sms ? n_tiles : sms, kWThreads,
+                                kWSmem, static_cast<cudaStream_t>(stream)>>>(
+      tm_vals, tm_b, tm_c, tm_out, bcol, static_cast<int>(slots), n_tiles,
+      n_ctiles, static_cast<float>(alpha), static_cast<float>(beta));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- f64: shared-memory tiled GEMM on the CUDA cores ----
 
 constexpr int kCols = 64;             // output columns per thread block
 constexpr int kThreads = 256;         // 16 x 16 threads
@@ -270,8 +780,8 @@ constexpr int kRowsPerThread = kBlock / 16;   // 8
 constexpr int kColsPerThread = kCols / 16;    // 4
 constexpr int kDepth = 16;
 
-// T is the storage type, A = Acc<T> the one products and sums are formed
-// in (double for f64, float for bf16)
+// T is the storage type (f64 only), A = Acc<T> the one products and sums
+// are formed in (double)
 template <typename T, typename A = typename sblas::Acc<T>::type>
 __global__ void __launch_bounds__(kThreads)
 bell_spmm_cuda_core_kernel(const T* __restrict__ vals,
@@ -401,8 +911,19 @@ int sblas_bell_spmm_bf16(const __nv_bfloat16* vals, const int32_t* bcol,
                          __nv_bfloat16* out, int64_t n_brows, int64_t slots,
                          int64_t m, int64_t n, int64_t k, double alpha,
                          double beta, void* stream) {
-  return launch_cuda_core(vals, bcol, B, C, out, n_brows, slots, m, n, k,
-                          alpha, beta, stream);
+  return launch_bf16_wgmma(vals, bcol, B, C, out, n_brows, slots, m, n, k,
+                           alpha, beta, stream);
+}
+
+// any K and any bf16-aligned operands
+int sblas_bell_spmm_bf16_ragged(const __nv_bfloat16* vals,
+                                const int32_t* bcol, const __nv_bfloat16* B,
+                                const __nv_bfloat16* C, __nv_bfloat16* out,
+                                int64_t n_brows, int64_t slots, int64_t m,
+                                int64_t n, int64_t k, double alpha,
+                                double beta, void* stream) {
+  return launch_bf16_mma(vals, bcol, B, C, out, n_brows, slots, m, n, k,
+                         alpha, beta, stream);
 }
 
 }  // extern "C"

@@ -8,9 +8,12 @@ one launch: one CUDA thread block per (block-row, column tile) loops
 over the slots itself and writes beta*C + alpha*acc once.  In f32 it runs
 3xTF32 on the tensor cores (each operand split into two TF32 parts, three
 products kept), about f32's accuracy whatever torch's TF32 flag says; in
-f64 it runs f64 FMAs; in bf16 f32 FMAs on the CUDA cores, with alpha and
-beta folded in f32 and each output element rounded to bf16 once (the JAX
-kernel accumulated the slots in its bf16 output block).
+f64 it runs f64 FMAs; in bf16 it runs on the bf16 tensor cores (exact
+products summed in f32), with alpha and beta folded in f32 and each
+output element rounded to bf16 once (the JAX kernel accumulated the
+slots in its bf16 output block).  `bf16_variant` picks between the two
+bf16 kernels: `wgmma` fed by TMA in persistent blocks where K and the
+operands allow TMA, `mma.sync` with element copies otherwise.
 
 `make_plan`'s dispatcher takes this path for K >= 256 on CUDA
 (`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.
@@ -45,6 +48,15 @@ def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     return out.to(out_dtype)
 
 
+def bf16_variant(vals, B, C, out) -> str:
+    """K4[bf16]'s variant: `bf16` (wgmma fed by TMA, which needs 16-byte
+    row strides and bases) when K % 8 == 0, every operand starts on 16
+    bytes and there is a slot to read, else `bf16_ragged`."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (vals, B, C, out))
+    tma = B.shape[1] % 8 == 0 and vals.shape[1] > 0 and aligned
+    return "bf16" if tma else "bf16_ragged"
+
+
 def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     """beta*C + alpha*(A @ B) for A in BELL layout with 128 x 128 blocks
     (see `bell_spmm_plain`).  CPU tensors take the plain version; CUDA
@@ -55,7 +67,7 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     dev = vals.device
     require(dev.type == "cuda", KernelError,
             f"bell_spmm runs on cpu or cuda, not {dev}")
-    fn = _kernels.launcher("bell_spmm", _kernels.value_suffix(vals.dtype))
+    variant = _kernels.value_suffix(vals.dtype)
     require(vals.dim() == 4 and tuple(vals.shape[2:]) == (BLOCK, BLOCK),
             KernelError, f"K4 takes ({BLOCK}, {BLOCK}) blocks, got vals "
             f"{tuple(vals.shape)}")
@@ -68,8 +80,11 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     _kernels.check_operand(B, "B", vals.dtype, (n, k), dev)
     _kernels.check_operand(C, "C", vals.dtype, (m, k), dev)
     out = torch.empty((m, k), dtype=vals.dtype, device=dev)
-    _kernels.launch(fn, dev, vals, bcol, B, C, out, n_brows, L, m, n, k,
-                    float(alpha), float(beta))
+    if variant == "bf16":
+        variant = bf16_variant(vals, B, C, out)
+    _kernels.launch(_kernels.launcher("bell_spmm", variant), dev, vals, bcol,
+                    B, C, out, n_brows, L, m, n, k, float(alpha),
+                    float(beta))
     bell_spmm.launches += 1
     return out
 

@@ -169,3 +169,20 @@ def test_k4_gate_follows_the_block_shape(block, k, on_cuda, k4):
     does (K4 raises for them)."""
     _, tp = _plans("banded", block)
     assert tops.takes_k4(tp, k, on_cuda) is k4
+
+
+@pytest.mark.parametrize("k,offset,slots,variant", [
+    (17, 0, 1, "bf16_ragged"), (256, 0, 1, "bf16"), (264, 0, 3, "bf16"),
+    (300, 0, 1, "bf16_ragged"), (512, 0, 2, "bf16"),
+    (256, 1, 1, "bf16_ragged"), (256, 8, 1, "bf16"),
+    (256, 0, 0, "bf16_ragged"), (8, 0, 1, "bf16"), (32, 0, 2, "bf16")])
+def test_k4_bf16_variant_follows_k_and_alignment(k, offset, slots, variant):
+    """K4[bf16] takes its wgmma variant only when K % 8 == 0, every
+    operand starts on 16 bytes (`offset` bf16 elements into B's storage
+    moves B's start by 2 * offset bytes) and the plan has a slot."""
+    vals = torch.zeros((2, slots, 128, 128), dtype=torch.bfloat16)
+    B = torch.zeros(offset + 200 * k, dtype=torch.bfloat16)[offset:]
+    C, out = (torch.zeros((200, k), dtype=torch.bfloat16) for _ in "co")
+    assert vals.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0
+    assert tbp.bf16_variant(vals, B.view(200, k), C, out) == variant
+

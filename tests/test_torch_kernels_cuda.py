@@ -861,24 +861,120 @@ def test_window_reduce_bf16_kernel_within_one_ulp(dev, case, k0, width):
     assert int(_ulps(got, tw.window_reduce_plain(*args)).max()) <= 1
 
 
-@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 256),
-                                           (20_000, 36, 300)])
-def test_bell_spmm_bf16_kernel_within_one_ulp(dev, n, half_band, k):
-    from sblas_tpu_torch.io.generate import fem_banded_like
+def _k4_bf16_call(plan, k, seed, alpha=3.0, beta=4.0, offset=0):
+    """K4[bf16] twice on `plan` with random B, C of `k` columns (B
+    starting `offset` elements into its storage): the two results, the
+    plain version's and the launches by variant."""
+    from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import bsr_pallas as tb
+    dev = plan.vals.device
+    n, m = plan.shape[1], plan.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = torch.rand(offset + n * k, generator=g, device=dev).to(BF16)
+    B = B[offset:].view(n, k)
+    C = torch.rand((m, k), generator=g, device=dev).to(BF16)
+    args = (plan.vals, plan.bcol, B, C, alpha, beta)
+    _kernels.LAUNCHED.clear()
+    got, again = tb.bell_spmm(*args), tb.bell_spmm(*args)
+    torch.cuda.synchronize()
+    launched = dict(_kernels.LAUNCHED)
+    return got, again, tb.bell_spmm_plain(*args), launched
+
+
+@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 256),
+                                           (20_000, 36, 300),
+                                           (3000, 36, 264),
+                                           (20_000, 36, 512),
+                                           (100, 9, 264),
+                                           (700, 9, 8), (3000, 36, 32)])
+def test_bell_spmm_bf16_kernel_within_one_ulp(dev, n, half_band, k):
+    """K4[bf16] on the tensor cores sums exact products in f32 and rounds
+    once, as its plain version does: within one bf16 ulp, two launches
+    bitwise, and the variant K calls for (wgmma fed by TMA at K % 8 == 0).
+    Block rows 1 to 157 and 1 to 4 column tiles: the persistent blocks'
+    tile walk leaves no output tile unwritten.  At K = 8 and 32 the TMA
+    boxes (64 columns) are wider than B, C and out: zero-filled on load,
+    clipped on store."""
+    from sblas_tpu_torch.io.generate import fem_banded_like
     from sblas_tpu_torch.ops.bsr import BsrPlan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     A = fem_banded_like(n=n, half_band=half_band)
     plan = BsrPlan.from_csr(A, dtype=BF16, device=dev)
-    g = torch.Generator(device=dev).manual_seed(n)
-    B = torch.rand((n, k), generator=g, device=dev).to(BF16)
-    C = torch.rand((n, k), generator=g, device=dev).to(BF16)
-    args = (plan.vals, plan.bcol, B, C, 3.0, 4.0)
-    got, again = tb.bell_spmm(*args), tb.bell_spmm(*args)
-    torch.cuda.synchronize()
+    got, again, want, launched = _k4_bf16_call(plan, k, n)
     assert got.dtype == BF16 and torch.equal(got, again)
-    assert int(_ulps(got, tb.bell_spmm_plain(*args)).max()) <= 1
+    assert int(_ulps(got, want).max()) <= 1
+    variant = "bf16" if k % 8 == 0 else "bf16_ragged"
+    assert launched == {f"sblas_bell_spmm_{variant}": 2}
+
+
+def _uneven_block_rows(m=700, n=900, seed=9):
+    """A sparse matrix whose 128-row block rows hold 1 to 4 nonzero
+    128 x 128 blocks, so its BELL plan pads the short rows with slots."""
+    from sblas_tpu_torch.containers import CooMatrix
+    rng = np.random.RandomState(seed)
+    rows, cols = [], []
+    for bi in range(-(-m // 128)):
+        for bj in rng.choice(-(-n // 128), size=bi % 4 + 1, replace=False):
+            r = rng.randint(bi * 128, min(m, bi * 128 + 128), size=300)
+            c = rng.randint(bj * 128, min(n, bj * 128 + 128), size=300)
+            rows.append(r)
+            cols.append(c)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    key = np.unique(rows * n + cols)
+    return CooMatrix(key // n, key % n,
+                     rng.random_sample(len(key)).astype(np.float32),
+                     (m, n)).to_csr()
+
+
+@pytest.mark.parametrize("k", [17, 200])
+def test_bell_spmm_bf16_pads_uneven_block_rows(dev, k):
+    """Rows of 1 to 4 blocks (padding slots: bcol 0, zero values), m and
+    n not multiples of 128, a second column tile cut short at K = 200."""
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    plan = BsrPlan.from_csr(_uneven_block_rows(), dtype=BF16, device=dev)
+    nz = (plan.vals != 0).flatten(2).any(-1).sum(1).cpu()
+    assert plan.slots == 4 and set(nz.tolist()) == {1, 2, 3, 4}
+    got, again, want, launched = _k4_bf16_call(plan, k, k)
+    assert torch.equal(got, again) and int(_ulps(got, want).max()) <= 1
+    assert sum(launched.values()) == 2
+
+
+@pytest.mark.parametrize("alpha,beta", [(0.0, 4.0), (3.0, 0.0)])
+def test_bell_spmm_bf16_alpha_or_beta_zero(dev, alpha, beta):
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    plan = BsrPlan.from_csr(fem_banded_like(n=3000, half_band=36),
+                            dtype=BF16, device=dev)
+    got, again, want, _ = _k4_bf16_call(plan, 256, 1, alpha, beta)
+    assert torch.equal(got, again) and int(_ulps(got, want).max()) <= 1
+
+
+def test_bell_spmm_bf16_unaligned_operand_takes_ragged(dev):
+    """K = 256 but B two bytes off a 16-byte boundary: the element-copy
+    variant runs, within one ulp."""
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    plan = BsrPlan.from_csr(fem_banded_like(n=3000, half_band=36),
+                            dtype=BF16, device=dev)
+    got, again, want, launched = _k4_bf16_call(plan, 256, 2, offset=1)
+    assert launched == {"sblas_bell_spmm_bf16_ragged": 2}
+    assert torch.equal(got, again) and int(_ulps(got, want).max()) <= 1
+
+
+def test_bell_spmm_bf16_without_slots_is_beta_c(dev):
+    """A BELL layout with no slots: the ragged variant writes beta * C."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    vals = torch.zeros((2, 0, 128, 128), dtype=BF16, device=dev)
+    bcol = torch.zeros((2, 0), dtype=torch.int32, device=dev)
+    B = torch.rand((100, 256), device=dev).to(BF16)
+    C = torch.rand((200, 256), device=dev).to(BF16)
+    _kernels.LAUNCHED.clear()
+    got = tb.bell_spmm(vals, bcol, B, C, 3.0, 4.0)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_bell_spmm_bf16_ragged": 1}
+    assert torch.equal(got, (4.0 * C.float()).to(BF16))
 
 
 def test_spmv_routed_bf16_transport_on_card(dev):
