@@ -11,7 +11,9 @@ then runs every main path at full size, counting kernel launches on each:
 
     webbase_like() (1M rows, f32) -> make_plan(op="spmv") -> RoutedPlan
         -> spmv (K1, K2), and the tier-0 COO SpMV beside it
-    webbase_like() x K=64 -> make_plan(op="spmm") -> WcooPlan -> spmm (K3)
+    webbase_like() x K=64 -> make_plan(op="spmm") -> WcooPlan -> spmm (K3,
+        writing beta*C + alpha*A@B itself; K3 timed in that fused form
+        and in its grid form, each with its bound)
     fem_shell_like() x K=64 -> make_plan(op="spmm") -> DiaPlan -> spmm,
         and the tier-0 COO SpMM beside it
     fem_banded_like() x K=256 -> BsrPlan -> spmm (K4); x K=64 -> spmm
@@ -77,7 +79,10 @@ and the distribution layer in a world-1 NCCL group:
     counted by variant (`_kernels.LAUNCHED`) on the path that runs it:
     [bf16-kernels] K1 bf16/int16 at webbase-1M's main-route tables, K2 and
         K2' f32 -> bf16 at that plan's tiles (and bf16 -> bf16 at a
-        bf16-valued plan's), K3 bf16 at webbase x K=64, K4 bf16 (wgmma
+        bf16-valued plan's), K3 bf16 at webbase x K=64 in both forms (its
+        `bf16` variant, 16-byte loads on 8-lane groups) and its
+        `bf16_ragged` variant at k0 = 1 (and on the SpMM at K=63 that
+        takes it), K4 bf16 (wgmma
         fed by TMA, its `bf16` variant, checked) at band-73 x K=256 and
         (`bf16_ragged`, mma.sync with element copies, checked) at K=263,
         with library yardsticks (`torch.gather` on int32 indices; bf16
@@ -91,7 +96,8 @@ and the distribution layer in a world-1 NCCL group:
     [bf16-plans] plans with bf16 values against the oracle at the JAX
         package's bf16 bound (rtol = atol = 0.15): the webbase routed SpMV
         (K1 bf16, K2 bf16; and through K2' with `pregather`), the webbase
-        WCOO SpMM (K3), the shell DIA SpMM and SpMV, the band-73 BELL SpMM
+        WCOO SpMM (K3) at K=64 and 63, the shell DIA SpMM and SpMV, the
+        band-73 BELL SpMM
         at K=256 and K=263 (K4, each variant once)
 
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
@@ -119,6 +125,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -335,6 +342,54 @@ def library_or_none(title, fn):
     return _device_ms(fn)
 
 
+def k3_forms(title, args, C, A_csr, nnz, rate, rel_tol=0.0, ulps=None):
+    """K3 at the main path's shapes in both store forms, each against its
+    plain version (`compare`): the grid form, the kernel's sums alone,
+    beside `torch.sparse.mm`; and the fused form, beta*C + alpha*A@B on
+    C's rows (the form the SpMM launches), beside `torch.addmm` on the
+    same CSR matrix.  Prints one phase line; returns the fused form's
+    `kernels` record, the grid form's time and bound beside it.  The
+    chunk must be C's whole width (a fused call writes only its chunk)."""
+    from sblas_tpu_torch.ops.wcoo import window_reduce, window_reduce_plain
+    k3, wb, relrow, vals, xblk, lane, B, k0, width = args
+    if (k0, width) != (0, C.shape[1]):
+        raise AssertionError(f"{title}: chunk {k0}:{k0 + width} is not C's")
+    es = vals.element_size()
+    index = nbytes(k3.units, k3.rows, wb, relrow, vals, xblk, lane)
+    g_err, _, g_ms, g_plain = compare(
+        f"{title} grid", lambda: window_reduce(*args),
+        lambda: window_reduce_plain(*args), window_reduce, rel_tol, ulps)
+    g_bnd = bound(index + (B.shape[0] + k3.n_row_blocks * 128) * width * es,
+                  2 * nnz * width, rate)
+    epi = dict(C=C, alpha=ALPHA, beta=BETA)
+    err, rel, ms, plain_ms = compare(
+        f"{title} fused", lambda: window_reduce(*args, **epi),
+        lambda: window_reduce_plain(*args, **epi), window_reduce, rel_tol,
+        ulps)
+    bnd = bound(index + (B.shape[0] + 2 * C.shape[0]) * width * es,
+                2 * nnz * width + 3 * C.shape[0] * width, rate)
+    mm_ms = library_or_none(f"torch.sparse.mm {vals.dtype} CSR x dense",
+                            lambda: torch.sparse.mm(A_csr, B))
+    lib_ms = library_or_none(
+        f"torch.addmm {vals.dtype} CSR x dense",
+        lambda: torch.addmm(C, A_csr, B, beta=BETA, alpha=ALPHA))
+    phase("K3 forms", kernel=title, units=k3.units.shape[0],
+          k3_rows=k3.rows.shape[0], K=width, deterministic=True,
+          tol=f"{ulps} bf16 ulp" if ulps is not None else rel_tol,
+          grid_ms=f"{g_ms:.5f}", grid_plain_ms=f"{g_plain:.5f}",
+          grid_max_abs_err=f"{g_err:.3e}", sparse_mm_ms=_fmt_ms(mm_ms),
+          grid_bound_ms=f"{g_bnd['bound_ms']:.5f}",
+          grid_share=f"{g_bnd['bound_ms'] / g_ms:.3f}",
+          fused_ms=f"{ms:.5f}", fused_plain_ms=f"{plain_ms:.5f}",
+          fused_max_abs_err=f"{err:.3e}", fused_rel_err=f"{rel:.3e}",
+          addmm_ms=_fmt_ms(lib_ms), fused_bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          fused_share=f"{bnd['bound_ms'] / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                grid_ms=g_ms, grid_bound_ms=g_bnd["bound_ms"],
+                sparse_mm_ms=mm_ms, **bnd)
+
+
 def sparse_csr(A, dev, dtype=torch.float32):
     """A as a torch sparse CSR tensor on `dev` (f32 unless named), for the
     library yardstick calls only."""
@@ -375,8 +430,7 @@ def main() -> int:
                                            lane_shuffle_plain)
     from sblas_tpu_torch.ops.rspmv import (SLAB, RoutedPlan, slab_gather,
                                            slab_gather_plain, tile_gather)
-    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
-                                          window_reduce_plain)
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width, window_reduce
     from sblas_tpu_torch.experiments.stage_fuse_probe import (
         stage_fuse_gather)
     from sblas_tpu_torch.experiments.wcoo_gather_probe import (
@@ -513,25 +567,13 @@ def main() -> int:
     kc = k_chunk_width(wplan.n_tiles, K)
     k3_args = (wplan.k3, wplan.wb, wplan.relrow, wplan.vals, wplan.xblk,
                wplan.lane, Bd, 0, kc)
-    err, rel, ms, plain_ms = compare(
-        "window_reduce", lambda: window_reduce(*k3_args),
-        lambda: window_reduce_plain(*k3_args), window_reduce, F32_REL_TOL)
     A_csr = sparse_csr(A, dev)
-    lib_ms = _device_ms(lambda: torch.sparse.mm(A_csr, Bd[:, :kc]))
-    phase("K3 window_reduce", n_tiles=wplan.n_tiles, kc=kc,
-          nb=wplan.n_row_blocks, units=wplan.k3_units.shape[0],
-          k3_rows=wplan.k3_rows.shape[0], max_abs_err=f"{err:.3e}",
-          rel_err=f"{rel:.3e}", tol=F32_REL_TOL, deterministic=True,
-          ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-          library_ms=f"{lib_ms:.5f}")
     kernels["window_reduce"] = dict(
         name="window_reduce", route="cuda",
         source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
-        replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(nbytes(wplan.k3_units, wplan.k3_rows, *k3_args[1:6])
-                + Bd.shape[0] * kc * 4
-                + wplan.n_row_blocks * 128 * kc * 4, 2 * A.nnz * kc))
+        replaces="sblas_tpu/ops/wcoo.py:291",
+        **k3_forms("K3 window_reduce", k3_args, Cd, A_csr, A.nnz,
+                   FP32_FLOPS, rel_tol=F32_REL_TOL))
     del A_csr
     want = oracle_spmm(A, Bw, Cw)
     out, counts = launches_of(counters,
@@ -729,7 +771,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("um_launches",)   # K3's launches in [um]'s streamed SpMM
+    # K3's launches in [um]'s streamed SpMM; K3's grid form beside its
+    # fused one
+    extra = ("um_launches", "grid_ms", "grid_bound_ms", "sparse_mm_ms")
     for rec in kernels.values():
         missing = [k for k in keys if k not in rec]
         if missing or rec["launches"] < 1:
@@ -1050,12 +1094,14 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
 
 
 def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
-    """[bf16-kernels] K3 in bf16 at webbase x K=64 against its plain
-    version (within one bf16 ulp); [bf16-plans] the WCOO SpMM of a plan
-    with bf16 values (K3 bf16), against the oracle and timed."""
+    """[bf16-kernels] K3 in bf16 at webbase x K=64 in both store forms
+    against its plain version (within one bf16 ulp); [bf16-plans] the WCOO
+    SpMM of a plan with bf16 values (K3's `bf16` variant), against the
+    oracle and timed.  Then `bf16_ragged`, at an unaligned k0 against its
+    plain version and on the path that takes it: the SpMM at K=63."""
+    from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import WcooPlan, make_plan, spmm
-    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
-                                          window_reduce_plain)
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
     K = Bd.shape[1]
     wp = make_plan(A, dtype=BF16, op="spmm", device=Bd.device)
     if not isinstance(wp, WcooPlan) or wp.dtype != BF16:
@@ -1064,25 +1110,19 @@ def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
     B16, C16 = Bd.to(BF16), Cd.to(BF16)
     kc = k_chunk_width(wp.n_tiles, K)
     args = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane, B16, 0, kc)
-    err, rel, ms, plain_ms = compare(
-        "window_reduce[bf16]", lambda: window_reduce(*args),
-        lambda: window_reduce_plain(*args), window_reduce, ulps=1)
     A_csr = sparse_csr(A, Bd.device, BF16)
-    lib_ms = library_or_none("torch.sparse.mm bf16 CSR x dense",
-                             lambda: torch.sparse.mm(A_csr, B16[:, :kc]))
-    del A_csr
-    bnd = bound(nbytes(wp.k3_units, wp.k3_rows, *args[1:6])
-                + B16.shape[0] * kc * 2 + wp.n_row_blocks * 128 * kc * 2,
-                2 * A.nnz * kc, rate=BF16_FLOPS)
-    phase("bf16-kernels", kernel="K3 window_reduce[bf16]", K=kc,
-          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
-          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
-          bound_by=bnd["bound_by"],
-          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
-    kernels["window_reduce[bf16]"] = kernel_rec(
-        "window_reduce", "bf16", "wcoo_kernels.cu",
-        "sblas_tpu/ops/wcoo.py:291", err, ms, plain_ms, lib_ms, bnd)
+    _kernels.LAUNCHED.clear()
+    rec = k3_forms("K3 window_reduce[bf16]", args, C16, A_csr, A.nnz,
+                   BF16_FLOPS, ulps=1)
+    variants = sorted(k[len("sblas_window_reduce_"):]
+                      for k in _kernels.LAUNCHED)
+    if variants != ["bf16"]:
+        raise AssertionError(f"K3[bf16] at K={kc} ran variants {variants}, "
+                             f"expected bf16")
+    kernels["window_reduce[bf16]"] = dict(
+        name="window_reduce[bf16]", route="cuda",
+        source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
+        replaces="sblas_tpu/ops/wcoo.py:291", **rec)
     out, counts = launches_of(counters,
                               lambda: spmm(wp, B16, ALPHA, BETA, C16))
     expect_launches("WCOO SpMM bf16", counts,
@@ -1092,9 +1132,72 @@ def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
     kernels["window_reduce[bf16]"]["launches"] = by_variant[
         "window_reduce_bf16"]
     phase("bf16-plans", path="spmm WcooPlan bf16 webbase-1M", K=K,
-          launches=counts, by_variant=by_variant,
+          units=wp.k3_units.shape[0], launches=counts, by_variant=by_variant,
           check=checked_bf16("WCOO SpMM bf16", out, want),
           **call_times(lambda: spmm(wp, B16, ALPHA, BETA, C16), A.nnz, K))
+    bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none, kernels)
+
+
+def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
+                   kernels) -> None:
+    """K3[bf16_ragged]: the fused form at k0 = 1 (63 columns, an odd
+    offset) within one bf16 ulp of its plain version, timed with its
+    bound; then the SpMM at K=63 (B, C and the oracle cut to their first
+    63 columns), which takes `bf16_ragged` for its whole chunk."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import spmm
+    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
+                                          window_reduce_plain)
+    KR = B16.shape[1] - 1
+    args = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane, B16, 1, KR)
+    epi = dict(C=C16, alpha=ALPHA, beta=BETA)
+    # outs start as C (the call writes columns 1..63); the kernel's calls
+    # take the two in turns, so `compare` holds two launches' results
+    outs = [C16.clone(), C16.clone()]
+    turn = itertools.cycle(outs)
+    _kernels.LAUNCHED.clear()
+    err, rel, ms, plain_ms = compare(
+        "window_reduce[bf16_ragged]",
+        lambda: window_reduce(*args, **epi, out=next(turn)),
+        lambda: window_reduce_plain(*args, **epi, out=C16.clone()),
+        window_reduce, ulps=1)
+    del outs
+    variants = sorted(k[len("sblas_window_reduce_"):]
+                      for k in _kernels.LAUNCHED)
+    if variants != ["bf16_ragged"]:
+        raise AssertionError(f"K3[bf16] at k0=1 ran variants {variants}, "
+                             f"expected bf16_ragged")
+    index = nbytes(wp.k3_units, wp.k3_rows, wp.wb, wp.relrow, wp.vals,
+                   wp.xblk, wp.lane)
+    m = C16.shape[0]
+    bnd = bound(index + (B16.shape[0] + 2 * m) * KR * 2,
+                2 * A.nnz * KR + 3 * m * KR, rate=BF16_FLOPS)
+    BR, CR = B16[:, :KR].contiguous(), C16[:, :KR].contiguous()
+    lib_ms = library_or_none(
+        f"torch.addmm bf16 CSR x dense, K={KR}",
+        lambda: torch.addmm(CR, A_csr, BR, beta=BETA, alpha=ALPHA))
+    kc = k_chunk_width(wp.n_tiles, KR)
+    out, counts = launches_of(counters, lambda: spmm(wp, BR, ALPHA, BETA, CR))
+    expect_launches(f"WCOO SpMM bf16 K={KR}", counts,
+                    dict(none, window_reduce=-(-KR // kc)))
+    by_variant = variant_launches(f"WCOO SpMM bf16 K={KR}",
+                                  {"window_reduce_bf16_ragged": -(-KR // kc)})
+    phase("bf16-kernels", kernel="K3 window_reduce[bf16_ragged] fused",
+          k0=1, K=KR, variant=variants[0], max_abs_err=f"{err:.3e}",
+          rel_err=f"{rel:.3e}", ulps=1, deterministic=True, ms=f"{ms:.5f}",
+          plain_ms=f"{plain_ms:.5f}", library_ms=_fmt_ms(lib_ms),
+          bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    kernels["window_reduce[bf16_ragged]"] = dict(
+        name="window_reduce[bf16_ragged]", route="cuda",
+        source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
+        replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms,
+        launches=by_variant["window_reduce_bf16_ragged"], **bnd)
+    phase("bf16-plans", path=f"spmm WcooPlan bf16 webbase-1M K={KR}",
+          launches=counts, by_variant=by_variant,
+          check=checked_bf16(f"WCOO SpMM bf16 K={KR}", out, want[:, :KR]),
+          **call_times(lambda: spmm(wp, BR, ALPHA, BETA, CR), A.nnz, KR))
 
 
 def bf16_shell_phases(S, Bd, Cd, want, counters, none) -> None:

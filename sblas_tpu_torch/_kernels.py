@@ -7,8 +7,9 @@ probes' P1 and P2 `probe_kernels.cu`, and the shared header
 plain `extern "C"` launchers that return `cudaGetLastError()`, one per
 variant: `sblas_<kernel>_<variant>`, the variant naming the value type
 (`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
-`bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K4's
-`bf16_ragged` is its bf16 kernel for any K and alignment.  At first
+`bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K3's and
+K4's `bf16_ragged` is their bf16 kernel for any stride and alignment,
+where `bf16` needs 16-byte rows and bases.  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
 loaded with ctypes: nothing is built or imported when the package is
@@ -54,7 +55,8 @@ LAUNCHERS = {
     "lane_shuffle": ([_p, _p, _p, _i64], ("f32", "f64", "bf16", "bf16_i16")),
     "slab_gather": ([_p] * 5 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "tile_gather": ([_p] * 4 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
-    "window_reduce": ([_p] * 10 + [_i64] * 5, ("f32", "f64", "bf16")),
+    "window_reduce": ([_p] * 11 + [_i64] * 7 + [_f64, _f64],
+                      ("f32", "f64", "bf16", "bf16_ragged")),
     "bell_spmm": ([_p] * 5 + [_i64] * 5 + [_f64, _f64],
                   ("f32", "f64", "bf16", "bf16_ragged")),
     "stage_fuse_gather": ([_p] * 6 + [_i64], ("f32", "f64")),

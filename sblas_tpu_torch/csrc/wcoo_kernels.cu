@@ -1,10 +1,21 @@
-// K3: windowed-COO SpMM reduce, with the B-row gather fused in.
+// K3: windowed-COO SpMM reduce, with the B-row gather and the SpMM's
+// epilogue fused in.
 //
 // Replaces the TPU kernel sblas_tpu/ops/wcoo.py::_wreduce_kernel (called
-// via `_window_reduce_range`).  Every slot e of the plan adds
-// vals[e] * B[xblk[e] * 128 + lane[e], k0:k0+width] to output row
-// wb[e / 512] * 128 + relrow[e].  The output is (nb * 128, width), zero
-// where no entry lands.
+// via `_window_reduce_range`; the JAX package's spmm_wcoo then slices,
+// concatenates and computes beta*C + alpha*ab in XLA).  Every slot e of
+// the plan adds vals[e] * B[xblk[e] * 128 + lane[e], k0:k0+width] to
+// output row wb[e / 512] * 128 + relrow[e].  Two store forms:
+//
+// - grid: out is (nb * 128, width), each row its sum, 0 where no entry
+//   lands;
+// - fused (the SpMM's): C and out are (m, ldb) matrices, and the kernel
+//   writes out[r, k0:k0+width] = beta*C[r, k0:k0+width] + alpha*sum[r]
+//   for every r < m; grid rows >= m are never stored, a row with no
+//   entry gets beta*C.  The sum stays in the summing type (f32 for
+//   bf16), the epilogue is computed in it, and the result rounds once on
+//   store.  One call per K-chunk writes that chunk's columns of out, so
+//   the SpMM needs no slice, concatenation or elementwise pass.
 //
 // The TPU took B's rows already gathered, a (T * 512, kc) array, reduced
 // them with one-hot MXU products, and carried each output block across a
@@ -15,42 +26,78 @@
 // - The plan's real slots, in slot order, hold non-decreasing rows (CSR
 //   order).  A host table (`k3_tables` in ops/wcoo.py) cuts them into
 //   units of at most 128 slots (`UNIT`; 256 measured 4 % slower at
-//   webbase), one warp each.  Webbase's row lengths follow a power law
-//   (one row holds 2,990 entries); that row becomes two dozen units that
-//   run in parallel, and no warp walks more than 128 entries, whatever
-//   the row lengths.
-// - A warp reads its unit's relrow/vals/xblk/lane 32 slots at a time,
-//   coalesced, hands them to the lanes by shuffle, and keeps 8 B loads in
-//   flight per lane.  Each lane holds two adjacent columns, so a
-//   warp covers 64 columns and reads 256 contiguous bytes of a B row per
-//   entry (8-byte loads in f32 when B's row stride and k0 are even).  A
-//   wider chunk takes more 64-column slabs on grid.y.
+//   webbase), 64 in bf16 plans (`UNIT_BF16`: with four units a warp,
+//   128-slot units give the card 1.4 waves of warps at webbase, and
+//   32-slot ones write twice the carries).  Webbase's row lengths follow
+//   a power law (one row holds 2,990 entries); that row becomes dozens
+//   of units that run in parallel, and no unit is longer than 128
+//   entries, whatever the rows.
 // - Rows are summed in registers in slot order.  A row wholly inside a
 //   unit is stored once by its unit.  A unit's first row, when it
 //   continues from the unit before, goes to the unit's carry 0; its last
 //   row, when it continues into the next unit, to carry 1.  A second
 //   launch writes the rows no unit stores: a boundary row spanning units
 //   u0 < u1 is carry 1 of u0 plus carry 0 of u0+1 .. u1, in that order,
-//   and a row with no entry is 0.  Every output element is thus written
-//   exactly once and summed in one fixed order, with no atomics: two
-//   launches agree bitwise.  The f32 TPU path split each contribution
-//   into two bf16 parts; here sums are in the working type.
-// - bf16 plans: values and B rows are read as bf16 (4-byte column pairs),
-//   each product is formed in f32 (exact: two 8-bit mantissas), rows and
-//   carries are summed in f32, and each output element is rounded to bf16
-//   once, on store.  The JAX kernel summed each tile's one-hot product in
-//   f32 but accumulated across the tiles of a run in its bf16 output
-//   block, rounding once per tile; this kernel rounds once per element,
-//   so it is at least as accurate.  Its plain version sums in f32 too, in
-//   another order, so the two agree within one bf16 ulp.
+//   and a row with no entry sums to 0.  Every output element is thus
+//   written exactly once and summed in one fixed order, with no atomics:
+//   two launches agree bitwise.  The f32 TPU path split each
+//   contribution into two bf16 parts; here sums are in the working type.
+// - In the fused form a lane asks for C's row segment in L1 (a prefetch:
+//   no register, no wait) beside the B load of the row's first entry, and
+//   reads it when the row is stored, so C's device-memory latency hides
+//   behind the B loads rather than stalling each store.
 // - A tile's trailing padding is never read: units stop at its last real
 //   slot.
+//
+// Two gather loops:
+//
+// - f32, f64 and `bf16_ragged`: one warp per unit.  It reads the unit's
+//   relrow/vals/xblk/lane 32 slots at a time, coalesced, hands them to
+//   the lanes by shuffle, and keeps `kInFlight` B loads in flight per
+//   lane.  Each lane holds two adjacent columns, so a warp covers 64
+//   columns and reads one row segment per entry (8-byte loads in f32
+//   when B's row stride and k0 are even); a wider chunk takes more
+//   64-column slabs on grid.y.
+// - `bf16` (B's row stride, k0, width multiples of 8; B, C, out on 16
+//   bytes): sub-warp rows.  In bf16 the two-column loop fits badly: a
+//   lane's load is 4 bytes, so a warp moves 128 bytes per entry, half of
+//   what it moves in f32, for the same shuffles, address work and
+//   branches per entry; and with registers for one load in flight per
+//   lane (the setting that measured fastest for that loop, at eight
+//   blocks an SM) an SM holds about 8 KB of loads in flight, where
+//   feeding 3.35 TB/s at device-memory latency takes about twice that.
+//   Here a group of 8 lanes owns one entry's 64 columns, 8 bf16 (one
+//   16-byte load) a lane, and the warp's four groups walk four units side
+//   by side: each shuffle, address and branch instruction serves four
+//   entries, each lane keeps `kBatch` 16-byte loads in flight, and the
+//   index streams are read 8 slots ahead.  At four blocks of 256 threads
+//   an SM that is 64 KB of B loads in flight per SM.  C is read and out
+//   written 16 bytes a lane, out with an evict-first hint, so the L2
+//   keeps B's rows.  A ring of bulk asynchronous copies into shared
+//   memory would take the bytes in flight out of registers as well; this
+//   loop already holds more than the card needs, and runs at half its
+//   bound at webbase x K = 64 in the fused form (PERF.md).
+//
+// `nvcc -Xptxas -v` for sm_90a: the `bf16` kernel 64 registers, no spill;
+// the f32 loop 64 and the f64 loop 96-98, no spill; `bf16_ragged` 32
+// registers (eight blocks an SM) with 32-64 bytes of spill; the carry
+// combine 32 (f64: 12 bytes of spill).
+//
+// bf16 plans: values and B rows are read as bf16, each product is formed
+// in f32 (exact: two 8-bit mantissas), rows and carries are summed in f32
+// in slot order, and each output element is rounded to bf16 once, on
+// store.  The JAX kernel summed each tile's one-hot product in f32 but
+// accumulated across the tiles of a run in its bf16 output block,
+// rounding once per tile; this kernel rounds once per element, so it is
+// at least as accurate.  Its plain version sums in f32 too, in another
+// order, so the two agree within one bf16 ulp.
 //
 // What bounds it on the H100: device-memory bytes.  Each entry reads one
 // 256-byte (bf16: 128-byte) row segment of B per 64 columns, scattered
 // over B (256 MB at webbase K = 64 in f32, more than the 50 MB L2, which
 // catches the hub and nearby columns), against 2 FLOPs per element; the
-// index streams are 16 bytes a slot, read once per slab.
+// index streams are 16 bytes a slot (14 in bf16), read once per slab;
+// the fused form adds C's and out's m x width elements.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,8 +107,8 @@
 namespace {
 
 constexpr int kTile = 512;            // slots per tile
-constexpr int kWarps = 8;             // units (warps) per thread block
-constexpr int kSlab = 64;             // columns per warp: two per lane
+constexpr int kWarps = 8;             // warps per thread block
+constexpr int kSlab = 64;             // columns per warp (per group in bf16)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLenMask = 0xffff;      // k3_units[:, 1]: length, then flags
 constexpr int kLeft = 1 << 16, kRight = 1 << 17;
@@ -69,13 +116,24 @@ constexpr int kLeft = 1 << 16, kRight = 1 << 17;
 using sblas::narrow;
 using sblas::widen;
 
-// B loads in flight per lane, and resident blocks asked of the compiler:
-// in f32 four blocks (32 warps an SM, at most 64 registers) with 8 loads
-// each measured faster than two blocks with 16.  bf16 rows are half as
-// long, and there the opposite holds: one load in flight and eight blocks
-// (a full SM, at most 32 registers) measured fastest at webbase x K=64,
-// about 30 % less time than f32's setting.  `Acc` is the type rows and
-// carries are summed in.
+// Where a finished row goes.  C == nullptr: the grid form, out[r * ldo +
+// c] = sum for every grid row (m = nb * 128, alpha = 1, beta = 0).
+// Otherwise the fused form, out[r * ldo + c] = beta * C[r * ldo + c] +
+// alpha * sum for r < m.  C and out point at the chunk's first column.
+template <typename T> struct Store {
+  using A = typename sblas::Acc<T>::type;
+  const T* C;
+  T* out;
+  int64_t ldo, m;
+  A alpha, beta;
+};
+
+// The two-column loop: B loads in flight per lane, and resident blocks
+// asked of the compiler.  In f32 four blocks (32 warps an SM, at most 64
+// registers) with 8 loads each measured faster than two blocks with 16.
+// bf16 (`bf16_ragged`, any stride and offset): one load in flight and
+// eight blocks measured fastest at webbase x K=64 (when it was the only
+// bf16 loop).  `Acc` is the type rows and carries are summed in.
 template <typename T> struct Pair;
 template <> struct Pair<float> {
   using type = float2;
@@ -93,6 +151,12 @@ template <> struct Pair<__nv_bfloat16> {
   static constexpr int kInFlight = 1, kMinBlocks = 8;
 };
 
+// Ask for p's line in L1 (no register, no wait): the fused form's C row
+// segment, asked for when its row's first entry is loaded, read on store.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
 template <typename T, bool kVec, typename A = typename Pair<T>::Acc>
 __device__ __forceinline__ void load_pair(const T* p, bool ok0, bool ok1,
                                           A& x0, A& x1) {
@@ -106,7 +170,10 @@ __device__ __forceinline__ void load_pair(const T* p, bool ok0, bool ok1,
   }
 }
 
-template <typename T, bool kVec>
+// kVec: column pairs as one load (B, and C and out in the fused form);
+// kFused: the fused store form, else the grid form (C, alpha, beta and m
+// unused)
+template <typename T, bool kVec, bool kFused>
 __global__ void __launch_bounds__(kWarps * 32, Pair<T>::kMinBlocks)
 unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
                    const int32_t* __restrict__ wb,
@@ -115,7 +182,7 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
                    const int32_t* __restrict__ xblk,
                    const int32_t* __restrict__ lane,
                    const T* __restrict__ B, int64_t ldb, int64_t k0,
-                   int64_t width, T* __restrict__ out,
+                   int64_t width, Store<T> st,
                    typename Pair<T>::Acc* __restrict__ carry) {
   using A = typename Pair<T>::Acc;
   constexpr int kInFlight = Pair<T>::kInFlight;
@@ -140,10 +207,25 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
       A* dst = carry + (2 * u + (first && left ? 0 : 1)) * width;
       if (ok0) dst[col] = acc0;
       if (ok1) dst[col + 1] = acc1;
-    } else {
-      T* dst = out + static_cast<int64_t>(cur) * width;
+    } else if (!kFused) {
+      T* dst = st.out + static_cast<int64_t>(cur) * st.ldo;
       if (ok0) dst[col] = narrow<T>(acc0);
       if (ok1) dst[col + 1] = narrow<T>(acc1);
+    } else if (cur < st.m) {
+      const int64_t o = static_cast<int64_t>(cur) * st.ldo + col;
+      A c0, c1;
+      load_pair<T, kVec>(st.C + o, ok0, ok1, c0, c1);
+      const A y0 = st.beta * c0 + st.alpha * acc0;
+      const A y1 = st.beta * c1 + st.alpha * acc1;
+      if (kVec && ok1) {
+        typename Pair<T>::type y;
+        y.x = narrow<T>(y0);
+        y.y = narrow<T>(y1);
+        *reinterpret_cast<typename Pair<T>::type*>(st.out + o) = y;
+      } else {
+        if (ok0) st.out[o] = narrow<T>(y0);
+        if (ok1) st.out[o + 1] = narrow<T>(y1);
+      }
     }
     first = false;
   };
@@ -167,6 +249,10 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
         if (j + q < n) {                               // warp-uniform
           load_pair<T, kVec>(Bc + static_cast<int64_t>(cq) * ldb, ok0, ok1,
                              x0[q], x1[q]);
+          if (kFused && ok0 && rs[q] != (q ? rs[q - 1] : cur) &&
+              rs[q] < st.m) {
+            prefetch_l1(st.C + static_cast<int64_t>(rs[q]) * st.ldo + col);
+          }
         }
       }
 #pragma unroll
@@ -186,62 +272,251 @@ unit_reduce_kernel(const int32_t* __restrict__ units, int64_t n_units,
   flush(true);                                         // len >= 1
 }
 
-// One warp per k3_rows entry (row, u0, u1): carry 1 of u0 plus carry 0 of
-// u0+1 .. u1, or 0 for the empty range (u0 > u1).
-template <typename T, typename A = typename Pair<T>::Acc>
+// ---- bf16 on sub-warp rows (the `bf16` variant) ----
+
+constexpr int kGroup = 8;             // lanes per entry: 8 bf16 (16 B) each
+constexpr int kGroups = 32 / kGroup;  // units a warp walks side by side
+constexpr int kBatch = 4;             // 16-byte B loads in flight per lane
+constexpr int kMinBlocks16 = 4;       // 256-thread blocks an SM: 64 registers
+
+// acc[0..7] += v * the eight bf16 of x (each product exact in f32)
+__device__ __forceinline__ void fma8(float (&acc)[8], float v, uint4 x) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    acc[2 * i] = fmaf(v, f.x, acc[2 * i]);
+    acc[2 * i + 1] = fmaf(v, f.y, acc[2 * i + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks16)
+unit_reduce_bf16x8_kernel(const int32_t* __restrict__ units, int64_t n_units,
+                          const int32_t* __restrict__ wb,
+                          const int32_t* __restrict__ relrow,
+                          const __nv_bfloat16* __restrict__ vals,
+                          const int32_t* __restrict__ xblk,
+                          const int32_t* __restrict__ lane,
+                          const __nv_bfloat16* __restrict__ B, int64_t ldb,
+                          int64_t k0, int64_t width,
+                          Store<__nv_bfloat16> st,
+                          float* __restrict__ carry) {
+  const int ln = threadIdx.x % 32, gl = ln % kGroup;
+  const int64_t u =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) *
+          kGroups + ln / kGroup;
+  const int64_t col = static_cast<int64_t>(blockIdx.y) * kSlab + 8 * gl;
+  const bool okc = col < width;        // width % 8 == 0: all eight or none
+  int start = 0, info = 0;             // a group past the last unit: len 0
+  if (u < n_units) {
+    start = units[2 * u];
+    info = units[2 * u + 1];
+  }
+  const int len = info & kLenMask;
+  // groups of one warp walk together, to the longest of their units, so
+  // every shuffle has its whole warp
+  const int wlen = __reduce_max_sync(kFull, len);
+  if (wlen == 0) return;                               // warp-uniform
+  const bool left = info & kLeft, right = info & kRight;
+  const int row0 = len > 0 ? wb[start / kTile] * 128 : 0;
+  const __nv_bfloat16* Bc = B + k0 + col;
+
+  float acc[8];
+  int cur = -1;
+  bool first = true;
+  auto flush = [&](bool last) {
+    if (okc) {
+      if ((first && left) || (last && right)) {
+        float4* dst = reinterpret_cast<float4*>(
+            carry + (2 * u + (first && left ? 0 : 1)) * width + col);
+        dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      } else if (cur < st.m) {
+        const int64_t at = static_cast<int64_t>(cur) * st.ldo + col;
+        uint4 cv = make_uint4(0, 0, 0, 0);
+        if (st.C != nullptr) cv = *reinterpret_cast<const uint4*>(st.C + at);
+        const __nv_bfloat162* c2 =
+            reinterpret_cast<const __nv_bfloat162*>(&cv);
+        uint4 o;
+        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float2 bc = make_float2(0.f, 0.f);
+          if (st.C != nullptr) {
+            const float2 c = __bfloat1622float2(c2[i]);
+            bc = make_float2(st.beta * c.x, st.beta * c.y);
+          }
+          o2[i] = __floats2bfloat162_rn(bc.x + st.alpha * acc[2 * i],
+                                        bc.y + st.alpha * acc[2 * i + 1]);
+        }
+        __stcs(reinterpret_cast<uint4*>(st.out + at), o);
+      }
+    }
+    first = false;
+  };
+  // slot e of this group's unit, one slot a lane: row, value, B row
+  auto slot = [&](int e, int& r, float& v, int& c) {
+    const bool in = e < len;
+    const int s = start + e;
+    r = in ? row0 + relrow[s] : 0;
+    v = in ? __bfloat162float(vals[s]) : 0.f;
+    c = in ? xblk[s] * 128 + lane[s] : 0;
+  };
+
+  int nr, nc;
+  float nv;
+  slot(gl, nr, nv, nc);
+  for (int e8 = 0; e8 < wlen; e8 += kGroup) {
+    const int r = nr, c = nc;
+    const float v = nv;
+    if (e8 + kGroup < wlen) slot(e8 + kGroup + gl, nr, nv, nc);
+#pragma unroll
+    for (int j = 0; j < kGroup; j += kBatch) {
+      int rs[kBatch];
+      float vs[kBatch];
+      uint4 x[kBatch];
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        rs[t] = __shfl_sync(kFull, r, j + t, kGroup);
+        vs[t] = __shfl_sync(kFull, v, j + t, kGroup);
+        const int ct = __shfl_sync(kFull, c, j + t, kGroup);
+        x[t] = make_uint4(0, 0, 0, 0);
+        if (okc && e8 + j + t < len) {
+          x[t] = __ldg(reinterpret_cast<const uint4*>(
+              Bc + static_cast<int64_t>(ct) * ldb));
+          if (st.C != nullptr && rs[t] != (t ? rs[t - 1] : cur) &&
+              rs[t] < st.m) {
+            prefetch_l1(st.C + static_cast<int64_t>(rs[t]) * st.ldo + col);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        if (e8 + j + t < len) {
+          if (rs[t] != cur) {
+            if (cur >= 0) flush(false);
+            cur = rs[t];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+          }
+          fma8(acc, vs[t], x[t]);
+        }
+      }
+    }
+  }
+  if (len > 0) flush(true);
+}
+
+// The second pass, one warp per k3_rows entry (row, u0, u1): carry 1 of
+// u0 plus carry 0 of u0+1 .. u1, or 0 for the empty range (u0 > u1),
+// stored as the units store theirs.  A power-law hub row spans dozens of
+// units, and its warp is the pass's longest: it reads the carries
+// `kCarries` at a time and then adds them in order, so the sum's order
+// stays fixed and the chain costs a few device-memory round trips rather
+// than one per unit.
+constexpr int kCarries = 8;
+
+template <typename T, typename A = typename sblas::Acc<T>::type>
 __global__ void __launch_bounds__(kWarps * 32)
 carry_combine_kernel(const int32_t* __restrict__ rows, int64_t n_rows,
                      const A* __restrict__ carry, int64_t width,
-                     T* __restrict__ out) {
+                     Store<T> st) {
   const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
   if (i >= n_rows) return;
   const int64_t row = rows[3 * i];
+  if (row >= st.m) return;
   const int64_t u0 = rows[3 * i + 1], u1 = rows[3 * i + 2];
+  const T* __restrict__ C = st.C;
+  T* __restrict__ out = st.out;
   for (int64_t c = ln; c < width; c += 32) {
+    const int64_t o = row * st.ldo + c;
+    const A bc = C != nullptr ? st.beta * widen(C[o]) : A(0);
     A s = A(0);
     if (u0 < u1) {
       s = carry[(2 * u0 + 1) * width + c];
-      for (int64_t v = u0 + 1; v <= u1; ++v) s += carry[2 * v * width + c];
+      int64_t v = u0 + 1;
+      for (; v + kCarries <= u1 + 1; v += kCarries) {
+        A x[kCarries];
+#pragma unroll
+        for (int j = 0; j < kCarries; ++j) {
+          x[j] = carry[2 * (v + j) * width + c];
+        }
+#pragma unroll
+        for (int j = 0; j < kCarries; ++j) s += x[j];
+      }
+      for (; v <= u1; ++v) s += carry[2 * v * width + c];
     }
-    out[row * width + c] = narrow<T>(s);
+    out[o] = narrow<T>(bc + st.alpha * s);
   }
 }
 
 template <typename T>
-int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
-           const int32_t* relrow, const T* vals, const int32_t* xblk,
-           const int32_t* lane, const T* B, T* out,
-           typename Pair<T>::Acc* carry,
-           int64_t n_units, int64_t n_rows, int64_t ldb, int64_t k0,
-           int64_t width, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (width > 0 && n_units > 0) {
-    dim3 grid(static_cast<unsigned int>((n_units + kWarps - 1) / kWarps),
-              static_cast<unsigned int>((width + kSlab - 1) / kSlab));
-    // 4-byte (bf16) / 8-byte (f32) / 16-byte (f64) column pairs need an
-    // even offset
-    const bool vec = ldb % 2 == 0 && k0 % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(B) % (2 * sizeof(T)) == 0;
-    if (vec) {
-      unit_reduce_kernel<T, true><<<grid, kWarps * 32, 0, s>>>(
-          units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0, width,
-          out, carry);
-    } else {
-      unit_reduce_kernel<T, false><<<grid, kWarps * 32, 0, s>>>(
-          units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0, width,
-          out, carry);
-    }
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-  }
+Store<T> make_store(const T* C, T* out, int64_t ldo, int64_t m,
+                    double alpha, double beta) {
+  using A = typename sblas::Acc<T>::type;
+  return Store<T>{C, out, ldo, m, static_cast<A>(alpha),
+                  static_cast<A>(beta)};
+}
+
+template <typename T>
+int combine(const int32_t* rows, int64_t n_rows,
+            const typename sblas::Acc<T>::type* carry, int64_t width,
+            Store<T> st, cudaStream_t s) {
   if (width > 0 && n_rows > 0) {
     const unsigned int blocks =
         static_cast<unsigned int>((n_rows + kWarps - 1) / kWarps);
     carry_combine_kernel<T><<<blocks, kWarps * 32, 0, s>>>(
-        rows, n_rows, carry, width, out);
+        rows, n_rows, carry, width, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+dim3 unit_grid(int64_t n_units, int units_per_block, int64_t width) {
+  return dim3(static_cast<unsigned int>((n_units + units_per_block - 1) /
+                                        units_per_block),
+              static_cast<unsigned int>((width + kSlab - 1) / kSlab));
+}
+
+// The two-column loop (f32, f64, bf16_ragged), then the carry combine.
+template <typename T>
+int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
+           const int32_t* relrow, const T* vals, const int32_t* xblk,
+           const int32_t* lane, const T* B, Store<T> st,
+           typename Pair<T>::Acc* carry, int64_t n_units, int64_t n_rows,
+           int64_t ldb, int64_t k0, int64_t width, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (width > 0 && n_units > 0) {
+    const dim3 grid = unit_grid(n_units, kWarps, width);
+    // 4-byte (bf16) / 8-byte (f32) / 16-byte (f64) column pairs need an
+    // even offset
+    auto even = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0;
+    };
+    const bool fused = st.C != nullptr;
+    const bool vec = ldb % 2 == 0 && k0 % 2 == 0 && even(B) &&
+                     (!fused || (st.ldo % 2 == 0 && even(st.C) &&
+                                 even(st.out)));
+    auto go = [&](auto kernel) {
+      kernel<<<grid, kWarps * 32, 0, s>>>(units, n_units, wb, relrow, vals,
+                                          xblk, lane, B, ldb, k0, width, st,
+                                          carry);
+    };
+    if (fused) {
+      vec ? go(unit_reduce_kernel<T, true, true>)
+          : go(unit_reduce_kernel<T, false, true>);
+    } else {
+      vec ? go(unit_reduce_kernel<T, true, false>)
+          : go(unit_reduce_kernel<T, false, false>);
+    }
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  return combine<T>(rows, n_rows, carry, width, st, s);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -249,41 +524,79 @@ int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
 extern "C" {
 
 // units (n_units, 2), rows (n_rows, 3) from k3_tables; wb (T,); relrow,
-// vals, xblk, lane (T * 512,); B (n, ldb) with columns k0 .. k0 + width - 1
-// read; out (nb * 128, width); carry (n_units, 2, width) scratch, in the
-// summing type (f32 for bf16); all contiguous on the device of `stream`.
-// Two launches on `stream`.
+// vals, xblk, lane (T * 512,); B (n, ldb) with columns k0 .. k0 + width
+// - 1 read; carry (n_units, 2, width) scratch, in the summing type (f32
+// for bf16).  C == NULL: the grid form, out (m = nb * 128, ldo = width).
+// Otherwise the fused form: C and out point at column k0 of (m, ldo)
+// matrices and out = beta * C + alpha * sum on those columns.  All
+// contiguous on the device of `stream`.  Two launches on `stream`.
 int sblas_window_reduce_f32(const int32_t* units, const int32_t* rows,
                             const int32_t* wb, const int32_t* relrow,
                             const float* vals, const int32_t* xblk,
-                            const int32_t* lane, const float* B, float* out,
-                            float* carry, int64_t n_units, int64_t n_rows,
-                            int64_t ldb, int64_t k0, int64_t width,
+                            const int32_t* lane, const float* B,
+                            const float* C, float* out, float* carry,
+                            int64_t n_units, int64_t n_rows, int64_t ldb,
+                            int64_t k0, int64_t width, int64_t ldo,
+                            int64_t m, double alpha, double beta,
                             void* stream) {
-  return launch<float>(units, rows, wb, relrow, vals, xblk, lane, B, out,
-                       carry, n_units, n_rows, ldb, k0, width, stream);
+  return launch<float>(units, rows, wb, relrow, vals, xblk, lane, B,
+                       make_store(C, out, ldo, m, alpha, beta), carry,
+                       n_units, n_rows, ldb, k0, width, stream);
 }
 
 int sblas_window_reduce_f64(const int32_t* units, const int32_t* rows,
                             const int32_t* wb, const int32_t* relrow,
                             const double* vals, const int32_t* xblk,
                             const int32_t* lane, const double* B,
-                            double* out, double* carry, int64_t n_units,
-                            int64_t n_rows, int64_t ldb, int64_t k0,
-                            int64_t width, void* stream) {
-  return launch<double>(units, rows, wb, relrow, vals, xblk, lane, B, out,
-                        carry, n_units, n_rows, ldb, k0, width, stream);
+                            const double* C, double* out, double* carry,
+                            int64_t n_units, int64_t n_rows, int64_t ldb,
+                            int64_t k0, int64_t width, int64_t ldo,
+                            int64_t m, double alpha, double beta,
+                            void* stream) {
+  return launch<double>(units, rows, wb, relrow, vals, xblk, lane, B,
+                        make_store(C, out, ldo, m, alpha, beta), carry,
+                        n_units, n_rows, ldb, k0, width, stream);
 }
 
+// bf16 on sub-warp rows: needs ldb, k0, width and ldo multiples of 8 and
+// B, C and out on 16 bytes (cudaErrorInvalidValue otherwise).
 int sblas_window_reduce_bf16(const int32_t* units, const int32_t* rows,
                              const int32_t* wb, const int32_t* relrow,
                              const __nv_bfloat16* vals, const int32_t* xblk,
                              const int32_t* lane, const __nv_bfloat16* B,
-                             __nv_bfloat16* out, float* carry,
-                             int64_t n_units, int64_t n_rows, int64_t ldb,
-                             int64_t k0, int64_t width, void* stream) {
+                             const __nv_bfloat16* C, __nv_bfloat16* out,
+                             float* carry, int64_t n_units, int64_t n_rows,
+                             int64_t ldb, int64_t k0, int64_t width,
+                             int64_t ldo, int64_t m, double alpha,
+                             double beta, void* stream) {
+  if (ldb % 8 || k0 % 8 || width % 8 || ldo % 8 || !aligned16(B) ||
+      !aligned16(out) || (C != nullptr && !aligned16(C))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  const Store<__nv_bfloat16> st = make_store(C, out, ldo, m, alpha, beta);
+  if (width > 0 && n_units > 0) {
+    unit_reduce_bf16x8_kernel<<<unit_grid(n_units, kWarps * kGroups, width),
+                                kWarps * 32, 0, s>>>(
+        units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0, width, st,
+        carry);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  return combine<__nv_bfloat16>(rows, n_rows, carry, width, st, s);
+}
+
+// bf16 for any stride, offset and alignment: the two-column loop.
+int sblas_window_reduce_bf16_ragged(
+    const int32_t* units, const int32_t* rows, const int32_t* wb,
+    const int32_t* relrow, const __nv_bfloat16* vals, const int32_t* xblk,
+    const int32_t* lane, const __nv_bfloat16* B, const __nv_bfloat16* C,
+    __nv_bfloat16* out, float* carry, int64_t n_units, int64_t n_rows,
+    int64_t ldb, int64_t k0, int64_t width, int64_t ldo, int64_t m,
+    double alpha, double beta, void* stream) {
   return launch<__nv_bfloat16>(units, rows, wb, relrow, vals, xblk, lane, B,
-                               out, carry, n_units, n_rows, ldb, k0, width,
+                               make_store(C, out, ldo, m, alpha, beta),
+                               carry, n_units, n_rows, ldb, k0, width,
                                stream);
 }
 

@@ -13,11 +13,13 @@ reduces).  The H100 gathers and scatters directly, so:
 
 * SpMV: `vals * x[col]`, then `index_add_` on the absolute row ids;
 * SpMM: kernel K3 (`window_reduce`, csrc/wcoo_kernels.cu) gathers the B
-  rows and reduces them, one call per column chunk with the JAX package's
-  chunk width, so the call count is its chunk count.
+  rows, reduces them and writes `beta*C + alpha*A@B` into the result's
+  columns itself, one call per column chunk with the JAX package's chunk
+  width, so the call count is its chunk count.
 
 K3 balances its work by entries, not rows: the real slots (row-sorted in
-CSR order) are cut into units of at most `UNIT` slots, one warp each,
+CSR order) are cut into units of at most `UNIT` slots, one warp each
+(bf16 plans: `UNIT_BF16`, a quarter warp each in K3's `bf16` variant),
 and rows that cross a unit boundary are summed from per-unit carries in
 a second pass.  Its tables, `k3_units` and `k3_rows` (`k3_tables`), are
 port-only plan fields, built once with the plan and derived from the
@@ -26,7 +28,8 @@ cache file.  `visit0`/`visit1` stay for parity of the arrays, though no
 kernel here needs them.
 
 bf16 plans: K3 reads bf16 values and B rows, sums each unit's rows and
-carries in f32 and rounds each output element once; its plain version
+carries in f32, computes the epilogue in f32 and rounds each output
+element once; its plain version
 sums in f32 and rounds once too (the JAX kernel accumulated across tiles
 in its bf16 output block, so both are at least as accurate as it).
 """
@@ -42,12 +45,13 @@ import torch
 from .. import _kernels
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..utils.errors import KernelError, PlanError, require
+from ..utils.errors import KernelError, PlanError, ShapeError, require
 from .plans import Plan, _round_up, host_value_dtype, sum_dtype
 
 TILE = 512          # nnz per tile
 WINDOW = 256        # row-window depth (two 128 blocks)
 UNIT = 128          # K3 work unit: at most this many slots, one warp
+UNIT_BF16 = 64      # bf16 plans' units: 8 lanes each in K3's `bf16` variant
 _LEFT, _RIGHT = 1 << 16, 1 << 17   # k3_units[:, 1] flags above the length
 
 # Transient budget of spmm_wcoo in elements, and the widest K-chunk: kept
@@ -101,20 +105,22 @@ class WcooPlan(Plan):
     PORT_FIELDS = ("k3_units", "k3_rows")
 
     @staticmethod
-    def port_fields(fields: dict, meta: dict) -> dict:
+    def port_fields(fields: dict, meta: dict, unit: int = UNIT) -> dict:
         """The port-only fields, from the plan's host arrays (`fields`) and
-        `n_row_blocks` (in `meta`)."""
+        `n_row_blocks` (in `meta`), at `unit`-slot units."""
         return k3_tables(*(np.asarray(fields[k]) for k in
                            ("wb", "relrow", "vals", "xblk", "lane")),
-                         int(meta["n_row_blocks"]))
+                         int(meta["n_row_blocks"]), unit=unit)
 
     @classmethod
     def from_numpy(cls, fields: dict, meta: dict, device,
                    dtype=None) -> "WcooPlan":
         """As `Plan.from_numpy`; the port-only fields are derived when the
-        fields (e.g. the JAX package's plan) lack them."""
+        fields (e.g. the JAX package's plan) lack them, at the units of
+        the plan's value type (`k3_unit`)."""
         if any(k not in fields for k in cls.PORT_FIELDS):
-            fields = dict(cls.port_fields(fields, meta), **fields)
+            fields = dict(cls.port_fields(fields, meta, k3_unit(dtype)),
+                          **fields)
         return super().from_numpy(fields, meta, device, dtype=dtype)
 
     @classmethod
@@ -129,6 +135,14 @@ class WcooPlan(Plan):
         arr["vals"] = arr["vals"].astype(np_val)
         return cls.from_numpy(arr, dict(meta, shape=A.shape, nnz=A.nnz),
                               device, dtype=dtype)
+
+
+def k3_unit(dtype) -> int:
+    """K3's unit size for a plan of `dtype`: `UNIT_BF16` for bf16, whose
+    `bf16` variant walks a unit with 8 lanes, four units a warp (64-slot
+    units measured faster than 32 or 128 at webbase x K=64: more units
+    than one wave of the card, fewer carries than 32), else `UNIT`."""
+    return UNIT_BF16 if dtype == torch.bfloat16 else UNIT
 
 
 class K3Schedule(NamedTuple):
@@ -350,34 +364,61 @@ def spmv_wcoo(plan: WcooPlan, x: torch.Tensor, alpha, beta,
 # ---------------------------------------------------------------------------
 
 def window_reduce_plain(k3: K3Schedule, wb, relrow, vals, xblk, lane, B,
-                        k0: int, width: int) -> torch.Tensor:
-    """Plain PyTorch K3: (nb*128, width) rows of A @ B[:, k0:k0+width]
-    on the plan's padded row grid, nb = `k3.n_row_blocks`: every slot adds
-    vals * B[xblk*128 + lane, k0:k0+width] into row wb*128 + relrow.  bf16
-    sums in f32 and rounds once."""
+                        k0: int, width: int, *, C=None, alpha=1.0, beta=0.0,
+                        out=None) -> torch.Tensor:
+    """Plain PyTorch K3.  Every slot adds vals * B[xblk*128 + lane,
+    k0:k0+width] into row wb*128 + relrow of the plan's padded row grid
+    (nb*128 rows, nb = `k3.n_row_blocks`); bf16 sums in f32.
+
+    With `C=None` it returns that grid, (nb*128, width).  With C (m, K),
+    m <= nb*128, it writes out[:, k0:k0+width] = beta*C[:, k0:k0+width] +
+    alpha*sum[:m], the epilogue computed in the summing type and rounded
+    once, into `out` (default `torch.empty_like(C)`, its other columns
+    left as they are) and returns `out`."""
     acc = sum_dtype(vals.dtype)
     cols = xblk.long() * 128 + lane
     contrib = vals.to(acc)[:, None] * torch.index_select(
         B[:, k0:k0 + width], 0, cols).to(acc)
-    return torch.zeros((k3.n_row_blocks * 128, width), dtype=acc,
-                       device=vals.device).index_add_(
-                           0, _row_ids(wb, relrow), contrib).to(vals.dtype)
+    ab = torch.zeros((k3.n_row_blocks * 128, width), dtype=acc,
+                     device=vals.device).index_add_(
+                         0, _row_ids(wb, relrow), contrib)
+    if C is None:
+        return ab.to(vals.dtype)
+    out = torch.empty_like(C) if out is None else out
+    out[:, k0:k0 + width] = (beta * C[:, k0:k0 + width].to(acc)
+                             + alpha * ab[:C.shape[0]]).to(out.dtype)
+    return out
+
+
+def bf16_variant(B, k0: int, width: int, C=None, out=None) -> str:
+    """K3[bf16]'s variant: `bf16` (8 columns, one 16-byte load, a lane)
+    when B's row stride, k0 and width are multiples of 8 and B, C and out
+    start on 16 bytes, else `bf16_ragged` (the two-column loop)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (B, C, out)
+                  if t is not None)
+    wide = B.shape[1] % 8 == 0 and k0 % 8 == 0 and width % 8 == 0
+    return "bf16" if wide and aligned else "bf16_ragged"
 
 
 def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
-                  width: int) -> torch.Tensor:
-    """Windowed reduce (see `window_reduce_plain`).  CPU tensors take the
-    plain version; CUDA tensors launch kernel K3 (two device launches:
-    the units, then the carry combine) or raise."""
+                  width: int, *, C=None, alpha=1.0, beta=0.0,
+                  out=None) -> torch.Tensor:
+    """Windowed reduce, in the grid or the fused form (see
+    `window_reduce_plain`).  CPU tensors take the plain version; CUDA
+    tensors launch kernel K3 (two device launches: the units, then the
+    carry combine) or raise.  bf16 takes the variant `bf16_variant`
+    names."""
     if vals.device.type == "cpu":
         return window_reduce_plain(k3, wb, relrow, vals, xblk, lane, B,
-                                   k0, width)
+                                   k0, width, C=C, alpha=alpha, beta=beta,
+                                   out=out)
     dev = vals.device
     require(dev.type == "cuda", KernelError,
             f"window_reduce runs on cpu or cuda, not {dev}")
-    fn = _kernels.launcher("window_reduce", _kernels.value_suffix(vals.dtype))
+    variant = _kernels.value_suffix(vals.dtype)
     T = wb.shape[0]
     U, R = k3.units.shape[0], k3.rows.shape[0]
+    grid = k3.n_row_blocks * 128
     require(B.dim() == 2 and 0 <= k0 and k0 + width <= B.shape[1],
             KernelError, f"columns {k0}:{k0 + width} out of B "
             f"{tuple(B.shape)}")
@@ -389,12 +430,26 @@ def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
     _kernels.check_operand(xblk, "xblk", torch.int32, (T * TILE,), dev)
     _kernels.check_operand(lane, "lane", torch.int32, (T * TILE,), dev)
     _kernels.check_operand(B, "B", vals.dtype, tuple(B.shape), dev)
-    out = torch.empty((k3.n_row_blocks * 128, width), dtype=vals.dtype,
-                      device=dev)
+    if C is None:
+        require(out is None, KernelError, "out is written only with C")
+        out = torch.empty((grid, width), dtype=vals.dtype, device=dev)
+        m, ldo, c_at, out_at = grid, width, None, out
+    else:
+        m, ldo = C.shape[0], B.shape[1]
+        require(m <= grid, KernelError, f"C has {m} rows, the plan's grid "
+                f"{grid}")
+        _kernels.check_operand(C, "C", vals.dtype, (m, ldo), dev)
+        out = torch.empty_like(C) if out is None else out
+        _kernels.check_operand(out, "out", vals.dtype, (m, ldo), dev)
+        c_at, out_at = C[:, k0:], out[:, k0:]
+    if variant == "bf16":
+        variant = bf16_variant(B, k0, width, C, out)
     carry = torch.empty((U, 2, width), dtype=sum_dtype(vals.dtype),
                         device=dev)
-    _kernels.launch(fn, dev, k3.units, k3.rows, wb, relrow, vals, xblk, lane,
-                    B, out, carry, U, R, B.shape[1], k0, width)
+    _kernels.launch(_kernels.launcher("window_reduce", variant), dev,
+                    k3.units, k3.rows, wb, relrow, vals, xblk, lane, B,
+                    c_at, out_at, carry, U, R, B.shape[1], k0, width, ldo, m,
+                    float(alpha), float(beta))
     window_reduce.launches += 1
     return out
 
@@ -409,21 +464,22 @@ def k_chunk_width(n_tiles: int, k: int) -> int:
                    _K_BUDGET_ELEMS // max(n_tiles * TILE, 1)), 1)
 
 
-def _window_reduce_range(plan: WcooPlan, B: torch.Tensor, k0: int,
-                         k1: int) -> torch.Tensor:
-    """One K-chunk: (n_row_blocks*128, k1-k0) rows of A @ B[:, k0:k1]."""
-    return window_reduce(plan.k3, plan.wb, plan.relrow, plan.vals,
-                         plan.xblk, plan.lane, B, k0, k1 - k0)
-
-
 def spmm_wcoo(plan: WcooPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
               k_chunk: int = None) -> torch.Tensor:
-    """C' = beta*C + alpha*A@B: one K3 launch per K-chunk of width
-    `k_chunk` (default: the JAX package's choice)."""
-    m, k = plan.shape[0], B.shape[1]
-    B = B.to(plan.dtype).contiguous()
+    """C' = beta*C + alpha*A@B: one K3 call per K-chunk of width `k_chunk`
+    (default: the JAX package's choice), each writing its chunk's columns
+    of the result, epilogue included.  B and C are taken in the plan's
+    dtype; the result has the dtype `beta*C + alpha*(A@B)` would have."""
+    k, dt = B.shape[1], plan.dtype
+    require(tuple(C.shape) == (plan.shape[0], k), ShapeError,
+            f"C has shape {tuple(C.shape)}, expected "
+            f"{(plan.shape[0], k)}")
+    B = B.to(dt).contiguous()
+    Cd = C.to(dt).contiguous()
+    out = torch.empty_like(Cd)
     kc = k_chunk or k_chunk_width(plan.n_tiles, k)
-    outs = [_window_reduce_range(plan, B, k0, min(k0 + kc, k))[:m]
-            for k0 in range(0, max(k, 1), kc)]
-    ab = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return beta * C + alpha * ab
+    for k0 in range(0, k, kc):
+        window_reduce(plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+                      plan.lane, B, k0, min(kc, k - k0), C=Cd, alpha=alpha,
+                      beta=beta, out=out)
+    return out.to(torch.promote_types(C.dtype, dt))

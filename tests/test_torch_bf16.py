@@ -376,6 +376,42 @@ def test_k3_bf16_plain_vs_jax_kernel(name):
         want.astype(np.float32), exact)
 
 
+@pytest.mark.parametrize("name,k,k_chunk", [("web", 12, None),
+                                            ("web", 12, 5),
+                                            ("one_window", 8, None)])
+def test_k3_bf16_fused_plain_vs_jax_spmm(name, k, k_chunk):
+    """The WCOO SpMM on a bf16 plan through K3's fused plain version: the
+    sum and the epilogue in f32, one rounding, so within one bf16 ulp of
+    the exact beta*C + alpha*A@B rounded to bf16, and no further from it
+    than the JAX package's spmm_wcoo (a bf16 block per tile run, then a
+    bf16 epilogue)."""
+    if name == "web":
+        A = jgen.webbase_like(n=2000, avg_deg=3.0)
+    else:
+        rng = np.random.RandomState(3)
+        rows = rng.randint(0, 128, size=5000).astype(np.int64)
+        cols = rng.randint(0, 2048, size=5000).astype(np.int64)
+        from sblas_tpu.containers import CooMatrix
+        A = CooMatrix(rows, cols, rng.random_sample(5000),
+                      (256, 2048)).to_csr()
+    jp = jw.WcooPlan.from_csr(A, dtype=jnp.bfloat16)
+    tp = tw.WcooPlan.from_csr(_port(A), dtype=BF16, device="cpu")
+    rng = np.random.RandomState(k)
+    B32 = rng.random_sample((A.width, k)).astype(np.float32)
+    C32 = rng.random_sample((A.height, k)).astype(np.float32)
+    Bt, Ct = torch.from_numpy(B32).to(BF16), torch.from_numpy(C32).to(BF16)
+    want = np.asarray(jw.spmm_wcoo(
+        jp, jnp.asarray(B32, jnp.bfloat16), 3.0, 4.0,
+        jnp.asarray(C32, jnp.bfloat16), k_chunk=k_chunk)).astype(np.float32)
+    got = tw.spmm_wcoo(tp, Bt, 3.0, 4.0, Ct, k_chunk=k_chunk)
+    assert got.dtype == BF16 and got.shape == (A.height, k)
+    exact = tw.window_reduce_plain(
+        tp.k3, tp.wb, tp.relrow, tp.vals.double(), tp.xblk, tp.lane,
+        Bt.double(), 0, k, C=Ct.double(), alpha=3.0, beta=4.0).numpy()
+    assert _bf16_ulps(got, exact).max() <= 1
+    assert _err(got.float().numpy(), exact) <= _err(want, exact)
+
+
 @pytest.mark.parametrize("k", [8, 256])
 def test_k4_bf16_plain_vs_jax_kernel(k):
     """K4's plain version folds alpha/beta in f32 and rounds once: within

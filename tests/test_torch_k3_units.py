@@ -12,6 +12,7 @@ that continues into the next unit in carry 1; the second pass writes
 every `k3_rows` entry.  f64 agrees with the plain version's `index_add_`
 to 1e-12 (another summation order); f32 to 1e-6 normwise."""
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -132,6 +133,25 @@ def test_k3_tables_at_each_unit_size(unit):
     _assert_tables(plan, unit)
     assert plan.k3_units.shape[0] == sum(-(-c // unit) for c in (
         np.count_nonzero(plan.vals.numpy().reshape(-1, tw.TILE), axis=1)))
+
+
+@pytest.mark.parametrize("dtype,unit", [(torch.float64, 128),
+                                        (torch.float32, 128),
+                                        (torch.bfloat16, 64)])
+def test_plan_tables_at_their_value_types_unit(dtype, unit):
+    """A plan's K3 tables are cut at `k3_unit` of its value type: 64
+    slots for bf16 (the `bf16` variant walks a unit with 8 lanes), 128
+    else; the same tables `k3_tables` gives at that unit."""
+    A = _csr([200, 3, 65, 64, 1, 130, 0, 7])
+    plan = tw.WcooPlan.from_csr(_port(A), dtype=dtype, device="cpu")
+    assert tw.k3_unit(dtype) == unit
+    tabs = tw.k3_tables(*(getattr(plan, k).float().numpy() if k == "vals"
+                          else getattr(plan, k).numpy() for k in
+                          ("wb", "relrow", "vals", "xblk", "lane")),
+                        plan.n_row_blocks, unit=unit)
+    assert np.array_equal(plan.k3_units.numpy(), tabs["k3_units"])
+    assert np.array_equal(plan.k3_rows.numpy(), tabs["k3_rows"])
+    _assert_tables(dataclasses.replace(plan, vals=plan.vals.double()), unit)
 
 
 def test_k3_tables_of_an_empty_matrix():

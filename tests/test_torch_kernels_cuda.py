@@ -861,6 +861,217 @@ def test_window_reduce_bf16_kernel_within_one_ulp(dev, case, k0, width):
     assert int(_ulps(got, tw.window_reduce_plain(*args)).max()) <= 1
 
 
+# ---- K3's fused store path (beta*C + alpha*sum on rows below m) and its
+# two bf16 variants ----
+
+_K3_CASES = [("web20k", 0, 64), ("web3k", 13, 31), ("web3k", 8, 32),
+             ("web200k", 0, 64), ("web20k", 13, 1), ("web20k", 8, 8),
+             ("web20k", 13, 65), ("web20k", 16, 64), ("long_row", 0, 64),
+             ("long_row", 13, 65), ("min_tiles", 13, 64),
+             ("min_tiles", 2, 78), ("min_tiles", 0, 80)]
+
+
+def _k3_fused(plan, k, k0, width, dtype, seed, alpha=3.0, beta=4.0):
+    """K3 in the fused form twice, on one chunk of random B, C of `k`
+    columns, into `out` views of buffers that hold 7 guard rows after
+    row m and a sentinel everywhere: the two buffers, the plain version's
+    result on a third, and the launches by variant."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    dev = plan.vals.device
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = torch.rand((n, k), generator=g, device=dev).to(dtype)
+    C = torch.rand((m, k), generator=g, device=dev).to(dtype)
+    bufs = [torch.full((m + 7, k), -7.0, device=dev, dtype=dtype)
+            for _ in range(3)]
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane,
+            B, k0, width)
+    _kernels.LAUNCHED.clear()
+    before = tw.window_reduce.launches
+    for buf in bufs[:2]:
+        got = tw.window_reduce(*args, C=C, alpha=alpha, beta=beta,
+                               out=buf[:m])
+        assert got.data_ptr() == buf.data_ptr()
+    torch.cuda.synchronize()
+    assert tw.window_reduce.launches == before + 2
+    launched = {k[len("sblas_window_reduce_"):]: v
+                for k, v in _kernels.LAUNCHED.items()}
+    tw.window_reduce_plain(*args, C=C, alpha=alpha, beta=beta,
+                           out=bufs[2][:m])
+    return bufs, launched
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case,k0,width", _K3_CASES)
+def test_window_reduce_fused_matches_plain(dev, dtype, case, k0, width):
+    """f32 and f64: out[:, k0:k0+width] = beta*C + alpha*sum for the rows
+    below m, at 1e-5 (f32) or 1e-12 (f64) of the plain version; the other
+    columns and the guard rows after m are never written; two launches
+    agree bitwise."""
+    plan, k = _k3_case(dev, dtype, case)
+    (got, again, want), launched = _k3_fused(plan, k, k0, width, dtype,
+                                             seed=k0 + width)
+    assert launched == {"f32" if dtype == torch.float32 else "f64": 2}
+    assert torch.equal(got, again)
+    outside = torch.ones_like(got, dtype=torch.bool)
+    outside[:plan.shape[0], k0:k0 + width] = False
+    assert bool((got[outside] == -7.0).all())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("form", ["grid", "fused"])
+@pytest.mark.parametrize("case,k0,width", _K3_CASES)
+def test_window_reduce_bf16_variants_within_one_ulp(dev, case, k0, width,
+                                                    form):
+    """bf16 takes `bf16` (16-byte loads on 8-lane groups) where B's
+    stride, k0 and width are multiples of 8, else `bf16_ragged`; either
+    stays within one bf16 ulp of the plain version in both store forms,
+    and two launches agree bitwise."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, k = _k3_case(dev, BF16, case)
+    variant = ("bf16" if k % 8 == 0 and k0 % 8 == 0 and width % 8 == 0
+               else "bf16_ragged")
+    if form == "fused":
+        (got, again, want), launched = _k3_fused(plan, k, k0, width, BF16,
+                                                 seed=k0 + width)
+    else:
+        g = torch.Generator(device=dev).manual_seed(k0 + width)
+        B = torch.rand((plan.shape[1], k), generator=g, device=dev).to(BF16)
+        args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+                plan.lane, B, k0, width)
+        _kernels.LAUNCHED.clear()
+        got, again = tw.window_reduce(*args), tw.window_reduce(*args)
+        torch.cuda.synchronize()
+        launched = {k[len("sblas_window_reduce_"):]: v
+                    for k, v in _kernels.LAUNCHED.items()}
+        want = tw.window_reduce_plain(*args)
+    assert launched == {variant: 2}
+    assert got.dtype == BF16 and torch.equal(got, again)
+    assert int(_ulps(got, want).max()) <= 1
+
+
+def test_window_reduce_bf16_unaligned_operand_takes_ragged(dev):
+    """A B, C or out starting 2 bytes past 16 takes `bf16_ragged`; the
+    `bf16` launcher itself refuses such operands."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, k = _k3_case(dev, BF16, "web3k")
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    B = torch.rand(1 + n * 64, generator=g, device=dev).to(BF16)
+    B = B[1:].view(n, 64)
+    C = torch.rand((m, 64), generator=g, device=dev).to(BF16)
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane,
+            B, 0, 64)
+    assert tw.bf16_variant(B, 0, 64, C) == "bf16_ragged"
+    _kernels.LAUNCHED.clear()
+    got = tw.window_reduce(*args, C=C, alpha=3.0, beta=4.0)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_window_reduce_bf16_ragged": 1}
+    want = tw.window_reduce_plain(*args, C=C, alpha=3.0, beta=4.0)
+    assert int(_ulps(got, want).max()) <= 1
+    out = torch.empty((m, 64), device=dev, dtype=BF16)
+    carry = torch.empty((plan.k3_units.shape[0], 2, 64), device=dev)
+    with pytest.raises(KernelError):
+        _kernels.launch("sblas_window_reduce_bf16", dev, plan.k3_units,
+                        plan.k3_rows, plan.wb, plan.relrow, plan.vals,
+                        plan.xblk, plan.lane, B, C, out, carry,
+                        plan.k3_units.shape[0], plan.k3_rows.shape[0], 64,
+                        0, 64, 64, m, 3.0, 4.0)
+
+
+def test_window_reduce_fused_refuses_bad_c_and_out(dev):
+    from sblas_tpu_torch.ops import wcoo as tw
+    _, plan = _wcoo_plan(dev, torch.float32, n=3000)
+    m, n = plan.shape
+    B = torch.rand((n, 8), device=dev)
+    C = torch.rand((m, 8), device=dev)
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane,
+            B, 0, 8)
+    for bad in (dict(C=C.double()), dict(C=C[:, :4]), dict(C=C.cpu()),
+                dict(C=torch.rand((8, m), device=dev).t()),
+                dict(C=torch.rand((plan.n_row_blocks * 128 + 1, 8),
+                                  device=dev)),
+                dict(C=C, out=torch.empty((m, 8), device=dev).double()),
+                dict(C=C, out=torch.empty((m - 1, 8), device=dev)),
+                dict(out=torch.empty((m, 8), device=dev))):
+        with pytest.raises((KernelError, ShapeError)):
+            tw.window_reduce(*args, **bad)
+
+
+def _aten_ops(fn):
+    """fn()'s result and the ATen ops it dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return out, ops
+
+
+@pytest.mark.parametrize("dtype,k,k_chunk", [
+    (torch.float32, 80, 32), (torch.float64, 64, None), (BF16, 64, None),
+    (BF16, 80, 24), (BF16, 40, 13)])
+def test_spmm_wcoo_is_k3_alone(dev, dtype, k, k_chunk):
+    """The WCOO SpMM on the card is K3's calls, one per K-chunk, all
+    writing one result: no slice copy, concatenation or elementwise
+    epilogue runs (only allocations and views are dispatched beside
+    K3), and the result matches the CPU plan's at 1e-5 / 1e-12 / one
+    bf16 ulp."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, dtype, "web20k")
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(k)
+    B = torch.rand((n, k), generator=g, device=dev).to(dtype)
+    C = torch.rand((m, k), generator=g, device=dev).to(dtype)
+    kc = k_chunk or tw.k_chunk_width(plan.n_tiles, k)
+    _kernels.LAUNCHED.clear()
+    tw.window_reduce.launches = 0
+    got, ops = _aten_ops(lambda: tw.spmm_wcoo(plan, B, 3.0, 4.0, C,
+                                              k_chunk=k_chunk))
+    torch.cuda.synchronize()
+    assert tw.window_reduce.launches == -(-k // kc)
+    assert sum(_kernels.LAUNCHED.values()) == -(-k // kc)
+    assert all(name.startswith("sblas_window_reduce_")
+               for name in _kernels.LAUNCHED)
+    assert set(ops) <= {"empty", "empty_like", "empty_strided", "slice",
+                        "alias", "view", "promote_types"}, ops
+    assert got.dtype == dtype and got.shape == (m, k)
+    want = tw.spmm_wcoo(plan.to("cpu"), B.cpu(), 3.0, 4.0, C.cpu(),
+                        k_chunk=k_chunk)
+    if dtype == BF16:
+        assert int(_ulps(got.cpu(), want).max()) <= 1
+    else:
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+def test_spmm_wcoo_keeps_the_promoted_dtype_on_card(dev):
+    """C in another dtype than the plan's: K3 runs in the plan's, and the
+    result has the dtype `beta*C + alpha*(A@B)` has."""
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, BF16, "web3k")
+    m, n = plan.shape
+    B = torch.rand((n, 16), device=dev)
+    C = torch.rand((m, 16), device=dev)
+    tw.window_reduce.launches = 0
+    got = tw.spmm_wcoo(plan, B, 3.0, 4.0, C)
+    assert tw.window_reduce.launches == 1
+    assert got.dtype == torch.float32
+    want = tw.spmm_wcoo(plan.to("cpu"), B.cpu(), 3.0, 4.0, C.cpu())
+    assert want.dtype == torch.float32
+    assert int(_ulps(got.cpu().to(BF16), want.to(BF16)).max()) <= 1
+
+
 def _k4_bf16_call(plan, k, seed, alpha=3.0, beta=4.0, offset=0):
     """K4[bf16] twice on `plan` with random B, C of `k` columns (B
     starting `offset` elements into its storage): the two results, the

@@ -191,3 +191,100 @@ def test_empty_matrix():
     out = tw.spmm_wcoo(plan, torch.ones((10, 3), dtype=torch.float64), 3.0,
                        4.0, torch.full((10, 3), 2.0, dtype=torch.float64))
     np.testing.assert_allclose(out.numpy(), 8.0)
+
+
+@pytest.mark.parametrize("name,k,k_chunk,min_tiles", [
+    ("web", 10, 4, 0),
+    ("skew", 8, None, 0),
+    ("one_window", 16, None, 0),
+    ("uniform", 8, None, 7),
+])
+def test_spmm_wcoo_beta_zero_matches_jax(name, k, k_chunk, min_tiles):
+    """beta = 0 through K3's fused plain version: alpha*A@B, f64, against
+    the JAX package's spmm_wcoo at 1e-12."""
+    A = _matrix(name)
+    extra = jw.wcoo_tile_count(A) + min_tiles if min_tiles else 0
+    jp, tp = _plans(name, extra)
+    B = JDenseMatrix.random(A.width, k)
+    C = JDenseMatrix.random(A.height, k)
+    want = np.asarray(jw.spmm_wcoo(jp, jnp.asarray(B.values), ALPHA, 0.0,
+                                   jnp.asarray(C.values), k_chunk=k_chunk))
+    got = tw.spmm_wcoo(tp, torch.from_numpy(B.values), ALPHA, 0.0,
+                       torch.from_numpy(C.values), k_chunk=k_chunk).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("k0,width", [(0, 12), (5, 4), (11, 1)])
+def test_k3_plain_fused_form_writes_its_chunk(k0, width):
+    """The fused form writes beta*C + alpha*(the grid form's rows below m)
+    into out's columns k0:k0+width and leaves out's other columns."""
+    A = _matrix("web")
+    _, tp = _plans("web")
+    rng = np.random.RandomState(k0)
+    B = torch.from_numpy(rng.rand(A.width, 12))
+    C = torch.from_numpy(rng.rand(A.height, 12))
+    args = (tp.k3, tp.wb, tp.relrow, tp.vals, tp.xblk, tp.lane, B, k0,
+            width)
+    grid = tw.window_reduce_plain(*args)
+    out = torch.full_like(C, -7.0)
+    got = tw.window_reduce(*args, C=C, alpha=ALPHA, beta=BETA, out=out)
+    assert got is out
+    want = torch.full_like(C, -7.0)
+    want[:, k0:k0 + width] = BETA * C[:, k0:k0 + width] + ALPHA * grid[
+        :A.height]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("plan_dtype,c_dtype,want_dtype", [
+    (torch.float32, torch.float64, torch.float64),
+    (torch.float64, torch.float32, torch.float64),
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+def test_spmm_wcoo_result_dtype_with_another_c_dtype(plan_dtype, c_dtype,
+                                                     want_dtype):
+    """K3 runs in the plan's dtype; the result has the dtype that
+    beta*C + alpha*(A@B) in the plan's dtype has, and meets the numpy
+    oracle at the plan's precision."""
+    A = _matrix("web")
+    plan = tw.WcooPlan.from_csr(_port(A), dtype=plan_dtype, device="cpu")
+    B = JDenseMatrix.random(A.width, 6)
+    C = JDenseMatrix.random(A.height, 6)
+    Ct = torch.from_numpy(C.values).to(c_dtype)
+    got = tw.spmm_wcoo(plan, torch.from_numpy(B.values), ALPHA, BETA, Ct)
+    assert got.dtype == want_dtype == (
+        BETA * Ct + ALPHA * torch.zeros(1, dtype=plan_dtype)).dtype
+    bar = 2e-2 if torch.bfloat16 in (plan_dtype, c_dtype) else 1e-5
+    assert check_equal(got.double().numpy(), spmm_cpu(A, B, ALPHA, BETA, C),
+                       error_bar=bar, relative=True).ok
+
+
+def test_bf16_variant_choices():
+    """`bf16` needs B's row stride, k0 and width in multiples of 8 and B,
+    C and out on 16 bytes; anything else takes `bf16_ragged`."""
+    bf = torch.bfloat16
+    B = torch.zeros((100, 64), dtype=bf)
+    C, out = torch.zeros((90, 64), dtype=bf), torch.zeros((90, 64), dtype=bf)
+    off = torch.zeros(1 + 100 * 64, dtype=bf)[1:].view(100, 64)
+    assert tw.bf16_variant(B, 0, 64) == "bf16"
+    assert tw.bf16_variant(B, 8, 56, C, out) == "bf16"
+    assert tw.bf16_variant(B, 16, 8, C) == "bf16"
+    for args in ((B, 13, 48), (B, 8, 31), (B, 0, 1),
+                 (torch.zeros((100, 65), dtype=bf), 0, 64),
+                 (off, 0, 64), (B, 0, 64, off[:90]),
+                 (B, 0, 64, C, off[:90])):
+        assert tw.bf16_variant(*args) == "bf16_ragged", args[1:3]
+
+
+def test_spmm_wcoo_refuses_a_c_of_another_shape():
+    """The fused SpMM writes C's own rows and columns: a C that is not
+    (m, K) is refused, not broadcast."""
+    from sblas_tpu_torch.utils.errors import ShapeError
+    _, tp = _plans("web")
+    m, n = tp.shape
+    B = torch.ones((n, 4), dtype=torch.float64)
+    for C in (torch.ones((1, 4), dtype=torch.float64),
+              torch.ones((m, 3), dtype=torch.float64)):
+        with pytest.raises(ShapeError):
+            tw.spmm_wcoo(tp, B, ALPHA, BETA, C)
