@@ -99,6 +99,18 @@ and the distribution layer in a world-1 NCCL group:
         WCOO SpMM (K3) at K=64 and 63, the shell DIA SpMM and SpMV, the
         band-73 BELL SpMM
         at K=256 and K=263 (K4, each variant once)
+    [bf16-dist] the distributed modes over containers with bf16 values,
+        world 1: mode 1 over the bf16 WcooPlan (K3 `bf16`) and over
+        band-73's bf16 BsrPlan at K=256 (`spmm_bsr`, no K4), mode 2 and
+        the distributed SpMV over bf16 COO segments (f32 partials), the
+        planned and xfoot SpMVs over bf16 routed shards (K1, K2' `bf16`),
+        mode 2 over bf16 WCOO shards (K3 `bf16`), the halo SpMM on the
+        shell; each at the bf16 bound, its launches by variant, the f32
+        path's device ms beside it
+    [um bf16] webbase-1M at 16 MiB in bf16 bands (sized by 2-byte values,
+        pinned as bf16): spmv_um and spmm_um (K3 `bf16` once a band),
+        streamed and tuned, bytes streamed beside f32's; the world-1 UM
+        modes over bf16 shards; spmm_um_hostdense on the shell in bf16
 
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
@@ -155,6 +167,9 @@ BF16_PLAN_TOL = 0.15
 # einsum): max |kernel - plain| / max(1, max |plain|) must stay below this
 F32_REL_TOL = 1e-5
 ORACLE_COLS = 64   # spmm_cpu column chunk: bounds its (nnz, cols) transient
+# device ms (and streamed bytes) of f32 paths, by path, printed beside
+# their bf16 counterparts in [bf16-dist] and [um bf16]
+F32_RECORD: dict = {}
 
 
 def phase(title: str, /, **fields) -> None:
@@ -221,6 +236,13 @@ def compare(name, kernel_fn, plain_fn, counter, rel_tol=0.0, ulps=None):
     plain_ms = device_time_ms(plain_fn, reps=20, inner=10)
     counter.launches = 0
     return err, rel, ms, plain_ms
+
+
+def recorded(path: str, times: dict) -> dict:
+    """`times` (from `call_times`), its device ms kept as `path`'s f32
+    counterpart for the bf16 phases."""
+    F32_RECORD[path] = float(times["device_ms"])
+    return times
 
 
 def call_times(fn, nnz: int, k: int = 1, reps: int = 30) -> dict:
@@ -584,10 +606,12 @@ def main() -> int:
     phase("wcoo spmm", plan="WcooPlan", K=K, fill=f"{wplan.fill_ratio:.3f}",
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
-    bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels)
+    wp16 = bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels)
     spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
     um_webbase_phases(A, Bd, Cd, want, mesh, counters, none, kernels)
-    del wplan, Cd, out, want
+    bf16_dist_webbase(A, wp16, wplan, Bd, Cd, want, mesh, counters, none)
+    um_bf16_phases(A, Bd, Cd, want, mesh, counters, none)
+    del wplan, wp16, Cd, out, want
     p2_phase(A, Bd, counters, none, kernels)
     del Bd, A
 
@@ -671,7 +695,9 @@ def main() -> int:
     phase("bell spmm", plan="BsrPlan", K=K4, launches=counts,
           check=checked("BELL SpMM K=256", out, want),
           **call_times(lambda: spmm(bplan, Bd, ALPHA, BETA, Cd), F.nnz, K4))
-    bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels)
+    bp16 = bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels)
+    bf16_bell_mode1(F, bplan, bp16, Bd, Cd, want, counters, none)
+    del bp16
     Bd, Cd = Bd[:, :K].contiguous(), Cd[:, :K].contiguous()
     want = want[:, :K]
     out, counts = launches_of(counters,
@@ -793,12 +819,10 @@ def nccl_world1(dev):
     """A world-1 NCCL group on `dev` (a failed initialisation raises), its
     mesh and its 1x1 two-tier mesh, built once for every phase (each
     group holds an NCCL communicator until the group is destroyed)."""
-    from sblas_tpu_torch.cli.common import free_port
+    from sblas_tpu_torch.cli.common import group_of_one
     from sblas_tpu_torch.parallel import (init_distributed, make_mesh,
                                           make_mesh2)
-    init_distributed(backend="nccl",
-                     init_method=f"tcp://127.0.0.1:{free_port()}",
-                     rank=0, world_size=1, device_id=dev)
+    init_distributed(backend="nccl", device_id=dev, **group_of_one())
     return make_mesh(1, device=dev), make_mesh2(1, 1, device=dev)
 
 
@@ -814,6 +838,7 @@ def dist_timing(steps: dict, nnz: int) -> None:
         reads[name].append((wall_time_ms(steps[name], warmup=5, reps=30),
                             device_time_ms(steps[name], warmup=5, reps=30)))
     mean = {name: np.mean(r, axis=0) for name, r in reads.items()}
+    F32_RECORD.update({name: float(m[1]) for name, m in mean.items()})
     for name, r in reads.items():
         phase("dist timing", step=name,
               wall_ms=" / ".join(f"{w:.5f}" for w, _ in r),
@@ -918,8 +943,8 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
     expect_launches("spmv_dist", counts, none)
     phase("dist", path="spmv_dist psum (COO segments)", launches=counts,
           check=checked("spmv_dist", out, want),
-          **call_times(lambda: spmv_dist(segs, xd, ALPHA, BETA, yd, mesh),
-                       A.nnz))
+          **recorded("spmv_dist", call_times(
+              lambda: spmv_dist(segs, xd, ALPHA, BETA, yd, mesh), A.nnz)))
     del segs
     out, counts = launches_of(counters, lambda: spmv_dist_hier(
         sh1, xd, ALPHA, BETA, yd, mesh2))
@@ -1136,6 +1161,7 @@ def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
           check=checked_bf16("WCOO SpMM bf16", out, want),
           **call_times(lambda: spmm(wp, B16, ALPHA, BETA, C16), A.nnz, K))
     bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none, kernels)
+    return wp
 
 
 def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
@@ -1319,6 +1345,21 @@ def bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels) -> None:
           **call_times(lambda: spmm(bp, B16, ALPHA, BETA, C16), F.nnz, K4))
     bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
                        kernels)
+    return bp
+
+
+def bf16_bell_mode1(F, bplan, bp, Bd, Cd, want, counters, none) -> None:
+    """[bf16-dist] mode 1 over the band-73 BELL plan in bf16 at K=256:
+    `spmm_bsr`'s matmuls, as the JAX package's distributed BELL path runs,
+    so no K4 launch; beside the f32 plan's mode 1.  Mode 1 makes no
+    collective, so a mesh without a group serves."""
+    from sblas_tpu_torch.parallel import Mesh, spmm_mode1
+    mesh = Mesh(None, 0, 1, Bd.device)
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    f32_ms = _device_ms(lambda: spmm_mode1(bplan, Bd, ALPHA, BETA, Cd, mesh))
+    bf16_dist_run(f"spmm_mode1 band-73 K={Bd.shape[1]} (BsrPlan bf16)",
+                  lambda: spmm_mode1(bp, B16, ALPHA, BETA, C16, mesh), want,
+                  counters, none, {}, {}, f32_ms, F.nnz, Bd.shape[1])
 
 
 def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
@@ -1512,7 +1553,8 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
     phase("xfoot", path="spmv_xfoot (world 1)", kind=xs1.kind,
           extract=xs1.extract_mode, w_ext=p1.shape[1],
           n_gtiles=p1.n_gtiles, build_s=f"{build_s:.2f}", launches=counts,
-          check=checked("spmv_xfoot", out, want), **call_times(run, A.nnz))
+          check=checked("spmv_xfoot", out, want),
+          **recorded("spmv_xfoot", call_times(run, A.nnz)))
     want_nc = spmv_cpu(A, x, 1.0, 0.0, DenseVector.constant(
         A.height, 0.0, dtype=np.float32))
     run = lambda: spmv_xfoot_nocomm(xs1, xd, mesh)  # noqa: E731
@@ -1715,8 +1757,9 @@ def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:
                     dict(none, window_reduce=-(-K // kc)))
     phase("spmm-dist", path="spmm_mode2_planned psum (WCOO shards)", K=K,
           launches=counts, check=checked("2p wcoo", out, want),
-          **call_times(lambda: spmm_mode2_planned(wsh, Bd, ALPHA, BETA, Cd,
-                                                  mesh), A.nnz, K))
+          **recorded("spmm_mode2_planned wcoo", call_times(
+              lambda: spmm_mode2_planned(wsh, Bd, ALPHA, BETA, Cd, mesh),
+              A.nnz, K)))
     del wsh
     kc = k_chunk_width(wplan.n_tiles, K)
     out, counts = launches_of(counters, lambda: spmm_mode1(
@@ -1724,7 +1767,10 @@ def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:
     expect_launches("spmm_mode1 wcoo", counts,
                     dict(none, window_reduce=-(-K // kc)))
     phase("spmm-dist", path="spmm_mode1 (WcooPlan)", K=K, launches=counts,
-          check=checked("mode1 wcoo", out, want))
+          check=checked("mode1 wcoo", out, want),
+          **recorded("spmm_mode1 wcoo", call_times(
+              lambda: spmm_mode1(wplan, Bd, ALPHA, BETA, Cd, mesh), A.nnz,
+              K, reps=10)))
 
 
 def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
@@ -1754,7 +1800,15 @@ def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
         out, counts = launches_of(counters, run)
         expect_launches(path, counts, none)
         phase("spmm-dist", path=path, K=K, launches=counts,
-              check=checked(path, out, want), **call_times(run, S.nnz, K))
+              check=checked(path, out, want),
+              **recorded(path, call_times(run, S.nnz, K)))
+    del dia, segs, halo
+    halo16 = partition_halo_dia(S, 1, dtype=BF16, device=dev)
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    bf16_dist_run("spmm_halo_planned shell (DIA shards)", lambda:
+                  spmm_halo_planned(halo16, B16, ALPHA, BETA, C16, mesh),
+                  want, counters, none, {}, {}, F32_RECORD[
+                      "spmm_halo_planned"], S.nnz, K)
 
 
 def bench_phase(card) -> None:
@@ -2000,13 +2054,17 @@ def pinned_copy(nbytes: int) -> dict:
 
 
 def um_run(title, hp, run, want, counters, none, k3_per_call, nnz, k=1,
-           deterministic=True, budget=0, operands=()) -> torch.Tensor:
-    """[um]: one streamed call of `run(tuning)` counted (K3 launches,
-    bands, bytes, the most bands on the device, peak device memory beside
-    the budget and the dense operands' bytes), then a tuned one; both against the oracle, tuned = streamed bitwise where
-    the band op is deterministic, wall and device ms of each, and the
-    streamed call's device time against a plain pinned copy of its
-    bytes."""
+           deterministic=True, budget=0, operands=(), tag="um",
+           check=checked, variants=None, f32=None) -> torch.Tensor:
+    """[um]: one streamed call of `run(tuning)` counted (K3 launches, by
+    variant where `variants` is given, bands, bytes, the most bands on
+    the device, peak device memory beside the budget and the dense
+    operands' bytes), then a tuned one; both against the oracle with
+    `check`, tuned = streamed bitwise where the band op is deterministic,
+    wall and device ms of each, and the streamed call's device time
+    against a plain pinned copy of its bytes.  The streamed call's bytes
+    and device ms are kept under `title`; `f32` names an earlier title
+    whose numbers are printed beside these."""
     from sblas_tpu_torch.memory.host import _INFLIGHT
     hp.remove_gpu_tuning()
     torch.cuda.synchronize()
@@ -2016,15 +2074,23 @@ def um_run(title, hp, run, want, counters, none, k3_per_call, nnz, k=1,
     peak = torch.cuda.max_memory_allocated() - base
     expect_launches(f"{title} streamed", counts,
                     dict(none, window_reduce=k3_per_call))
+    by_variant = (variant_launches(f"{title} streamed", variants)
+                  if variants is not None else None)
     st = hp.last_stream
     if st.bands != hp.n_bands or st.peak_resident > _INFLIGHT:
         raise AssertionError(f"{title}: streamed {st}, {hp.n_bands} bands")
-    t0 = call_times(lambda: run(False), nnz, k, reps=15)
+    t0 = recorded(title, call_times(lambda: run(False), nnz, k, reps=15))
+    F32_RECORD[f"{title} bytes"] = st.bytes
     copy = pinned_copy(st.bytes)
-    phase("um", path=f"{title} tuning=0", bands=f"{hp.n_bands}x{hp.kind}",
-          band_rows=hp.band_rows, launches=counts,
-          check=checked(f"{title} streamed", out, want),
-          bytes_streamed=st.bytes, peak_resident_bands=st.peak_resident,
+    beside = {} if f32 is None else dict(
+        f32_bytes_streamed=F32_RECORD[f"{f32} bytes"],
+        f32_device_ms=f"{F32_RECORD[f32]:.5f}")
+    phase(tag, path=f"{title} tuning=0", bands=f"{hp.n_bands}x{hp.kind}",
+          band_rows=hp.band_rows, dtype=hp.dtype, launches=counts,
+          **({} if by_variant is None else dict(by_variant=by_variant)),
+          check=check(f"{title} streamed", out, want),
+          bytes_streamed=st.bytes, **beside,
+          peak_resident_bands=st.peak_resident,
           max_memory_allocated=peak, budget=budget,
           operand_bytes=nbytes(*operands), result_bytes=nbytes(out),
           copy_ms=f"{copy['ms']:.5f}", copy_gb_s=f"{copy['gb_per_s']:.2f}",
@@ -2035,8 +2101,8 @@ def um_run(title, hp, run, want, counters, none, k3_per_call, nnz, k=1,
     bitwise = torch.equal(got, out)
     if deterministic and not bitwise:
         raise AssertionError(f"{title}: tuned differs from streamed")
-    phase("um", path=f"{title} tuning=1", launches=counts,
-          check=checked(f"{title} tuned", got, want),
+    phase(tag, path=f"{title} tuning=1", launches=counts,
+          check=check(f"{title} tuned", got, want),
           tuned_equals_streamed_bitwise=bitwise,
           bitwise_required=deterministic,
           **call_times(lambda: run(True), nnz, k, reps=15))
@@ -2121,9 +2187,180 @@ def um_webbase_phases(A, Bd, Cd, want_mm, mesh, counters, none,
             phase("um-dist", path=f"{name} tuning={int(tuning)} (world 1)",
                   bands=f"{hs.n_bands}x{hs.kind}", launches=counts,
                   check=checked(name, out, want),
-                  **call_times(lambda: run(tuning), A.nnz, k, reps=10))
+                  **recorded(f"{name} tuning={int(tuning)}", call_times(
+                      lambda: run(tuning), A.nnz, k, reps=10)))
         hs.remove_gpu_tuning()
         hp.remove_gpu_tuning()
+
+
+def bf16_dist_run(path, run, want, counters, none, expect, variants,
+                  f32_ms, nnz, k=1, tag="bf16-dist", **extra) -> None:
+    """[bf16-dist]: one run of a path over bf16 containers, its launches
+    counted by counter (`expect`) and by variant (`variants`, exactly),
+    its result bf16 and within the JAX package's bf16 bound of the oracle
+    (max_rel printed), then wall and device ms beside the f32
+    counterpart's device ms."""
+    out, counts = launches_of(counters, run)
+    expect_launches(path, counts, dict(none, **expect))
+    by_variant = variant_launches(path, variants)
+    if out.dtype != BF16:
+        raise AssertionError(f"{path}: result is {out.dtype}, not bf16")
+    phase(tag, path=path, **extra, launches=counts,
+          by_variant=by_variant, check=checked_bf16(path, out, want),
+          f32_device_ms=f"{f32_ms:.5f}",
+          **call_times(run, nnz, k, reps=10))
+
+
+def bf16_dist_webbase(A, wp, wplan, Bd, Cd, want_mm, mesh, counters,
+                      none) -> None:
+    """[bf16-dist] on webbase-1M in the world-1 group: mode 1 over the bf16
+    WcooPlan (K3 `bf16`), mode 2 and the distributed SpMV over bf16 COO
+    segments (f32 partials), the planned SpMV over bf16 routed shards (K1
+    and K2' `bf16`), mode 2 over bf16 WCOO shards (K3 `bf16`) and the
+    xfoot SpMV over a bf16 routed shard."""
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    from sblas_tpu_torch.parallel import (partition_row_plans,
+                                          partition_xfoot, spmm_mode1,
+                                          spmm_mode2, spmm_mode2_nocomm,
+                                          spmm_mode2_planned, spmv_dist,
+                                          spmv_dist_planned, spmv_xfoot)
+    from sblas_tpu_torch.partition import partition_nnz_balanced
+    dev, K = Bd.device, Bd.shape[1]
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    x = DenseVector.random(A.width, dtype=np.float32)
+    y = DenseVector.constant(A.height, 1.0, dtype=np.float32)
+    x16, y16 = (torch.from_numpy(v.values).to(dev).to(BF16) for v in (x, y))
+    want_mv = spmv_cpu(A, x, ALPHA, BETA, y)
+    chunks = -(-K // k_chunk_width(wp.n_tiles, K))
+    bf16_dist_run("spmm_mode1 (WcooPlan bf16)", lambda: spmm_mode1(
+        wp, B16, ALPHA, BETA, C16, mesh), want_mm, counters, none,
+        dict(window_reduce=chunks), {"window_reduce_bf16": chunks},
+        F32_RECORD["spmm_mode1 wcoo"], A.nnz, K)
+
+    segs = partition_nnz_balanced(A, 1, dtype=BF16, device=dev)
+    segs32 = partition_nnz_balanced(A, 1, dtype=torch.float32, device=dev)
+    partial = spmm_mode2_nocomm(segs, B16, mesh)
+    f32_ms = _device_ms(lambda: spmm_mode2(segs32, Bd, ALPHA, BETA, Cd,
+                                           mesh))
+    del segs32
+    bf16_dist_run("spmm_mode2 psum (COO segments bf16)", lambda: spmm_mode2(
+        segs, B16, ALPHA, BETA, C16, mesh), want_mm, counters, none, {}, {},
+        f32_ms, A.nnz, K, partial=partial.dtype,
+        all_reduce_bytes=nbytes(partial))
+    del partial
+    bf16_dist_run("spmv_dist psum (COO segments bf16)", lambda: spmv_dist(
+        segs, x16, ALPHA, BETA, y16, mesh), want_mv, counters, none, {}, {},
+        F32_RECORD["spmv_dist"], A.nnz)
+    del segs
+
+    for title, build, run, f32_path in (
+            ("spmv_dist_planned psum (routed shards bf16)",
+             lambda: partition_row_plans(A, 1, dtype=BF16, op="spmv",
+                                         device=dev),
+             lambda sh: spmv_dist_planned(sh, x16, ALPHA, BETA, y16, mesh),
+             "spmv_dist_planned psum"),
+            ("spmv_xfoot (world 1, bf16)",
+             lambda: partition_xfoot(A, 1, dtype=BF16, device=dev, rank=0),
+             lambda xs: spmv_xfoot(xs, x16, ALPHA, BETA, y16, mesh),
+             "spmv_xfoot")):
+        t0 = time.perf_counter()
+        sh = build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        p = sh.local(0)
+        p = getattr(p, "plan", p)
+        if sh.kind != "routed" or p.dtype != BF16:
+            raise AssertionError(f"{title}: {sh.kind} shards of {p.dtype}")
+        bf16_dist_run(title, lambda: run(sh), want_mv, counters, none,
+                      dict(lane_shuffle=p.n_route_gathers, tile_gather=1),
+                      {"lane_shuffle_bf16": p.n_route_gathers,
+                       "tile_gather_bf16": 1}, F32_RECORD[f32_path], A.nnz,
+                      build_s=f"{build_s:.2f}", k1_per_spmv=p.n_route_gathers)
+        del sh, p
+
+    t0 = time.perf_counter()
+    wsh = partition_row_plans(A, 1, dtype=BF16, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if wsh.kind != "wcoo" or wsh.local(0).dtype != BF16:
+        raise AssertionError(f"webbase bf16 SpMM shards are {wsh.kind}")
+    chunks = -(-K // k_chunk_width(wsh.local(0).n_tiles, K))
+    bf16_dist_run("spmm_mode2_planned psum (WCOO shards bf16)",
+                  lambda: spmm_mode2_planned(wsh, B16, ALPHA, BETA, C16,
+                                             mesh),
+                  want_mm, counters, none, dict(window_reduce=chunks),
+                  {"window_reduce_bf16": chunks},
+                  F32_RECORD["spmm_mode2_planned wcoo"], A.nnz, K,
+                  build_s=f"{build_s:.2f}")
+
+
+def um_bf16_phases(A, Bd, Cd, want_mm, mesh, counters, none) -> None:
+    """[um bf16] on webbase-1M at UM_BUDGET_WEB: bf16 bands, sized by
+    2-byte values and pinned as bf16, streamed and tuned (spmv_um;
+    spmm_um through K3 `bf16` once a band), beside the f32 plan's bytes
+    and device ms; then the world-1 UM modes over bf16 shards."""
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.memory import (host_resident_plan,
+                                        host_resident_shards, spmm_um,
+                                        spmm_um_dist, spmm_um_mode1, spmv_um,
+                                        spmv_um_dist)
+    from sblas_tpu_torch.memory.host import tensor_fields
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    dev, K = Bd.device, Bd.shape[1]
+    t0 = time.perf_counter()
+    hp = host_resident_plan(A, dtype=BF16, hbm_budget_bytes=UM_BUDGET_WEB,
+                            device=dev)
+    build_s = time.perf_counter() - t0
+    pinned = all(getattr(b, f).is_pinned() for b in hp.bands
+                 for f in tensor_fields(b))
+    if hp.kind != "wcoo" or hp.dtype != BF16 or not pinned or any(
+            b.vals.dtype != BF16 for b in hp.bands):
+        raise AssertionError(f"webbase bf16 bands: {hp.kind}, {hp.dtype}, "
+                             f"pinned={pinned}")
+    phase("um bf16", plan="host_resident_plan webbase-1M bf16",
+          budget=UM_BUDGET_WEB, bands=f"{hp.n_bands}x{hp.kind}",
+          band_rows=hp.band_rows, band_mb=f"{hp.band_bytes / 2**20:.1f}",
+          value_bytes=sum(nbytes(b.vals) for b in hp.bands), pinned=pinned,
+          build_s=f"{build_s:.2f}")
+    x = DenseVector.random(A.width, dtype=np.float32)
+    y = DenseVector.constant(A.height, 1.0, dtype=np.float32)
+    x16, y16 = (torch.from_numpy(v.values).to(dev).to(BF16) for v in (x, y))
+    B16, C16 = Bd.to(BF16), Cd.to(BF16)
+    want_mv = spmv_cpu(A, x, ALPHA, BETA, y)
+    um_run("spmv_um webbase-1M bf16", hp,
+           lambda t: spmv_um(hp, x16, ALPHA, BETA, y16, tuning=t), want_mv,
+           counters, none, 0, A.nnz, deterministic=False,
+           budget=UM_BUDGET_WEB, operands=(x16, y16), tag="um bf16",
+           check=checked_bf16, variants={}, f32="spmv_um webbase-1M")
+    chunks = -(-K // k_chunk_width(hp.bands[0].n_tiles, K))
+    um_run(f"spmm_um webbase-1M K={K} bf16", hp,
+           lambda t: spmm_um(hp, B16, ALPHA, BETA, C16, tuning=t), want_mm,
+           counters, none, hp.n_bands * chunks, A.nnz, K,
+           budget=UM_BUDGET_WEB, operands=(B16, C16), tag="um bf16",
+           check=checked_bf16,
+           variants={"window_reduce_bf16": hp.n_bands * chunks},
+           f32=f"spmm_um webbase-1M K={K}")
+
+    hs = host_resident_shards(A, 1, dtype=BF16,
+                              hbm_budget_bytes=UM_BUDGET_WEB, device=dev,
+                              rank=0)
+    k3 = {"spmv_um_dist": 0, "spmm_um_dist": hs.n_bands * chunks,
+          "spmm_um_mode1": hp.n_bands * chunks}
+    runs = {"spmv_um_dist": (want_mv, 1, lambda: spmv_um_dist(
+                hs, x16, ALPHA, BETA, y16, mesh)),
+            "spmm_um_dist": (want_mm, K, lambda: spmm_um_dist(
+                hs, B16, ALPHA, BETA, C16, mesh)),
+            "spmm_um_mode1": (want_mm, K, lambda: spmm_um_mode1(
+                hp, B16, ALPHA, BETA, C16, mesh))}
+    for name, (want, k, run) in runs.items():
+        variants = {"window_reduce_bf16": k3[name]} if k3[name] else {}
+        bf16_dist_run(f"{name} tuning=0 (world 1, bf16 bands)", run, want,
+                      counters, none, dict(window_reduce=k3[name]), variants,
+                      F32_RECORD[f"{name} tuning=0"], A.nnz, k,
+                      tag="um bf16", bands=f"{hs.n_bands}x{hs.kind}")
 
 
 def um_shell_phases(S, Bs, Cs, Bd, Cd, want_mm, counters, none) -> None:
@@ -2151,7 +2388,7 @@ def um_shell_phases(S, Bs, Cs, Bd, Cd, want_mm, counters, none) -> None:
                               device=dev)
     Bh = HostDense.from_array(Bs, device=dev)
     Ch = HostDense.from_array(Cs, device=dev)
-    outs = []
+    outs, walls = [], []
     for tuning in (False, True):
         grid.remove_gpu_tuning()
         Bh.remove_gpu_tuning()
@@ -2159,17 +2396,45 @@ def um_shell_phases(S, Bs, Cs, Bd, Cd, want_mm, counters, none) -> None:
             grid, Bh, ALPHA, BETA, Ch, tuning=tuning))
         expect_launches("spmm_um_hostdense", counts, none)
         outs.append(out.to_numpy().copy())
+        walls.append(wall_time_ms(lambda: spmm_um_hostdense(
+            grid, Bh, ALPHA, BETA, Ch, tuning=tuning), warmup=2, reps=5))
         phase("um-dense", path=f"spmm_um_hostdense shell K={K} "
               f"tuning={int(tuning)}", budget=UM_BUDGET_DENSE,
               c_bytes=Cs.nbytes, grid=f"{grid.n_bands}x{grid.n_chunks}",
               cells=len(grid.cells), kind=grid.kind,
               pinned=out.values.is_pinned(),
               check=checked("spmm_um_hostdense", torch.from_numpy(outs[-1]),
-                            want_mm),
-              wall_ms=f"{wall_time_ms(lambda: spmm_um_hostdense(grid, Bh, ALPHA, BETA, Ch, tuning=tuning), warmup=2, reps=5):.5f}")
+                            want_mm), wall_ms=f"{walls[-1]:.5f}")
     if not np.array_equal(*outs):
         raise AssertionError("spmm_um_hostdense: tuned differs from "
                              "streamed")
+    grid.remove_gpu_tuning()
+    Bh.remove_gpu_tuning()
+    del grid, Bh, Ch
+    # [um bf16]: the same grid with bf16 cells and bf16 pinned operands
+    grid16 = host_resident_grid(S, dtype=BF16,
+                                hbm_budget_bytes=UM_BUDGET_DENSE, k=K,
+                                device=dev)
+    Bh16, Ch16 = (HostDense.from_array(torch.from_numpy(v).to(BF16),
+                                       device=dev) for v in (Bs, Cs))
+    run16 = lambda: spmm_um_hostdense(  # noqa: E731
+        grid16, Bh16, ALPHA, BETA, Ch16)
+    out, counts = launches_of(counters, run16)
+    expect_launches("spmm_um_hostdense bf16", counts, none)
+    variant_launches("spmm_um_hostdense bf16", {})
+    pinned = all(c.vals.dtype == BF16 and c.vals.is_pinned()
+                 for c in grid16.cells.values())
+    if not pinned or out.values.dtype != BF16 or not \
+            out.values.is_pinned():
+        raise AssertionError("spmm_um_hostdense bf16: cells or result not "
+                             "pinned bf16")
+    phase("um bf16", path=f"spmm_um_hostdense shell K={K} bf16",
+          budget=UM_BUDGET_DENSE, grid=f"{grid16.n_bands}x{grid16.n_chunks}",
+          cells=len(grid16.cells), kind=grid16.kind, pinned_bf16=pinned,
+          check=checked_bf16("spmm_um_hostdense bf16", out.values, want_mm),
+          wall_ms=f"{wall_time_ms(run16, warmup=2, reps=5):.5f}",
+          f32_wall_ms=f"{walls[0]:.5f}")
+    del grid16, Bh16, Ch16, out
     grid1 = host_resident_grid(S, dtype=torch.float32,
                                hbm_budget_bytes=UM_BUDGET_DENSE, k=1,
                                device=dev)

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import socket
 import sys
 
 
@@ -58,10 +57,15 @@ def run_ms(run, device, times: dict, n: int = 1) -> float:
     return ms
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def group_of_one() -> dict:
+    """`init_process_group` arguments for a group of one on this host: a
+    TCP store that binds port 0, so the port is taken in the same call
+    that picks it.  (A port found free and bound later can be taken in
+    between by any socket on the host, and the bind then fails with
+    EADDRINUSE.)"""
+    import torch.distributed as dist
+    return dict(store=dist.TCPStore("127.0.0.1", 0, 1, True), rank=0,
+                world_size=1)
 
 
 def devices_to_use(n_requested: int, world: int, rank: int = 0) -> int:
@@ -113,8 +117,7 @@ def setup_devices(n_requested: int, device: str):
             kw = dict(init_method="env://", rank=int(os.environ["RANK"]),
                       world_size=int(os.environ["WORLD_SIZE"]))
         else:
-            kw = dict(init_method=f"tcp://127.0.0.1:{free_port()}",
-                      rank=0, world_size=1)
+            kw = group_of_one()
         if device == "cuda":
             kw["device_id"] = dev
         init_distributed(backend="nccl" if device == "cuda" else "gloo",

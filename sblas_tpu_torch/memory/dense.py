@@ -15,7 +15,9 @@ The A cells and B chunks stream through `host._stream`; each finished C
 band goes into one of `_INFLIGHT` device slots and back to a pinned host
 result by a non-blocking device-to-host copy on its own stream, and the
 call waits for the last of those copies before it returns.  Structurally
-empty cells are skipped.
+empty cells are skipped.  bf16 cells are sized by 2-byte values and pinned
+as bf16, like the bands of `host.py`; a band's cell products are summed
+in f32 and rounded once, with the epilogue (`plans.fold`).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..ops.plans import np_value_dtype
+from ..ops.plans import fold, host_value_dtype, sum_dtype, value_itemsize
 from ..utils.errors import ShapeError, require
 from . import host
 from .host import (_band_matmul, _choose_band_kind, build_band_plan,
@@ -50,9 +52,13 @@ class HostDense:
 
     @classmethod
     def from_array(cls, arr, *, device) -> "HostDense":
-        """A host copy of `arr` (pinned for a CUDA `device`)."""
+        """A host copy of `arr`, a numpy array or a torch tensor (numpy has
+        no bfloat16: pass bf16 values as a tensor), pinned for a CUDA
+        `device`."""
         device = torch.device(device)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = (arr.detach().cpu() if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(arr)))
+        t = t.contiguous()
         t = t.pin_memory() if device.type == "cuda" else t.clone()
         return cls(values=t, shape=tuple(t.shape), device=device)
 
@@ -80,7 +86,10 @@ class HostDense:
         return self.values[lo:hi].to(self.device, non_blocking=True)
 
     def to_numpy(self) -> np.ndarray:
-        """The host array (a view of `values`)."""
+        """The host array: a view of `values`, or for bf16 values (numpy
+        has no bfloat16) a float32 copy, exact."""
+        if self.values.dtype == torch.bfloat16:
+            return self.values.float().numpy()
         return self.values.numpy()
 
 
@@ -130,7 +139,7 @@ def host_resident_grid(A: CsrMatrix, dtype=torch.float32,
     one cell + one B chunk (chunk_cols x k) + one C band (band_rows x k)
     fit in hbm_budget_bytes / _INFLIGHT together."""
     m, n = A.shape
-    itemsize = np_value_dtype(dtype).itemsize
+    itemsize = value_itemsize(dtype)
     budget = hbm_budget_bytes / host._INFLIGHT
     # a third of the budget each for the A cell, the B chunk, the C band
     chunk_cols = max(int((budget / 3) // max(k * itemsize, 1)), 128)
@@ -164,7 +173,7 @@ def host_resident_grid(A: CsrMatrix, dtype=torch.float32,
     if not cell_csrs:  # empty matrix: one empty cell keeps shapes defined
         cell_csrs[(0, 0)] = CsrMatrix(
             np.zeros(band_rows + 1, np.int64), np.zeros(0, np.int64),
-            np.zeros(0, np_value_dtype(dtype)), (band_rows, chunk_cols))
+            np.zeros(0, host_value_dtype(dtype)), (band_rows, chunk_cols))
 
     kind, dim = probe_band_dims(list(cell_csrs.values()), kind, A.nnz,
                                 config)
@@ -250,14 +259,15 @@ def spmm_um_hostdense(grid: HostResidentGrid, B: HostDense, alpha, beta,
             if acc is None:
                 out.put(cur, r0, r1, lambda s: torch.mul(Ci, beta, out=s))
             else:
-                out.put(cur, r0, r1, lambda s: torch.add(
-                    beta * Ci, acc[:r1 - r0], alpha=alpha, out=s))
+                out.put(cur, r0, r1, lambda s: fold(
+                    alpha, acc[:r1 - r0], beta, Ci, grid.dtype, out=s))
             cur, acc = cur + 1, None
 
     def on_cell(idx: int, cell, Bj) -> None:
         nonlocal acc
         advance(keys[idx][0])
         prod = _band_matmul(grid.kind, cell, Bj)
+        prod = prod.to(sum_dtype(prod.dtype))
         acc = prod if acc is None else acc + prod
 
     def b_rows(idx: int):

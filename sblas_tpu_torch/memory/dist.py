@@ -25,6 +25,10 @@ all-reduce combines the partial C.  Here:
 
 Every function runs on every rank of `mesh` and takes the global dense
 operands; `parallel.sync_to_host` assembles mode 1's column blocks.
+
+bf16 values: the shards' rows straddle no shard, but the v2 partial is
+kept in f32 (`plans.sum_dtype`) all the same, as mode 2's is, and the
+epilogue rounds once (`plans.fold`); the JAX package sums bf16 partials.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..ops.plans import np_value_dtype
+from ..ops.plans import fold, sum_dtype, value_itemsize
 from ..parallel.mesh import Mesh, all_reduce
 from ..parallel.planned import _local, _row_boundaries
 from ..utils.errors import PartitionError, ShapeError, require
@@ -133,7 +137,7 @@ def host_resident_shards(A: CsrMatrix, n_shards: int, dtype=torch.float32,
     shard_rows = _round_up(int(np.max(bounds[1:] - bounds[:-1])) or 1, 128)
     kind = kind or _choose_band_kind(A, config)
 
-    itemsize = np_value_dtype(dtype).itemsize
+    itemsize = value_itemsize(dtype)
     nnz_per_row = A.nnz / max(m, 1)
     budget = hbm_budget_bytes / _INFLIGHT
     if kind == "bsr":
@@ -216,11 +220,11 @@ def spmv_um_dist(hs: HostResidentShards, x, alpha, beta, y, mesh: Mesh,
     `mesh` (reference sblas_spmv_csr_v1 over managed memory,
     spmv_um.h:35-139).  Every rank returns the whole y'."""
     _check(hs, mesh, x.shape[0])
-    partial = torch.zeros(hs.shape[0] + hs.band_rows, dtype=x.dtype,
-                          device=x.device)
+    partial = torch.zeros(hs.shape[0] + hs.band_rows,
+                          dtype=sum_dtype(x.dtype), device=x.device)
     ax = _summed(hs, mesh, tuning, partial,
                  lambda band: _band_matvec(hs.kind, band, x))
-    return beta * y + alpha * ax
+    return fold(alpha, ax, beta, y, hs.local(mesh.rank).dtype)
 
 
 def spmm_um_dist(hs: HostResidentShards, B, alpha, beta, C, mesh: Mesh,
@@ -230,10 +234,10 @@ def spmm_um_dist(hs: HostResidentShards, B, alpha, beta, C, mesh: Mesh,
     spmm_um.h:163-284).  Every rank returns the whole C'."""
     _check(hs, mesh, B.shape[0])
     partial = torch.zeros((hs.shape[0] + hs.band_rows, B.shape[1]),
-                          dtype=B.dtype, device=B.device)
+                          dtype=sum_dtype(B.dtype), device=B.device)
     ab = _summed(hs, mesh, tuning, partial,
                  lambda band: _band_matmul(hs.kind, band, B))
-    return beta * C + alpha * ab
+    return fold(alpha, ab, beta, C, hs.local(mesh.rank).dtype)
 
 
 def spmm_um_mode1(hp: HostResidentPlan, B, alpha, beta, C, mesh: Mesh,

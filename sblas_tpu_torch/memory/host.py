@@ -29,6 +29,12 @@ on the device and the host never waits inside the call.  Each band's
 product goes straight into its rows of the result, `beta*C[r0:r1] +
 alpha*part`; no full-height intermediate is built.
 
+Bands take float32, float64 or bfloat16 values.  A bf16 band is sized by
+2-byte values, as the JAX package sizes it, narrowed once as it is built
+and pinned as bf16, so each copy moves bf16 value bytes; its WCOO SpMM
+runs K3's bf16 variant, and each band's epilogue rounds once
+(`plans.fold`).
+
 What the JAX package needs only for the TPU's compile path has no
 counterpart: the stacked tuned operand and its `lax.scan` fallback above
 `_UNROLL_MAX_BANDS` (a tuned call here loops over the device bands), the
@@ -47,7 +53,8 @@ import torch
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..ops.bsr import BsrPlan, spmm_bsr, spmv_bsr
-from ..ops.plans import CooPlan, EllPlan, np_value_dtype
+from ..ops.plans import (CooPlan, EllPlan, fold, host_value_dtype,
+                         value_itemsize)
 from ..ops.spmm import spmm_coo, spmm_ell
 from ..ops.spmv import spmv_coo, spmv_ell
 from ..ops.wcoo import WcooPlan, spmm_wcoo, spmv_wcoo
@@ -227,7 +234,7 @@ def host_resident_plan(A: CsrMatrix, dtype=torch.float32,
     blows up on huge empty-row gaps)."""
     from ..ops.bsr import bell_stats
     m, n = A.shape
-    itemsize = np_value_dtype(dtype).itemsize
+    itemsize = value_itemsize(dtype)
     kind = kind or _choose_band_kind(A, config)
     nnz_per_row = A.nnz / max(m, 1)
     budget = hbm_budget_bytes / _INFLIGHT
@@ -300,8 +307,9 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
                     config: SBlasConfig, *, device):
     """One band's plan on `device`: `sub` is the (band_rows, n) local CSR,
     `dim` the shared dimension from `probe_band_dims`.  Every band carries
-    the same static metadata (shape (band_rows, n), nnz `total_nnz`)."""
-    np_val = np_value_dtype(dtype)
+    the same static metadata (shape (band_rows, n), nnz `total_nnz`); a
+    bf16 band is laid out in f32 and narrowed once, as it is placed."""
+    np_val = host_value_dtype(dtype)
     if kind == "bsr":
         from ..ops.bsr import bell_arrays
         R, C = config.bsr_block
@@ -315,7 +323,7 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
         return BsrPlan.from_numpy(
             dict(vals=vals, bcol=bcol.astype(np.int32)),
             dict(shape=(band_rows, n), nnz=total_nnz,
-                 block=tuple(config.bsr_block)), device)
+                 block=tuple(config.bsr_block)), device, dtype=dtype)
     if kind == "ell":
         from ..ops.plans import ell_arrays
         cols, vals = ell_arrays(sub)
@@ -326,7 +334,7 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
                              (0, dim - vals.shape[1])))
         return EllPlan.from_numpy(
             dict(cols=cols.astype(np.int32), vals=vals.astype(np_val)),
-            dict(shape=(band_rows, n), nnz=total_nnz), device)
+            dict(shape=(band_rows, n), nnz=total_nnz), device, dtype=dtype)
     if kind == "wcoo":
         from ..ops.wcoo import wcoo_plan_arrays
         r = wcoo_plan_arrays(sub, min_tiles=dim, np_val=np_val)
@@ -334,7 +342,7 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
                     n_tiles=r.pop("n_tiles"),
                     n_row_blocks=r.pop("n_row_blocks"))
         r["vals"] = r["vals"].astype(np_val)
-        return WcooPlan.from_numpy(r, meta, device)
+        return WcooPlan.from_numpy(r, meta, device, dtype=dtype)
     if kind == "coo":
         coo = sub.to_coo()
         pad = dim - sub.nnz
@@ -345,7 +353,7 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
         return CooPlan.from_numpy(
             dict(rows=rows.astype(np.int32), cols=cols.astype(np.int32),
                  vals=vals.astype(np_val)),
-            dict(shape=(band_rows, n), nnz=total_nnz), device)
+            dict(shape=(band_rows, n), nnz=total_nnz), device, dtype=dtype)
     raise PartitionError(f"unknown band kind {kind!r}")
 
 
@@ -489,8 +497,8 @@ def spmm_um(hplan: HostResidentPlan, B, alpha, beta, C,
     def compute(i: int, band) -> None:
         r0, r1 = i * br, min((i + 1) * br, m)
         part = _band_matmul(hplan.kind, band, B)
-        torch.add(beta * C[r0:r1], part[:r1 - r0], alpha=alpha,
-                  out=out[r0:r1])
+        fold(alpha, part[:r1 - r0], beta, C[r0:r1], hplan.dtype,
+             out=out[r0:r1])
 
     each_band(hplan, compute)
     return out
@@ -510,8 +518,8 @@ def spmv_um(hplan: HostResidentPlan, x, alpha, beta, y,
     def compute(i: int, band) -> None:
         r0, r1 = i * br, min((i + 1) * br, m)
         part = _band_matvec(hplan.kind, band, x)
-        torch.add(beta * y[r0:r1], part[:r1 - r0], alpha=alpha,
-                  out=out[r0:r1])
+        fold(alpha, part[:r1 - r0], beta, y[r0:r1], hplan.dtype,
+             out=out[r0:r1])
 
     each_band(hplan, compute)
     return out

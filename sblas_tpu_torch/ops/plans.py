@@ -10,11 +10,13 @@ below; the routed plan (`rspmv.py`) has its own.
 
 Every plan's host arrays are built by the JAX package's numpy code,
 carried over, so they are byte-identical to its plan's; `from_numpy`
-takes either.  Indices are int32 on the device.  Single-device plans
-take float32, float64 or bfloat16 values; numpy has no bfloat16, so a
-bf16 plan's host arrays are float32 (`host_value_dtype`) and its values
-are narrowed once as they are placed, and its ops compute at bf16, as
-the JAX package's XLA code does.
+takes either.  Indices are int32 on the device.  Plans, and the
+distributed and host-streamed containers built from them, take float32,
+float64 or bfloat16 values; numpy has no bfloat16, so a bf16 container's
+host arrays are laid out in float32 (`host_value_dtype`) and its values
+are narrowed once as its tensors are made, and its ops compute at bf16,
+as the JAX package's XLA code does.  What is sized by bytes (bands,
+grid cells) counts the value type's own bytes (`value_itemsize`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..utils.errors import PlanError, require
 
-NP_VALUE = {torch.float32: np.float32, torch.float64: np.float64}
 # value dtype -> the host layout's: bf16 plans are laid out in f32
 HOST_VALUE = {torch.float32: np.float32, torch.float64: np.float64,
               torch.bfloat16: np.float32}
@@ -37,14 +38,6 @@ HOST_VALUE = {torch.float32: np.float32, torch.float64: np.float64,
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def np_value_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy value type of a plan of torch `dtype` (float32/64; the
-    distributed and host-streamed plans take no bfloat16)."""
-    require(dtype in NP_VALUE, PlanError,
-            f"plans take torch.float32 or torch.float64, got {dtype}")
-    return np.dtype(NP_VALUE[dtype])
 
 
 def sum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -55,12 +48,43 @@ def sum_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def host_value_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy type a single-device plan of torch `dtype` is laid out in
-    on the host: float32 for bfloat16 (narrowed by `from_numpy`)."""
+    """The numpy type a plan of torch `dtype` is laid out in on the host:
+    float32 for bfloat16 (narrowed once as the tensors are made)."""
     require(dtype in HOST_VALUE, PlanError,
             f"plans take torch.float32, torch.float64 or torch.bfloat16, "
             f"got {dtype}")
     return np.dtype(HOST_VALUE[dtype])
+
+
+def value_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of one value of a plan of torch `dtype` on the device (2 for
+    bfloat16, whose host layout is float32): what band and grid sizing
+    counts, as the JAX package's `jnp.dtype(dtype).itemsize` does."""
+    host_value_dtype(dtype)
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def fold(alpha, ab, beta, Y, dtype, out=None) -> torch.Tensor:
+    """beta*Y + alpha*ab, the epilogue of a distributed or streamed op,
+    with the result type `promote_types(Y.dtype, dtype)` (`dtype` the
+    plan's value type), into `out` when given.  Where bf16 takes part, on
+    either side, it runs in f32 and rounds once, in two passes: alpha*ab
+    in f32 (a one-element f32 factor promotes a bf16 `ab` inside the
+    kernel), then that plus beta*Y stored in the result's type; `ab` may
+    be a partial kept in `sum_dtype(dtype)`.  Else it is the plain
+    expression."""
+    if torch.bfloat16 not in (Y.dtype, ab.dtype):
+        if out is None:
+            return beta * Y + alpha * ab
+        return torch.add(beta * Y, ab, alpha=alpha, out=out)
+    if out is None:
+        out = torch.empty(torch.broadcast_shapes(Y.shape, ab.shape),
+                          dtype=torch.promote_types(Y.dtype, dtype),
+                          device=Y.device)
+    acc = torch.promote_types(ab.dtype, torch.float32)
+    scaled = torch.mul(ab, torch.full((1,), alpha, dtype=acc,
+                                      device=ab.device))
+    return torch.add(scaled, Y, alpha=beta, out=out)
 
 
 class Plan:

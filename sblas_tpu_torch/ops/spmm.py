@@ -22,20 +22,27 @@ from .plans import CooPlan, EllPlan, sum_dtype
 _MAX_GATHER_ELEMS = 256 * 1024 * 1024
 
 
-def segment_spmm(rows, cols, vals, B, m: int, n_chunks: int = 1):
+def segment_spmm(rows, cols, vals, B, m: int, n_chunks: int = 1,
+                 keep_sum: bool = False):
     """(sorted COO triplets) x B -> (m, k); `n_chunks` > 1 bounds the
-    (nnz, k) gather transient by chunking over B's columns."""
+    (nnz, k) gather transient by chunking over B's columns.  The sums are
+    rounded to the products' type, or with `keep_sum` left in the summing
+    type (`sum_dtype`: f32 for bf16), for a partial that is summed on."""
     k = B.shape[1]
     kc = max(-(-k // max(n_chunks, 1)), 1)
     outs = []
+    dt = torch.promote_types(vals.dtype, B.dtype)
+    acc = sum_dtype(dt)
     for k0 in range(0, max(k, 1), kc):   # k = 0 still yields (m, 0)
-        contrib = vals[:, None] * torch.index_select(B[:, k0:k0 + kc], 0,
-                                                     cols)
-        acc = sum_dtype(contrib.dtype)
+        gathered = torch.index_select(B[:, k0:k0 + kc], 0, cols)
+        # the products in their own type (bf16 rounds each), stored
+        # straight into the summing type's buffer
+        contrib = torch.mul(vals[:, None], gathered, out=torch.empty(
+            gathered.shape, dtype=acc, device=gathered.device))
         outs.append(torch.zeros((m, contrib.shape[1]), dtype=acc,
                                 device=contrib.device).index_add_(
-                                    0, rows, contrib.to(acc)
-                                ).to(contrib.dtype))
+                                    0, rows, contrib
+                                ).to(acc if keep_sum else dt))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -48,17 +55,21 @@ def spmm_coo(plan: CooPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
 
 def spmm_ell(plan: EllPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
              k_chunk: int = None) -> torch.Tensor:
-    """ELL SpMM via one flat B-row gather per column chunk."""
+    """ELL SpMM via one flat B-row gather per column chunk.  bf16 forms the
+    products and their slot sums in f32 and rounds each sum once."""
     m = plan.shape[0]
     m_pad, L = plan.cols.shape
     k = B.shape[1]
     kc = k_chunk or max(min(k, _MAX_GATHER_ELEMS // max(m_pad * L, 1)), 1)
     flat = plan.cols.reshape(-1)
+    dt = torch.promote_types(plan.vals.dtype, B.dtype)
+    acc = sum_dtype(dt)
     outs = []
     for k0 in range(0, max(k, 1), kc):
         gathered = torch.index_select(B[:, k0:k0 + kc], 0, flat)
         gathered = gathered.reshape(m_pad, L, gathered.shape[1])
-        outs.append((plan.vals[:, :, None] * gathered).sum(dim=1))
+        outs.append((plan.vals[:, :, None].to(acc) * gathered.to(acc)).sum(
+            dim=1).to(dt))
     ab = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return beta * C + alpha * ab[:m]
 

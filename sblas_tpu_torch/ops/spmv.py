@@ -17,12 +17,18 @@ import torch
 from .plans import CooPlan, EllPlan, sum_dtype
 
 
-def segment_spmv(rows, cols, vals, x, m: int) -> torch.Tensor:
-    """Sorted COO triplets x vector -> (m,) partial result."""
-    contrib = vals * torch.index_select(x, 0, cols)
-    acc = sum_dtype(contrib.dtype)
+def segment_spmv(rows, cols, vals, x, m: int,
+                 keep_sum: bool = False) -> torch.Tensor:
+    """Sorted COO triplets x vector -> (m,) partial result, rounded to the
+    products' type or, with `keep_sum`, left in the summing type."""
+    dt = torch.promote_types(vals.dtype, x.dtype)
+    acc = sum_dtype(dt)
+    gathered = torch.index_select(x, 0, cols)
+    # the products in their own type, stored into the summing type's buffer
+    contrib = torch.mul(vals, gathered, out=torch.empty(
+        gathered.shape, dtype=acc, device=gathered.device))
     return torch.zeros(m, dtype=acc, device=contrib.device).index_add_(
-        0, rows, contrib.to(acc)).to(contrib.dtype)
+        0, rows, contrib).to(acc if keep_sum else dt)
 
 
 def spmv_coo(plan: CooPlan, x: torch.Tensor, alpha, beta,

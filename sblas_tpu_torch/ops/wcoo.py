@@ -467,19 +467,32 @@ def k_chunk_width(n_tiles: int, k: int) -> int:
 def spmm_wcoo(plan: WcooPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
               k_chunk: int = None) -> torch.Tensor:
     """C' = beta*C + alpha*A@B: one K3 call per K-chunk of width `k_chunk`
-    (default: the JAX package's choice), each writing its chunk's columns
-    of the result, epilogue included.  B and C are taken in the plan's
-    dtype; the result has the dtype `beta*C + alpha*(A@B)` would have."""
+    (default: the JAX package's choice).  B is taken in the plan's dtype;
+    the result has the dtype `beta*C + alpha*(A@B)` would have.  Where
+    that is the plan's dtype, each call writes its chunk's columns of the
+    result, epilogue included.  Where C is wider than the plan (a bf16
+    plan and an f32 C, an f32 plan and an f64 C), K3 writes each chunk's
+    A@B in the plan's dtype (its grid form) and the epilogue runs in the
+    wider type, so C is never rounded to the plan's."""
     k, dt = B.shape[1], plan.dtype
-    require(tuple(C.shape) == (plan.shape[0], k), ShapeError,
-            f"C has shape {tuple(C.shape)}, expected "
-            f"{(plan.shape[0], k)}")
+    m = plan.shape[0]
+    require(tuple(C.shape) == (m, k), ShapeError,
+            f"C has shape {tuple(C.shape)}, expected {(m, k)}")
     B = B.to(dt).contiguous()
+    kc = k_chunk or k_chunk_width(plan.n_tiles, k)
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane,
+            B)
+    res = torch.promote_types(C.dtype, dt)
+    if res != dt:
+        out = torch.empty((m, k), dtype=res, device=C.device)
+        for k0 in range(0, k, kc):
+            ab = window_reduce(*args, k0, min(kc, k - k0))[:m]
+            out[:, k0:k0 + ab.shape[1]] = (beta * C[:, k0:k0 + kc]
+                                           + alpha * ab.to(res))
+        return out
     Cd = C.to(dt).contiguous()
     out = torch.empty_like(Cd)
-    kc = k_chunk or k_chunk_width(plan.n_tiles, k)
     for k0 in range(0, k, kc):
-        window_reduce(plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
-                      plan.lane, B, k0, min(kc, k - k0), C=Cd, alpha=alpha,
+        window_reduce(*args, k0, min(kc, k - k0), C=Cd, alpha=alpha,
                       beta=beta, out=out)
-    return out.to(torch.promote_types(C.dtype, dt))
+    return out

@@ -25,10 +25,14 @@ and xfoot SpMVs over routed shards of U at the bf16 route transport (f32
 values, K2' storing bf16, K1 on int16 tables; held at the transport's
 1e-2 relative bar), and the host-streamed
 (UM) modes, each untuned and tuned: `spmv_um_dist` and `spmm_um_dist`
-over W's windowed-COO bands, `spmm_um_mode1` over A's ELL bands.  It
+over W's windowed-COO bands, `spmm_um_mode1` over A's ELL bands.  Then
+the `bf16_*` cases: bf16 values through every container (segments, row
+blocks, every shard kind, halo DIA, hier, xfoot, UM shards and bands),
+on the same operands rounded to bf16, each result bf16 and held against
+the oracle at the JAX package's bf16 bound (rtol = atol = 0.15).  It
 raises if any rank
 fails; with `save_dir`, rank 0 writes every whole result to
-`save_dir/cases.npz`.
+`save_dir/cases.npz` (bf16 results as float32, exactly).
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ ROUTED_CONFIG = dict(routed_min_nnz=256, routed_min_width=256)
 # the bf16 route transport's bar against the oracle (relative), the JAX
 # package's for its CPU tests (tests/test_rspmv.py::TestBf16Transport)
 TRANSPORT_BAR = 1e-2
+# the JAX package's bound for bf16 values against the f64 oracle,
+# |got - want| <= BF16_TOL * (1 + |want|) (tests/test_ops_single_chip.py)
+BF16_TOL = 0.15
 PLANNED_KINDS = ("bsr", "ell", "dia", "wcoo", "coo")
 # the UM cases' device-memory budgets: several bands of each matrix
 UM_BUDGET = dict(A=4 << 10, W=64 << 10)
@@ -116,8 +123,16 @@ def run_cases(mesh) -> dict:
     results = {}
 
     def case(name, out, oracle, dim=None, on=mesh, bar=None):
+        if name.startswith("bf16_"):
+            require(out.dtype == torch.bfloat16, PartitionError,
+                    f"{name}: result is {out.dtype}, expected bf16")
         whole = sync_to_host(out, on, dim)
-        if bar is None:
+        if name.startswith("bf16_"):
+            err = np.abs(whole - want[oracle])
+            require(bool(np.all(err <= BF16_TOL * (1 + np.abs(want[oracle])))),
+                    PartitionError, f"{name}: max error {err.max()} outside "
+                    f"rtol = atol = {BF16_TOL}")
+        elif bar is None:
             assert_equal(whole, want[oracle])
         else:
             report = check_equal(whole, want[oracle], error_bar=bar,
@@ -206,7 +221,65 @@ def run_cases(mesh) -> dict:
             hs, t["BW"], a, b, t["CW"], mesh, tuning=tuning), "mmW")
         case(f"um_mode1_{tag}", spmm_um_mode1(hp, B, a, b, C, mesh,
                                               tuning=tuning), "mm", 1)
+    bf16_cases(mesh, mesh2, op, t, case)
     return results
+
+
+def bf16_cases(mesh, mesh2, op, t, case) -> None:
+    """The `bf16_*` cases of `run_cases`: every container built with bf16
+    values, every dense operand rounded to bf16 (through f32, as the
+    containers round their values)."""
+    from ..config import SBlasConfig
+    from ..memory import (host_resident_plan, host_resident_shards,
+                          spmm_um_dist, spmm_um_mode1, spmv_um_dist)
+    from ..ops import make_plan
+    from ..partition import partition_nnz_balanced, partition_row_blocks
+    from . import (partition_halo_dia, partition_row_plans, partition_xfoot,
+                   spmm_halo_planned, spmm_mode1, spmm_mode2,
+                   spmm_mode2_hier, spmm_mode2_planned, spmv_dist,
+                   spmv_dist_hier, spmv_dist_planned, spmv_halo, spmv_xfoot)
+    n, a, b = mesh.size, ALPHA, BETA
+    A, U, W = op["A"], op["U"], op["W"]
+    kw = dict(dtype=torch.bfloat16, device=mesh.device)
+    r = dict(kw, rank=mesh.rank)
+    routed = SBlasConfig(**ROUTED_CONFIG)
+    t = {k: v.float().to(torch.bfloat16) for k, v in t.items()}
+    B, C, x, y = t["B"], t["C"], t["x"], t["y"]
+    case("bf16_mode1_wcoo", spmm_mode1(make_plan(U, force="wcoo", **kw),
+                                       t["BU"], a, b, t["CU"], mesh),
+         "mmU", 1)
+    segs = partition_nnz_balanced(A, n, **kw)
+    case("bf16_mode2_psum", spmm_mode2(segs, B, a, b, C, mesh), "mm")
+    case("bf16_dist_psum_scatter", spmv_dist(segs, x, a, b, y, mesh,
+                                             "psum_scatter"), "mv", 0)
+    case("bf16_halo", spmv_halo(partition_row_blocks(A, n, **kw), x, a, b,
+                                y, mesh), "mv", 0)
+    for kind in PLANNED_KINDS:
+        sh = partition_row_plans(A, n, kind=kind, **r)
+        case(f"bf16_planned_{kind}_spmm", spmm_mode2_planned(
+            sh, B, a, b, C, mesh), "mm")
+    sh = partition_row_plans(U, n, kind="routed", config=routed, **r)
+    case("bf16_planned_routed_spmv", spmv_dist_planned(
+        sh, t["xU"], a, b, t["yU"], mesh, "psum_scatter"), "mvU", 0)
+    case("bf16_hier_routed_spmv", spmv_dist_hier(
+        sh, t["xU"], a, b, t["yU"], mesh2), "mvU", 0, mesh2.chips)
+    case("bf16_hier_spmm", spmm_mode2_hier(
+        partition_row_plans(A, n, **r), B, a, b, C, mesh2), "mm", 0,
+        mesh2.chips)
+    case("bf16_halo_planned_spmm", spmm_halo_planned(
+        partition_halo_dia(A, n, **r), B, a, b, C, mesh), "mm", 0)
+    case("bf16_xfoot", spmv_xfoot(partition_xfoot(A, n, **r), x, a, b, y,
+                                  mesh), "mv", 0)
+    case("bf16_xfoot_routed", spmv_xfoot(partition_xfoot(
+        U, n, kind="routed", extract="route", config=routed, **r),
+        t["xU"], a, b, t["yU"], mesh), "mvU", 0)
+    hs = host_resident_shards(W, n, hbm_budget_bytes=UM_BUDGET["W"], **r)
+    case("bf16_um_spmv_dist", spmv_um_dist(hs, t["xW"], a, b, t["yW"],
+                                           mesh), "mvW")
+    case("bf16_um_spmm_dist", spmm_um_dist(hs, t["BW"], a, b, t["CW"],
+                                           mesh), "mmW")
+    hp = host_resident_plan(A, hbm_budget_bytes=UM_BUDGET["A"], **kw)
+    case("bf16_um_mode1", spmm_um_mode1(hp, B, a, b, C, mesh), "mm", 1)
 
 
 def _rank_main(rank: int, n: int, store: str, save_dir) -> None:

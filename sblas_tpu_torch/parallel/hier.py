@@ -11,7 +11,8 @@ in two steps so the slow tier carries 1/c of the result:
 The result is row-blocked over the chips and the same in every slice.
 Rank i sits at (slice i // c, chip i % c), as in the JAX package, so the
 shards come from the same `partition_row_plans(A, s*c)` as the flat
-planned modes, and shard i runs on rank i.
+planned modes, and shard i runs on rank i.  Every row has one owner, so
+both tiers sum bf16 partials exactly, as the flat planned modes do.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from ..ops.plans import fold
 from ..utils.errors import PartitionError, ShapeError, require
 from .mesh import Mesh, all_reduce, reduce_scatter
 from .modes import own_rows, row_block
@@ -74,7 +76,8 @@ def _hier_finish(shards: RowPlanShards, local, alpha, beta, Y,
     mine = reduce_scatter(partial, mesh2.chips)            # (m_full/c, ...)
     # tier 2: sum the chip's row band across slices
     mine = all_reduce(mine, mesh2.slices)
-    out = beta * row_block(Y, mesh2.chips, m_full) + alpha * mine
+    out = fold(alpha, mine, beta, row_block(Y, mesh2.chips, m_full),
+               local.dtype)
     return own_rows(out, mesh2.chips, m)
 
 

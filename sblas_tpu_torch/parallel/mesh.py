@@ -195,9 +195,10 @@ def sync_to_host(part: torch.Tensor, mesh: Optional[Mesh] = None,
     `dim=None`: `part` is already whole (a replicated result).  Otherwise
     `part` is the rank's block along `dim` and the blocks, in rank order
     and of any lengths (the last ones are cut at the matrix edge), are
-    all-gathered over `mesh`."""
+    all-gathered over `mesh`.  numpy has no bfloat16: a bf16 result comes
+    back as float32, exactly."""
     if dim is None or mesh.size == 1:
-        return part.detach().cpu().numpy()
+        return _host_numpy(part.detach())
     group = _group_of(mesh)
     moved = part.detach().movedim(dim, 0).contiguous()
     n_local = torch.tensor([moved.shape[0]], dtype=torch.int64,
@@ -211,4 +212,9 @@ def sync_to_host(part: torch.Tensor, mesh: Optional[Mesh] = None,
     blocks = [torch.empty_like(padded) for _ in range(mesh.size)]
     dist.all_gather(blocks, padded, group=group)
     whole = torch.cat([b[:s] for b, s in zip(blocks, sizes)])
-    return whole.movedim(0, dim).cpu().numpy()
+    return _host_numpy(whole.movedim(0, dim))
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -24,6 +24,12 @@ block of columns (mode 1) or rows (psum_scatter, halo) where it is
 sharded, with the padding cut as the JAX wrappers cut it.
 `sync_to_host(out, mesh, dim)` assembles the whole.  The `*_nocomm` twins
 return the rank's partial without the collective (timing only).
+
+bf16 values: a mode-2 partial holds rows that straddle shards, so it stays
+in f32 (`plans.sum_dtype`), the collective sums f32, and the epilogue
+rounds each element once (`plans.fold`); the JAX package sums bf16
+partials and rounds a straddling row twice.  The result has the dtype the
+JAX package returns (bf16 for bf16 operands).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch.nn.functional as F
 
 from ..ops.bsr import BsrPlan, spmm_bsr
 from ..ops.dia import DiaPlan, spmm_dia
-from ..ops.plans import EllPlan
+from ..ops.plans import EllPlan, fold
 from ..ops.spmm import segment_spmm, spmm_ell
 from ..ops.spmv import segment_spmv
 from ..ops.wcoo import WcooPlan, spmm_wcoo
@@ -81,8 +87,9 @@ def _mode1_local(plan, B_blk, C_blk, alpha, beta):
         return spmm_wcoo(plan, B_blk, alpha, beta, C_blk)
     if isinstance(plan, EllPlan):
         return spmm_ell(plan, B_blk, alpha, beta, C_blk)
-    ab = segment_spmm(plan.rows, plan.cols, plan.vals, B_blk, plan.shape[0])
-    return beta * C_blk + alpha * ab
+    ab = segment_spmm(plan.rows, plan.cols, plan.vals, B_blk, plan.shape[0],
+                      keep_sum=True)
+    return fold(alpha, ab, beta, C_blk, plan.dtype)
 
 
 def spmm_mode1(plan, B, alpha, beta, C, mesh: Mesh) -> torch.Tensor:
@@ -106,13 +113,15 @@ def spmm_mode1(plan, B, alpha, beta, C, mesh: Mesh) -> torch.Tensor:
     return out[:, : max(min(kb, k - mesh.rank * kb), 0)]
 
 
-def _mode2_finish(partial, alpha, beta, Y, m, mesh, reduce):
-    """Sum the full-height partials over the mesh and fold alpha/beta."""
+def _mode2_finish(partial, alpha, beta, Y, m, mesh, reduce, dtype):
+    """Sum the full-height partials over the mesh and fold alpha/beta
+    (`dtype`: the segments' value type)."""
     if reduce == "psum":
-        return beta * Y + alpha * all_reduce(partial, mesh)
+        return fold(alpha, all_reduce(partial, mesh), beta, Y, dtype)
     m_pad = -(-m // mesh.size) * mesh.size
     mine = reduce_scatter(_pad_rows(partial, m_pad), mesh)
-    return own_rows(beta * row_block(Y, mesh, m_pad) + alpha * mine, mesh, m)
+    return own_rows(fold(alpha, mine, beta, row_block(Y, mesh, m_pad),
+                         dtype), mesh, m)
 
 
 def spmm_mode2(segs: CooSegments, B, alpha, beta, C, mesh: Mesh,
@@ -129,7 +138,8 @@ def spmm_mode2(segs: CooSegments, B, alpha, beta, C, mesh: Mesh,
             f"A width {segs.shape[1]} != B height {B.shape[0]}")
     m = segs.shape[0]
     partial = spmm_mode2_nocomm(segs, B, mesh)
-    return _mode2_finish(partial, alpha, beta, C, m, mesh, reduce)
+    return _mode2_finish(partial, alpha, beta, C, m, mesh, reduce,
+                         segs.vals.dtype)
 
 
 def spmv_dist(segs: CooSegments, x, alpha, beta, y, mesh: Mesh,
@@ -145,23 +155,24 @@ def spmv_dist(segs: CooSegments, x, alpha, beta, y, mesh: Mesh,
             f"A width {segs.shape[1]} != x length {x.shape[0]}")
     m = segs.shape[0]
     partial = spmv_dist_nocomm(segs, x, mesh)
-    return _mode2_finish(partial, alpha, beta, y, m, mesh, reduce)
+    return _mode2_finish(partial, alpha, beta, y, m, mesh, reduce,
+                         segs.vals.dtype)
 
 
 def spmm_mode2_nocomm(segs: CooSegments, B, mesh: Mesh) -> torch.Tensor:
-    """Diagnostic: the rank's full-height mode-2 partial WITHOUT the sum
-    collective, for the comm/compute split the CLIs report (the
-    reference prints per-GPU NCCL time, spmm.h:258-271)."""
+    """Diagnostic: the rank's full-height mode-2 partial (in the summing
+    type) WITHOUT the sum collective, for the comm/compute split the CLIs
+    report (the reference prints per-GPU NCCL time, spmm.h:258-271)."""
     r = mesh.rank
     return segment_spmm(segs.rows[r], segs.cols[r], segs.vals[r], B,
-                        segs.shape[0])
+                        segs.shape[0], keep_sum=True)
 
 
 def spmv_dist_nocomm(segs: CooSegments, x, mesh: Mesh) -> torch.Tensor:
     """Diagnostic twin of `spmv_dist` without the collective."""
     r = mesh.rank
     return segment_spmv(segs.rows[r], segs.cols[r], segs.vals[r], x,
-                        segs.shape[0])
+                        segs.shape[0], keep_sum=True)
 
 
 def spmv_halo(blocks: RowBlocks, x, alpha, beta, y, mesh: Mesh
@@ -188,6 +199,6 @@ def spmv_halo(blocks: RowBlocks, x, alpha, beta, y, mesh: Mesh
     # is a no-op for valid partitions (halo <= r checked above)
     local_cols = torch.clamp(blocks.cols[s] - (s * r - r), 0, 3 * r - 1)
     partial = segment_spmv(blocks.local_rows[s], local_cols, blocks.vals[s],
-                           x_ext, r)
-    return own_rows(beta * row_block(y, mesh, m_pad) + alpha * partial,
-                    mesh, m)
+                           x_ext, r, keep_sum=True)
+    return own_rows(fold(alpha, partial, beta, row_block(y, mesh, m_pad),
+                         blocks.vals.dtype), mesh, m)

@@ -18,7 +18,12 @@ stack them for one `shard_map` program:
   per-shard DIA plan over the [left | own | right] window.
 
 Operands and results follow `modes.py`: global operands in, the rank's
-part out.
+part out.  Shards take float32, float64 or bfloat16 values; a bf16 shard
+runs the bf16 variants of the kernels (K2' and K1 for routed shards, K3
+for windowed-COO ones).  Each row lies in one shard, so a bf16 partial
+holds one shard's product beside zeros and its bf16 collective is exact,
+as the JAX package's bf16 psum is; the epilogue then rounds once
+(`plans.fold`).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..ops.bsr import BsrPlan, bell_arrays, bell_stats, spmm_bsr, spmv_bsr
 from ..ops.dia import DiaPlan, dia_arrays, spmm_dia, spmv_dia
-from ..ops.plans import EllPlan, ell_arrays, np_value_dtype
+from ..ops.plans import EllPlan, ell_arrays, fold, host_value_dtype
 from ..ops.spmm import spmm_coo, spmm_ell
 from ..ops.spmv import spmv_coo, spmv_ell
 from ..partition import partition_row_blocks
@@ -147,7 +152,7 @@ def build_stacked_plans(locals_, kind: str, band_rows: int, width: int,
     CPU.  Returns (plans, kind): the JAX package stacks the plans for one
     `shard_map` program; here they stay one per shard.  `kind` may
     degrade (wcoo -> coo) when tile-splitting blows up."""
-    np_val = np_value_dtype(dtype)
+    np_val = host_value_dtype(dtype)
     if kind == "routed":
         # shared static sizes make every static field — and hence the
         # route-layer schedules — equal across shards
@@ -177,7 +182,7 @@ def build_stacked_plans(locals_, kind: str, band_rows: int, width: int,
             plans.append(BsrPlan.from_numpy(
                 dict(vals=vals.astype(np_val), bcol=bcol.astype(np.int32)),
                 dict(shape=(band_rows, width), nnz=nnz,
-                     block=tuple(config.bsr_block)), "cpu"))
+                     block=tuple(config.bsr_block)), "cpu", dtype=dtype))
     elif kind == "ell":
         raw = [ell_arrays(sub) for sub in locals_]
         L = max(c.shape[1] for c, _ in raw)
@@ -187,7 +192,7 @@ def build_stacked_plans(locals_, kind: str, band_rows: int, width: int,
             vals = np.pad(vals, ((0, 0), (0, L - vals.shape[1])))
             plans.append(EllPlan.from_numpy(
                 dict(cols=cols.astype(np.int32), vals=vals.astype(np_val)),
-                dict(shape=(band_rows, width), nnz=nnz), "cpu"))
+                dict(shape=(band_rows, width), nnz=nnz), "cpu", dtype=dtype))
     elif kind == "dia":
         offs = _union_offsets(locals_)
         plans = []
@@ -196,7 +201,7 @@ def build_stacked_plans(locals_, kind: str, band_rows: int, width: int,
             plans.append(DiaPlan.from_numpy(
                 dict(vals=vals.astype(np_val)),
                 dict(offsets=offs_t, shape=(band_rows, width), nnz=nnz),
-                "cpu"))
+                "cpu", dtype=dtype))
     elif kind in ("wcoo", "coo"):
         # per-shard windowed-COO (the unstructured workhorse) or plain COO
         # segments, built by the band-plan machinery (shared static dims;
@@ -271,10 +276,11 @@ def _planned_finish(shards, local, alpha, beta, Y, mesh, reduce):
     m_full = _round_up(m + shards.band_rows, mesh.size * 128)
     partial = full_height(local, shards.row_offsets[mesh.rank], m_full)
     if reduce == "psum":
-        return beta * Y + alpha * all_reduce(partial, mesh)[:m]
+        return fold(alpha, all_reduce(partial, mesh)[:m], beta, Y,
+                    local.dtype)
     mine = reduce_scatter(partial, mesh)
-    return own_rows(beta * row_block(Y, mesh, m_full) + alpha * mine,
-                    mesh, m)
+    return own_rows(fold(alpha, mine, beta, row_block(Y, mesh, m_full),
+                         local.dtype), mesh, m)
 
 
 def _check_planned(shards, mesh, reduce, width, what):
@@ -359,13 +365,14 @@ def partition_halo_dia(A: CsrMatrix, n_shards: int, dtype=torch.float32,
         subs.append(_local_csr(A, r0, r1, r, col_shift=r - s * r,
                                width=3 * r))
     offs = _union_offsets(subs)
-    np_val = np_value_dtype(dtype)
+    np_val = host_value_dtype(dtype)
     plans = []
     for sub in subs:
         vals, offs_t = dia_arrays(sub, offsets=offs, n_rows=r)
         plans.append(DiaPlan.from_numpy(
             dict(vals=vals.astype(np_val)),
-            dict(offsets=offs_t, shape=(r, 3 * r), nnz=A.nnz), "cpu"))
+            dict(offsets=offs_t, shape=(r, 3 * r), nnz=A.nnz), "cpu",
+            dtype=dtype))
     return HaloDiaShards(plans=_placed(plans, device, rank), shape=A.shape,
                          nnz=A.nnz, n_shards=n_shards, rows_per_shard=r)
 
@@ -387,8 +394,8 @@ def spmv_halo_planned(shards: HaloDiaShards, x, alpha, beta, y, mesh: Mesh
     plan, x_ext = _halo_window(shards, x, mesh)
     m_pad = shards.rows_per_shard * mesh.size
     z = torch.zeros(plan.shape[0], dtype=plan.dtype, device=x.device)
-    out = (beta * row_block(y, mesh, m_pad)
-           + alpha * spmv_dia(plan, x_ext, 1.0, 0.0, z))
+    out = fold(alpha, spmv_dia(plan, x_ext, 1.0, 0.0, z), beta,
+               row_block(y, mesh, m_pad), plan.dtype)
     return own_rows(out, mesh, shards.shape[0])
 
 
@@ -404,6 +411,6 @@ def spmm_halo_planned(shards: HaloDiaShards, B, alpha, beta, C, mesh: Mesh
     m_pad = shards.rows_per_shard * mesh.size
     z = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
                     device=B.device)
-    out = (beta * row_block(C, mesh, m_pad)
-           + alpha * spmm_dia(plan, B_ext, 1.0, 0.0, z))
+    out = fold(alpha, spmm_dia(plan, B_ext, 1.0, 0.0, z), beta,
+               row_block(C, mesh, m_pad), plan.dtype)
     return own_rows(out, mesh, shards.shape[0])

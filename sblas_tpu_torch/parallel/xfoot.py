@@ -29,7 +29,8 @@ As in `planned.py`, the plans are held per shard (`XFootShards.plans[s]`
 equals row s of the JAX package's stacked tables), `rank=` places only
 the rank's shard, every function runs on every rank with global operands,
 and the result is the rank's rows.  `xfoot_stats` gives the exchange
-geometry without building plans.
+geometry without building plans.  At bf16 values the hot all-reduce adds
+zeros to each column's one owner, so it is exact in bf16.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from ..ops.plans import fold
 from ..utils.errors import PartitionError, ShapeError, require
 from .mesh import Mesh, all_reduce, all_to_all
 from .modes import own_rows, row_block
@@ -481,7 +483,8 @@ def spmv_xfoot(shards: XFootShards, x, alpha, beta, y, mesh: Mesh
             f"A width {shards.shape[1]} != x length {x.shape[0]}")
     local = _xfoot_local(shards, x, mesh, nocomm=False)
     y_blk = row_block(y, mesh, shards.band_rows * mesh.size)
-    return own_rows(beta * y_blk + alpha * local, mesh, shards.shape[0])
+    return own_rows(fold(alpha, local, beta, y_blk, local.dtype), mesh,
+                    shards.shape[0])
 
 
 def spmv_xfoot_nocomm(shards: XFootShards, x, mesh: Mesh) -> torch.Tensor:

@@ -15,7 +15,9 @@ arrays are byte-identical to the JAX package's.
   column reach beyond the block recorded so the exchange is sized ahead.
 
 The stacked tensors lie on an explicit `device`; every rank holds all
-shards (COO is cheap) and reads row `rank`.
+shards (COO is cheap) and reads row `rank`.  Values are float32, float64
+or bfloat16 (laid out in float32 on the host and narrowed once, as the
+single-device plans are).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from .config import DEFAULT, SBlasConfig
 from .containers import CsrMatrix
-from .ops.plans import np_value_dtype
+from .ops.plans import host_value_dtype
 from .utils.errors import PartitionError, require
 
 
@@ -36,8 +38,10 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """`a` on `device`, narrowed to `dtype` on the host first when given."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return (t if dtype is None else t.to(dtype)).to(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +101,7 @@ def partition_nnz_balanced(A: CsrMatrix, n_shards: int, dtype=torch.float32,
     return CooSegments(
         rows=_tensor(rows.astype(np.int32), device),
         cols=_tensor(cols.astype(np.int32), device),
-        vals=_tensor(vals.astype(np_value_dtype(dtype)), device),
+        vals=_tensor(vals.astype(host_value_dtype(dtype)), device, dtype),
         shape=A.shape, nnz=A.nnz, n_shards=n_shards,
         starting_rows=tuple(starting), stopping_rows=tuple(stopping))
 
@@ -174,7 +178,7 @@ def partition_row_blocks(A: CsrMatrix, n_shards: int, dtype=torch.float32,
 
     return RowBlocks(
         cols=_tensor(cols.astype(np.int32), device),
-        vals=_tensor(vals.astype(np_value_dtype(dtype)), device),
+        vals=_tensor(vals.astype(host_value_dtype(dtype)), device, dtype),
         local_rows=_tensor(lrow.astype(np.int32), device),
         shape=A.shape, nnz=A.nnz, n_shards=n_shards,
         rows_per_shard=rows_per_shard,

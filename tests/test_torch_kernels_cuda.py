@@ -1250,3 +1250,174 @@ def test_bf16_plans_on_card_match_cpu(dev, kind):
     torch.testing.assert_close(got.float(),
                                spmm(plan, B, 1.0, 1.0, C).float(),
                                rtol=0.15, atol=0.15)
+
+
+# ---- bf16 values through the distributed and host-streamed containers ----
+
+@pytest.fixture(scope="module")
+def nccl1(tmp_path_factory):
+    """A world-1 NCCL group through a FileStore, its mesh and 1x1 two-tier
+    mesh; destroyed at teardown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import torch.distributed as dist
+    from sblas_tpu_torch import parallel as tpar
+    dev = torch.device("cuda", 0)
+    store = tmp_path_factory.mktemp("nccl") / "s"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        yield tpar.make_mesh(1, device=dev), tpar.make_mesh2(1, 1, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _bf16_dist_case(name, dev, mesh, mesh2):
+    """(matrix, op, run(A, x or B, y or C), the launches by variant it
+    must make, or None to count them from the built container)."""
+    from sblas_tpu_torch import memory as tmem
+    from sblas_tpu_torch import parallel as tpar
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.partition import partition_nnz_balanced
+    kw = dict(dtype=BF16, device=dev)
+    a, b = 3.0, 4.0
+    web = webbase_like(n=20_000, avg_deg=4.0, dtype=np.float64)
+    band = fem_banded_like(n=3000, half_band=36)
+    return {
+        "mode1_wcoo": (web, "mm", lambda A, B, C: tpar.spmm_mode1(
+            make_plan(A, force="wcoo", **kw), B, a, b, C, mesh)),
+        "mode1_bsr": (band, "mm", lambda A, B, C: tpar.spmm_mode1(
+            make_plan(A, force="bsr", **kw), B, a, b, C, mesh)),
+        "mode2": (web, "mm", lambda A, B, C: tpar.spmm_mode2(
+            partition_nnz_balanced(A, 1, **kw), B, a, b, C, mesh)),
+        "dist": (web, "mv", lambda A, x, y: tpar.spmv_dist(
+            partition_nnz_balanced(A, 1, **kw), x, a, b, y, mesh)),
+        "planned_routed": (web, "mv", lambda A, x, y: tpar.spmv_dist_planned(
+            tpar.partition_row_plans(A, 1, kind="routed", **kw), x, a, b, y,
+            mesh)),
+        "hier_routed": (web, "mv", lambda A, x, y: tpar.spmv_dist_hier(
+            tpar.partition_row_plans(A, 1, kind="routed", **kw), x, a, b, y,
+            mesh2)),
+        "xfoot_routed": (web, "mv", lambda A, x, y: tpar.spmv_xfoot(
+            tpar.partition_xfoot(A, 1, kind="routed", **kw), x, a, b, y,
+            mesh)),
+        "planned_wcoo": (web, "mm", lambda A, B, C: tpar.spmm_mode2_planned(
+            tpar.partition_row_plans(A, 1, kind="wcoo", **kw), B, a, b, C,
+            mesh)),
+        "halo_planned": (band, "mm", lambda A, B, C: tpar.spmm_halo_planned(
+            tpar.partition_halo_dia(A, 1, **kw), B, a, b, C, mesh)),
+        "um": (web, "mm", lambda A, B, C: tmem.spmm_um(
+            tmem.host_resident_plan(A, hbm_budget_bytes=1 << 20, **kw), B,
+            a, b, C)),
+        "um_dist": (web, "mm", lambda A, B, C: tmem.spmm_um_dist(
+            tmem.host_resident_shards(A, 1, hbm_budget_bytes=1 << 20, **kw),
+            B, a, b, C, mesh)),
+        "um_mode1": (web, "mm", lambda A, B, C: tmem.spmm_um_mode1(
+            tmem.host_resident_plan(A, hbm_budget_bytes=1 << 20, **kw), B,
+            a, b, C, mesh)),
+        "um_spmv_dist": (web, "mv", lambda A, x, y: tmem.spmv_um_dist(
+            tmem.host_resident_shards(A, 1, hbm_budget_bytes=1 << 20, **kw),
+            x, a, b, y, mesh)),
+    }[name]
+
+
+BF16_DIST = {   # the kernels each path may launch, by variant
+    "mode1_wcoo": {"window_reduce_bf16"}, "mode1_bsr": set(),
+    "mode2": set(), "dist": set(),
+    "planned_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
+    "hier_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
+    "xfoot_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
+    "planned_wcoo": {"window_reduce_bf16"}, "halo_planned": set(),
+    "um": {"window_reduce_bf16"}, "um_dist": {"window_reduce_bf16"},
+    "um_mode1": {"window_reduce_bf16"}, "um_spmv_dist": set(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_DIST))
+def test_bf16_dist_and_streamed_paths_on_card(dev, nccl1, name):
+    """Each distributed and streamed path over bf16 containers on the
+    card: a bf16 result within the JAX package's bound of the f64 oracle
+    (rtol = atol = 0.15), launching only the bf16 variants named (K3's
+    `bf16`, never `bf16_ragged`, at K = 64; K2', never K2; no K4 on the
+    BELL path) and each of them."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.containers import DenseMatrix
+    from sblas_tpu_torch.ops.cpu_reference import spmm_cpu, spmv_cpu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh, mesh2 = nccl1
+    A, op, run = _bf16_dist_case(name, dev, mesh, mesh2)
+    k = 256 if name == "mode1_bsr" else (64 if op == "mm" else 1)
+    X = DenseMatrix.random(A.width, k).values.astype(np.float32)
+    Y = np.ones((A.height, k), np.float32)
+    if op == "mv":
+        X, Y = X[:, 0].copy(), Y[:, 0].copy()
+    Xd, Yd = (torch.from_numpy(v).to(BF16).to(dev) for v in (X, Y))
+    _kernels.LAUNCHED.clear()
+    got = run(A, Xd, Yd)
+    torch.cuda.synchronize()
+    ran = {key[len("sblas_"):] for key in _kernels.LAUNCHED}
+    assert ran == BF16_DIST[name], ran
+    assert got.dtype == BF16
+    got = got.double().cpu().numpy()
+    if op == "mm":
+        want = spmm_cpu(A, DenseMatrix(X.astype(np.float64)), 3.0, 4.0,
+                        DenseMatrix(Y.astype(np.float64)))
+    else:
+        want = spmv_cpu(A, DenseVector(X.astype(np.float64)), 3.0, 4.0,
+                        DenseVector(Y.astype(np.float64)))
+    assert np.all(np.abs(got - want) <= 0.15 * (1 + np.abs(want)))
+
+
+def test_bf16_bands_pinned_as_bf16(dev):
+    """A bf16 host-resident plan pins bf16 values, so a streamed call
+    copies bf16 bytes: half the f32 plan's value bytes per band slot."""
+    from sblas_tpu_torch import memory as tmem
+    from sblas_tpu_torch.memory.host import tensor_fields
+    A = webbase_like(n=20_000, avg_deg=4.0, dtype=np.float64)
+    hp = tmem.host_resident_plan(A, dtype=BF16, hbm_budget_bytes=1 << 20,
+                                 device=dev)
+    assert all(b.vals.dtype == BF16 and b.vals.is_pinned()
+               and all(getattr(b, f).is_pinned() for f in tensor_fields(b))
+               for b in hp.bands)
+    x = torch.rand(A.width, device=dev).to(BF16)
+    y = torch.ones(A.height, device=dev, dtype=BF16)
+    out = tmem.spmv_um(hp, x, 3.0, 4.0, y)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    assert hp.last_stream.bytes == hp.band_bytes
+    grid = tmem.host_resident_grid(A, dtype=BF16, hbm_budget_bytes=1 << 20,
+                                   k=8, device=dev)
+    assert all(c.vals.dtype == BF16 and c.vals.is_pinned()
+               for c in grid.cells.values())
+    hd = tmem.HostDense.from_array(torch.ones((4, 2), dtype=BF16),
+                                   device=dev)
+    assert hd.values.dtype == BF16 and hd.values.is_pinned()
+
+
+@pytest.mark.parametrize("plan_dtype,c_dtype", [
+    (BF16, torch.float32), (torch.float32, torch.float64)])
+def test_spmm_wcoo_keeps_a_wider_c_on_card(dev, plan_dtype, c_dtype):
+    """A C wider than the plan on the card: K3 forms A@B in the plan's
+    dtype (one call per chunk, its grid form) and the epilogue runs in C's,
+    so the result is off the plan's grid and equals beta*C + alpha*(K3's
+    grid-form product on the card) to C's own rounding."""
+    from sblas_tpu_torch.ops import wcoo as tw
+    A = webbase_like(n=20_000, avg_deg=4.0, dtype=np.float64)
+    plan = make_plan(A, dtype=plan_dtype, force="wcoo", device="cpu")
+    g = torch.Generator().manual_seed(0)
+    B = torch.rand((A.width, 64), generator=g, dtype=torch.float64)
+    C = torch.rand((A.height, 64), generator=g, dtype=torch.float64) * 1000
+    B, C = B.to(c_dtype), (C + 1).to(c_dtype)
+    tw.window_reduce.launches = 0
+    got = tw.spmm_wcoo(plan.to(dev), B.to(dev), 3.0, 4.0, C.to(dev)).cpu()
+    assert tw.window_reduce.launches == -(-64 // tw.k_chunk_width(
+        plan.n_tiles, 64))
+    assert got.dtype == c_dtype
+    assert not torch.equal(got, got.to(plan_dtype).to(c_dtype))
+    p = plan.to(dev)
+    ab = tw.window_reduce(p.k3, p.wb, p.relrow, p.vals, p.xblk, p.lane,
+                          B.to(plan_dtype).to(dev), 0, 64)[:A.height].cpu()
+    kept = 4.0 * C.double() + 3.0 * ab.double()
+    rel = ((got.double() - kept).abs() / kept.abs()).max()
+    assert rel <= torch.finfo(c_dtype).eps, rel

@@ -5,7 +5,9 @@ distributed mode per rank, in a group of one and in a group of four
 Results are held against the JAX package (make_mesh(1), make_mesh(4),
 make_mesh2(2, 2)) to 1e-12 in f64, and against the numpy oracle; the
 bf16-transport cases (f32 values, bf16 contributions) to f32 summation
-order, 1e-5 relative, and the oracle at the transport's 1e-2 relative.  The
+order, 1e-5 relative, and the oracle at the transport's 1e-2 relative; the
+`bf16_*` cases (bf16 values) on the bf16 grid, within 2^-7 normwise of the
+JAX package's bf16 result, both at the oracle's rtol = atol = 0.15.  The
 four-rank results come from one spawned run of
 `sblas_tpu_torch.parallel.dryrun.dryrun_multichip(4)`, which also checks
 every case against the oracle on every rank."""
@@ -67,7 +69,17 @@ ORACLE = {
     **{f"um_{op}_t{t}": oracle for t in (0, 1)
        for op, oracle in (("spmv_dist", "mvW"), ("spmm_dist", "mmW"),
                           ("mode1", "mm"))},
+    "bf16_mode1_wcoo": "mmU", "bf16_mode2_psum": "mm",
+    "bf16_dist_psum_scatter": "mv", "bf16_halo": "mv",
+    **{f"bf16_planned_{k}_spmm": "mm" for k in dryrun.PLANNED_KINDS},
+    "bf16_planned_routed_spmv": "mvU", "bf16_hier_routed_spmv": "mvU",
+    "bf16_hier_spmm": "mm", "bf16_halo_planned_spmm": "mm",
+    "bf16_xfoot": "mv", "bf16_xfoot_routed": "mvU",
+    "bf16_um_spmv_dist": "mvW", "bf16_um_spmm_dist": "mmW",
+    "bf16_um_mode1": "mm",
 }
+# bf16_* cases: the port's result against the JAX package's, normwise
+BF16_NORMWISE = 2.0 ** -7
 CASES = sorted(ORACLE)
 
 
@@ -168,13 +180,75 @@ def _jax_cases(n):
             hs, d["BW"], A_, B_, d["CW"], mesh, tuning=bool(t))
         out[f"um_mode1_t{t}"] = jmem.spmm_um_mode1(hp, B, A_, B_, C, mesh,
                                                    tuning=bool(t))
+    out.update(_jax_bf16_cases(n, mesh, mesh2))
     return {k: np.asarray(jax.device_get(v)) for k, v in out.items()}
+
+
+def _jax_bf16_cases(n, mesh, mesh2):
+    """The JAX package's result of every `bf16_*` case (dryrun.bf16_cases),
+    the dense operands rounded to bf16 through f32."""
+    A, U, W, d, _ = _operands(n)
+    bf = jnp.bfloat16
+    d = {k: v.astype(jnp.float32).astype(bf) for k, v in d.items()}
+    B, C, x, y = d["B"], d["C"], d["x"], d["y"]
+    routed = JConfig(**dryrun.ROUTED_CONFIG)
+    out = {"bf16_mode1_wcoo": jpar.spmm_mode1(
+        jops.make_plan(U, dtype=bf, force="wcoo"), d["BU"], A_, B_, d["CU"],
+        mesh)}
+    segs = j_nnz_balanced(A, n, dtype=bf)
+    out["bf16_mode2_psum"] = jpar.spmm_mode2(segs, B, A_, B_, C, mesh)
+    out["bf16_dist_psum_scatter"] = jpar.spmv_dist(
+        segs, x, A_, B_, y, mesh, reduce="psum_scatter")
+    out["bf16_halo"] = jpar.spmv_halo(j_row_blocks(A, n, dtype=bf), x, A_,
+                                      B_, y, mesh)
+    for kind in dryrun.PLANNED_KINDS:
+        out[f"bf16_planned_{kind}_spmm"] = jpar.spmm_mode2_planned(
+            jpar.partition_row_plans(A, n, dtype=bf, kind=kind), B, A_, B_,
+            C, mesh)
+    sh = jpar.partition_row_plans(U, n, dtype=bf, kind="routed",
+                                  config=routed)
+    out["bf16_planned_routed_spmv"] = jpar.spmv_dist_planned(
+        sh, d["xU"], A_, B_, d["yU"], mesh, reduce="psum_scatter")
+    out["bf16_hier_routed_spmv"] = jpar.spmv_dist_hier(
+        sh, d["xU"], A_, B_, d["yU"], mesh2)
+    out["bf16_hier_spmm"] = jpar.spmm_mode2_hier(
+        jpar.partition_row_plans(A, n, dtype=bf), B, A_, B_, C, mesh2)
+    out["bf16_halo_planned_spmm"] = jpar.spmm_halo_planned(
+        jpar.partition_halo_dia(A, n, dtype=bf), B, A_, B_, C, mesh)
+    out["bf16_xfoot"] = jpar.spmv_xfoot(jpar.partition_xfoot(A, n, dtype=bf),
+                                        x, A_, B_, y, mesh)
+    out["bf16_xfoot_routed"] = jpar.spmv_xfoot(
+        jpar.partition_xfoot(U, n, dtype=bf, kind="routed", extract="route",
+                             config=routed), d["xU"], A_, B_, d["yU"], mesh)
+    hs = jmem.host_resident_shards(W, n, dtype=bf,
+                                   hbm_budget_bytes=dryrun.UM_BUDGET["W"])
+    out["bf16_um_spmv_dist"] = jmem.spmv_um_dist(hs, d["xW"], A_, B_,
+                                                 d["yW"], mesh)
+    out["bf16_um_spmm_dist"] = jmem.spmm_um_dist(hs, d["BW"], A_, B_,
+                                                 d["CW"], mesh)
+    hp = jmem.host_resident_plan(A, dtype=bf,
+                                 hbm_budget_bytes=dryrun.UM_BUDGET["A"])
+    out["bf16_um_mode1"] = jmem.spmm_um_mode1(hp, B, A_, B_, C, mesh)
+    assert all(v.dtype == bf for v in out.values())
+    return out
 
 
 def _assert_case(n, name, got):
     want_j = _jax_cases(n)[name]
     oracle = _operands(n)[4][ORACLE[name]]
     assert got.shape == want_j.shape == oracle.shape
+    if name.startswith("bf16_"):
+        # bf16 results come back as float32 (numpy has no bfloat16)
+        assert got.dtype == np.float32
+        assert np.array_equal(got, got.astype(jnp.bfloat16).astype(
+            np.float32))
+        want_j = want_j.astype(np.float32)
+        gap = np.linalg.norm(got - want_j) / np.linalg.norm(want_j)
+        assert gap <= BF16_NORMWISE, gap
+        for v in (got, want_j):
+            assert np.all(np.abs(v - oracle)
+                          <= dryrun.BF16_TOL * (1 + np.abs(oracle)))
+        return
     if name.endswith("_bf16"):
         assert got.dtype == np.float32
         assert check_equal(got, want_j, error_bar=1e-5, relative=True).ok

@@ -260,6 +260,38 @@ def test_spmm_wcoo_result_dtype_with_another_c_dtype(plan_dtype, c_dtype,
                        error_bar=bar, relative=True).ok
 
 
+@pytest.mark.parametrize("plan_dtype,c_dtype,jax_dtypes,bar", [
+    (torch.bfloat16, torch.float32, (jnp.bfloat16, jnp.float32), 2.0 ** -7),
+    (torch.float32, torch.float64, (jnp.float32, jnp.float64), 1e-5)])
+def test_spmm_wcoo_keeps_a_wider_c(plan_dtype, c_dtype, jax_dtypes, bar):
+    """C wider than the plan: K3 forms A@B in the plan's dtype and the
+    epilogue runs in C's, so C is never rounded to the plan's dtype.  The
+    result is off the plan dtype's grid, equals beta*C + alpha*(K3's
+    product) to C's own rounding, and meets the JAX package's spmm_wcoo
+    (which keeps C in its dtype) at the plan dtype's error."""
+    A = jgen.webbase_like(n=2000, avg_deg=3.0)
+    rng = np.random.RandomState(0)
+    B = rng.rand(A.width, 8)
+    C = rng.rand(A.height, 8) * 1000 + 1
+    tp = tw.WcooPlan.from_csr(_port(A), dtype=plan_dtype, device="cpu")
+    Ct = torch.from_numpy(C).to(c_dtype)
+    got = tw.spmm_wcoo(tp, torch.from_numpy(B).to(c_dtype), ALPHA, BETA, Ct)
+    assert got.dtype == c_dtype
+    assert not torch.equal(got, got.to(plan_dtype).to(c_dtype))
+    ab = tw.window_reduce_plain(tp.k3, tp.wb, tp.relrow, tp.vals, tp.xblk,
+                                tp.lane, torch.from_numpy(B).to(plan_dtype),
+                                0, 8)[:A.height]
+    kept = BETA * Ct.double() + ALPHA * ab.double()
+    eps = torch.finfo(c_dtype).eps
+    assert bool(((got.double() - kept).abs() <= eps * kept.abs()).all())
+    jp = jw.WcooPlan.from_csr(A, dtype=jax_dtypes[0])
+    want = np.asarray(jw.spmm_wcoo(jp, jnp.asarray(B, jax_dtypes[1]), ALPHA,
+                                   BETA, jnp.asarray(C, jax_dtypes[1])))
+    assert want.dtype == got.numpy().dtype
+    rel = np.abs(got.numpy() - want) / np.abs(want)
+    assert rel.max() <= bar, rel.max()
+
+
 def test_bf16_variant_choices():
     """`bf16` needs B's row stride, k0 and width in multiples of 8 and B,
     C and out on 16 bytes; anything else takes `bf16_ragged`."""
