@@ -81,10 +81,18 @@ and the distribution layer in a world-1 NCCL group:
         K2' f32 -> bf16 at that plan's tiles (and bf16 -> bf16 at a
         bf16-valued plan's), K3 bf16 at webbase x K=64 in both forms (its
         `bf16` variant, 16-byte loads on 8-lane groups) and its
-        `bf16_ragged` variant at k0 = 1 (and on the SpMM at K=63 that
-        takes it), K4 bf16 (wgmma
+        `bf16_ragged` variant, each body its launcher picks held on the
+        path that runs it (counted by body, `_kernels.BODIES`): the
+        two-column loop at the SpMM at K=63's operands and on that SpMM
+        (an odd stride), the masked body (the same lanes on whole words,
+        columns counted from the word before k0) at k0 = 1 and on the
+        webbase bf16 SpMM at K=128's two chunks of 81 and 47 columns and
+        on that SpMM; bitwise the `bf16` variant's result on aligned
+        copies at k0 = 1, 56 columns, both forms), K4 bf16 (wgmma
         fed by TMA, its `bf16` variant, checked) at band-73 x K=256 and
-        (`bf16_ragged`, mma.sync with element copies, checked) at K=263,
+        (`bf16_ragged`, wgmma on B's rows brought by TMA as 8-row groups
+        and shifted into place, checked) at K=263 and, off the path,
+        K=300,
         with library yardsticks (`torch.gather` on int32 indices; bf16
         `torch.sparse.mm` / `torch.addmm` on CSR where the torch build
         has them); informational, K4 bf16 on the shell's bf16 BELL plan
@@ -286,12 +294,14 @@ def checked(title, got, want):
 
 def launches_of(counters: dict, fn):
     """Run `fn` with every kernel counter set to 0 just before; return its
-    result and the counts just after (`_kernels.LAUNCHED`, cleared too,
-    then holds the run's launches by variant)."""
+    result and the counts just after (`_kernels.LAUNCHED` and
+    `_kernels.BODIES`, cleared too, then hold the run's launches by
+    variant and by body)."""
     from sblas_tpu_torch import _kernels
     for c in counters.values():
         c.launches = 0
     _kernels.LAUNCHED.clear()
+    _kernels.BODIES.clear()
     out = fn()
     torch.cuda.synchronize()
     return out, {name: c.launches for name, c in counters.items()}
@@ -1164,35 +1174,67 @@ def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
     return wp
 
 
-def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
-                   kernels) -> None:
-    """K3[bf16_ragged]: the fused form at k0 = 1 (63 columns, an odd
-    offset) within one bf16 ulp of its plain version, timed with its
-    bound; then the SpMM at K=63 (B, C and the oracle cut to their first
-    63 columns), which takes `bf16_ragged` for its whole chunk."""
+def body_launches(title, expect: dict) -> dict:
+    """The last `launches_of` run's K3[bf16_ragged] launches by the body
+    its launcher ran (`_kernels.BODIES`: `masked`, the `bf16` sub-warp
+    rows on whole words; `two_column`, the two-column loop), which must be
+    `expect`."""
     from sblas_tpu_torch import _kernels
-    from sblas_tpu_torch.ops import spmm
-    from sblas_tpu_torch.ops.wcoo import (k_chunk_width, window_reduce,
-                                          window_reduce_plain)
-    KR = B16.shape[1] - 1
-    args = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane, B16, 1, KR)
-    epi = dict(C=C16, alpha=ALPHA, beta=BETA)
-    # outs start as C (the call writes columns 1..63); the kernel's calls
-    # take the two in turns, so `compare` holds two launches' results
-    outs = [C16.clone(), C16.clone()]
+    got = {k[len("window_reduce_bf16_ragged."):]: v
+           for k, v in _kernels.BODIES.items()}
+    if got != expect:
+        raise AssertionError(f"{title}: K3[bf16_ragged] launches by body "
+                             f"{got}, expected {expect}")
+    return got
+
+
+def ragged_compare(name, calls, C, body):
+    """K3[bf16_ragged] in the fused form over `calls` ((B, k0, width, tabs)
+    each, into one out that starts as C) against its plain version on the
+    same inputs, within one bf16 ulp, two launches bitwise; every launch
+    must be `bf16_ragged` on `body`.  Returns `compare`'s tuple."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops.wcoo import window_reduce, window_reduce_plain
+    epi = dict(C=C, alpha=ALPHA, beta=BETA)
+
+    def run(fn, out):
+        for B, k0, width, tabs in calls:
+            fn(*tabs, B, k0, width, **epi, out=out)
+        return out
+    # the kernel's calls take the two outs in turns, so `compare` holds
+    # two launches' results
+    outs = [C.clone(), C.clone()]
     turn = itertools.cycle(outs)
     _kernels.LAUNCHED.clear()
-    err, rel, ms, plain_ms = compare(
-        "window_reduce[bf16_ragged]",
-        lambda: window_reduce(*args, **epi, out=next(turn)),
-        lambda: window_reduce_plain(*args, **epi, out=C16.clone()),
-        window_reduce, ulps=1)
-    del outs
+    _kernels.BODIES.clear()
+    rec = compare(name, lambda: run(window_reduce, next(turn)),
+                  lambda: run(window_reduce_plain, C.clone()),
+                  window_reduce, ulps=1)
     variants = sorted(k[len("sblas_window_reduce_"):]
                       for k in _kernels.LAUNCHED)
-    if variants != ["bf16_ragged"]:
-        raise AssertionError(f"K3[bf16] at k0=1 ran variants {variants}, "
-                             f"expected bf16_ragged")
+    bodies = sorted(k[len("window_reduce_bf16_ragged."):]
+                    for k in _kernels.BODIES)
+    if variants != ["bf16_ragged"] or bodies != [body]:
+        raise AssertionError(f"{name} ran variants {variants}, bodies "
+                             f"{bodies}; expected bf16_ragged on {body}")
+    return rec
+
+
+def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
+                   kernels) -> None:
+    """K3[bf16_ragged], each of its launcher's two bodies held within one
+    bf16 ulp of its plain version at the operands of the path that runs
+    it and timed with its bound.  The two-column loop at the SpMM at
+    K=63's own operands (B and C cut to 63 columns, an odd row stride;
+    k0 = 0), then that SpMM (the oracle cut alike), one call on that
+    loop; the masked body at k0 = 1 of the K=64 operands (63 columns at
+    an odd offset, the shape PERF.md's row is measured at); the aligned
+    `bf16` bits; then the SpMM at K=128, whose two chunks take the
+    masked body (`bf16_wcoo_k128`)."""
+    from sblas_tpu_torch.ops import spmm
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    KR = B16.shape[1] - 1
+    tabs = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane)
     index = nbytes(wp.k3_units, wp.k3_rows, wp.wb, wp.relrow, wp.vals,
                    wp.xblk, wp.lane)
     m = C16.shape[0]
@@ -1202,28 +1244,142 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
     lib_ms = library_or_none(
         f"torch.addmm bf16 CSR x dense, K={KR}",
         lambda: torch.addmm(CR, A_csr, BR, beta=BETA, alpha=ALPHA))
+    name = "window_reduce[bf16_ragged.two_column]"
+    err, rel, ms, plain_ms = ragged_compare(name, [(BR, 0, KR, tabs)], CR,
+                                            "two_column")
     kc = k_chunk_width(wp.n_tiles, KR)
     out, counts = launches_of(counters, lambda: spmm(wp, BR, ALPHA, BETA, CR))
     expect_launches(f"WCOO SpMM bf16 K={KR}", counts,
                     dict(none, window_reduce=-(-KR // kc)))
     by_variant = variant_launches(f"WCOO SpMM bf16 K={KR}",
                                   {"window_reduce_bf16_ragged": -(-KR // kc)})
-    phase("bf16-kernels", kernel="K3 window_reduce[bf16_ragged] fused",
-          k0=1, K=KR, variant=variants[0], max_abs_err=f"{err:.3e}",
+    by_body = body_launches(f"WCOO SpMM bf16 K={KR}",
+                            {"two_column": -(-KR // kc)})
+    phase("bf16-kernels", kernel=f"K3 {name} fused", k0=0, K=KR, ldb=KR,
+          main_path_launches=by_body, max_abs_err=f"{err:.3e}",
           rel_err=f"{rel:.3e}", ulps=1, deterministic=True, ms=f"{ms:.5f}",
           plain_ms=f"{plain_ms:.5f}", library_ms=_fmt_ms(lib_ms),
           bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
           share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
-    kernels["window_reduce[bf16_ragged]"] = dict(
-        name="window_reduce[bf16_ragged]", route="cuda",
-        source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
+    kernels[name] = dict(
+        name=name, route="cuda", source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
         replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms,
-        launches=by_variant["window_reduce_bf16_ragged"], **bnd)
+        launches=by_body["two_column"], **bnd)
     phase("bf16-plans", path=f"spmm WcooPlan bf16 webbase-1M K={KR}",
-          launches=counts, by_variant=by_variant,
+          launches=counts, by_variant=by_variant, by_body=by_body,
           check=checked_bf16(f"WCOO SpMM bf16 K={KR}", out, want[:, :KR]),
           **call_times(lambda: spmm(wp, BR, ALPHA, BETA, CR), A.nnz, KR))
+    # the masked body at k0 = 1, off the path (C and out at column 1)
+    err, rel, ms, plain_ms = ragged_compare(
+        "window_reduce[bf16_ragged] k0=1", [(B16, 1, KR, tabs)], C16,
+        "masked")
+    phase("bf16-kernels", kernel="K3 window_reduce[bf16_ragged] fused",
+          body="masked", k0=1, K=KR, ldb=B16.shape[1],
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    ragged_gives_bf16_bits(wp, B16, C16)
+    bf16_wcoo_k128(A, A_csr, B16, C16, want, counters, none, kernels)
+
+
+def ragged_gives_bf16_bits(wp, B16, C16) -> None:
+    """K3[bf16_ragged] at k0 = 1 over 56 columns against K3[bf16] on
+    aligned copies of the same 56 columns (k0 = 0): the two sum in one
+    order and round once the same way, so both store forms must agree
+    bitwise (the grid form, whose out starts on 16 bytes, on the
+    two-column loop; the fused form on the masked body)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops.wcoo import window_reduce
+    W = 56
+    tabs = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane)
+    Ba, Ca = B16[:, 1:1 + W].contiguous(), C16[:, 1:1 + W].contiguous()
+    epi = dict(alpha=ALPHA, beta=BETA)
+    _kernels.LAUNCHED.clear()
+    _kernels.BODIES.clear()
+    grid_r = window_reduce(*tabs, B16, 1, W)
+    fused_r = window_reduce(*tabs, B16, 1, W, C=C16, **epi)[:, 1:1 + W]
+    grid_a = window_reduce(*tabs, Ba, 0, W)
+    fused_a = window_reduce(*tabs, Ba, 0, W, C=Ca, **epi)
+    torch.cuda.synchronize()
+    got = {k[len("sblas_window_reduce_"):]: v
+           for k, v in _kernels.LAUNCHED.items()}
+    if got != {"bf16_ragged": 2, "bf16": 2}:
+        raise AssertionError(f"ragged vs bf16: variants {got}")
+    body_launches("ragged vs bf16", {"two_column": 1, "masked": 1})
+    same = (torch.equal(grid_r, grid_a), torch.equal(fused_r, fused_a))
+    if not all(same):
+        raise AssertionError(f"K3[bf16_ragged] at k0=1 differs from "
+                             f"K3[bf16] on aligned copies (grid, fused "
+                             f"equal: {same})")
+    window_reduce.launches = 0
+    phase("bf16-kernels", kernel="K3 bf16_ragged vs bf16, aligned copies",
+          k0=1, width=W, grid_bitwise=True, grid_body="two_column",
+          fused_bitwise=True, fused_body="masked")
+
+
+def bf16_wcoo_k128(A, A_csr, B16, C16, want, counters, none,
+                   kernels) -> None:
+    """[bf16-kernels] the webbase-1M bf16 WCOO SpMM at K=128 through
+    `make_plan(..., force="wcoo")` and `spmm`: the JAX package's chunk
+    width (81 at webbase) makes two K3 calls, 81 and 47 columns wide,
+    both `bf16_ragged` on its masked body.  That body is held within one
+    bf16 ulp of its plain version on the same two chunks and timed (the
+    `kernels` entry of K3[bf16_ragged]).  B and C are the K=64 operands
+    and their columns reversed, so the oracle is the K=64 one and its
+    columns reversed."""
+    from sblas_tpu_torch.ops import WcooPlan, make_plan, spmm
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    K = 2 * B16.shape[1]
+    wp = make_plan(A, dtype=BF16, force="wcoo", device=B16.device)
+    if not isinstance(wp, WcooPlan):
+        raise AssertionError(f"force='wcoo' built {type(wp).__name__}")
+    B = torch.cat([B16, B16.flip(1)], 1).contiguous()
+    C = torch.cat([C16, C16.flip(1)], 1).contiguous()
+    want = np.concatenate([want, want[:, ::-1]], 1)
+    kc = k_chunk_width(wp.n_tiles, K)
+    chunks = [(k0, min(kc, K - k0)) for k0 in range(0, K, kc)]
+    tabs = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane)
+    index = nbytes(wp.k3_units, wp.k3_rows, wp.wb, wp.relrow, wp.vals,
+                   wp.xblk, wp.lane)
+    m = C.shape[0]
+    # each call reads the index streams once; B, C and out once in all
+    bnd = bound(len(chunks) * index + (B.shape[0] + 2 * m) * K * 2,
+                2 * A.nnz * K + 3 * m * K, rate=BF16_FLOPS)
+    name = "window_reduce[bf16_ragged]"
+    err, rel, ms, plain_ms = ragged_compare(
+        name, [(B, k0, w, tabs) for k0, w in chunks], C, "masked")
+    lib_ms = library_or_none(
+        f"torch.addmm bf16 CSR x dense, K={K}",
+        lambda: torch.addmm(C, A_csr, B, beta=BETA, alpha=ALPHA))
+    out, counts = launches_of(counters, lambda: spmm(wp, B, ALPHA, BETA, C))
+    expect_launches(f"WCOO SpMM bf16 K={K}", counts,
+                    dict(none, window_reduce=len(chunks)))
+    by_variant = variant_launches(f"WCOO SpMM bf16 K={K}",
+                                  {"window_reduce_bf16_ragged": 2})
+    by_body = body_launches(f"WCOO SpMM bf16 K={K}", {"masked": 2})
+    phase("bf16-kernels", kernel=f"K3 {name} fused, the K={K} chunks",
+          body="masked", chunks=chunks, ldb=K, main_path_launches=by_body,
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    kernels[name] = dict(
+        name=name, route="cuda", source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
+        replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, launches=by_body["masked"],
+        **bnd)
+    times = call_times(lambda: spmm(wp, B, ALPHA, BETA, C), A.nnz, K)
+    phase("bf16-kernels", path=f"spmm WcooPlan bf16 webbase-1M K={K}",
+          chunks=[w for _, w in chunks], launches=counts,
+          by_variant=by_variant, by_body=by_body,
+          check=checked_bf16(f"WCOO SpMM bf16 K={K}", out, want),
+          bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / float(times['device_ms']):.3f}",
+          **times)
 
 
 def bf16_shell_phases(S, Bd, Cd, want, counters, none) -> None:
@@ -1368,7 +1524,8 @@ def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
     repeat 0-6, so the oracle's do too."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import bell_stats, spmm
-    from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
+    from sblas_tpu_torch.ops.bsr_pallas import (bell_spmm, bell_spmm_plain,
+                                                ragged_column_tiles)
     extra = 7
     KR = B16.shape[1] + extra
     BR = torch.cat([B16, B16[:, :extra]], 1)
@@ -1394,6 +1551,7 @@ def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
     by_variant = variant_launches(f"BELL SpMM bf16 K={KR}",
                                   {"bell_spmm_bf16_ragged": 1})
     phase("bf16-kernels", kernel="K4 bell_spmm[bf16_ragged]", K=KR,
+          column_tiles=ragged_column_tiles(KR),
           variant=variants[0], main_path_launches=by_variant,
           max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
           deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
@@ -1408,6 +1566,26 @@ def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
           launches=counts, by_variant=by_variant,
           check=checked_bf16(f"BELL SpMM bf16 K={KR}", out, want),
           **call_times(lambda: spmm(bp, BR, ALPHA, BETA, CR), F.nnz, KR))
+    # one more K off the path: K=300 (column tiles 152 + 148)
+    extra = 300 - B16.shape[1]
+    BR = torch.cat([B16, B16[:, :extra]], 1)
+    CR = torch.cat([C16, C16[:, :extra]], 1)
+    args = (bp.vals, bp.bcol, BR, CR, ALPHA, BETA)
+    _kernels.LAUNCHED.clear()
+    err, rel, ms, plain_ms = compare(
+        "bell_spmm[bf16_ragged] K=300", lambda: bell_spmm(*args),
+        lambda: bell_spmm_plain(*args), bell_spmm, ulps=1)
+    if sorted(_kernels.LAUNCHED) != ["sblas_bell_spmm_bf16_ragged"]:
+        raise AssertionError(f"K4 at K=300 ran {dict(_kernels.LAUNCHED)}")
+    bnd = bound(nbytes(bp.vals, bp.bcol, BR, CR, CR),
+                2 * bell_stats(F)["n_blocks"] * 128 * 128 * BR.shape[1],
+                rate=BF16_FLOPS)
+    phase("bf16-kernels", kernel="K4 bell_spmm[bf16_ragged], off the path",
+          K=BR.shape[1], column_tiles=ragged_column_tiles(BR.shape[1]),
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
 
 
 def cli_bf16_phases(main_fn, path, nnz, tmp) -> None:

@@ -63,11 +63,22 @@ LAUNCHERS = {
     "window_lane_gather": ([_p] * 4 + [_i64, _i64], ("f32", "f64")),
 }
 
+# host-side queries a wrapper asks before it launches: name -> argument
+# types (returning int)
+QUERIES = {
+    # the body `sblas_window_reduce_bf16_ragged` runs (1 masked sub-warp
+    # rows, 0 the two-column loop): B, C, out, ldb, k0, ldo
+    "sblas_window_reduce_bf16_ragged_masked": [_p] * 3 + [_i64] * 3,
+}
+
 _lib: Optional[ctypes.CDLL] = None
 
 # launches since the last clear, by launcher name (one count per variant;
 # each wrapper's own `launches` counts all of its variants)
 LAUNCHED: Counter = Counter()
+# launches by kernel body, for a launcher that picks one of several bodies
+# (`window_reduce_bf16_ragged.masked` / `.two_column`)
+BODIES: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -137,6 +148,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, f"sblas_{name}_{sfx}")
                 fn.argtypes = types + [_p]    # the stream last
                 fn.restype = ctypes.c_int
+        for name, types in QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

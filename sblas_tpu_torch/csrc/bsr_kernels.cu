@@ -67,18 +67,33 @@
 // shared memory (128-byte swizzle, no fragment loads) and write out by
 // TMA.  It reaches about 80 % of its byte bound.
 //
-// bf16 for any K and alignment (variant `bf16_ragged`): mma.sync
-// m16n8k16 with ldmatrix fragments (A row-major, B by ldmatrix.trans) on
-// the same 128 x 128 tiles, operands staged through registers by 2-byte
-// loads into a ring of padded rows, two blocks an SM, the out tile staged
-// in shared memory as f32 and written a row per warp.  Its element copies
-// hold it to about a fifth of the byte bound.
+// bf16 for any K and any alignment of B, C and out (variant
+// `bf16_ragged`; its section below has the details; the value blocks
+// start on 16 bytes, as the wrapper hands them): the same persistent
+// wgmma design for B rows that TMA cannot describe (a 2K-byte row stride
+// is not a multiple of 16 when K % 8 != 0, and a TMA box must start on
+// 16 bytes).  The value blocks come by TMA as in `bf16`.  TMA brings B as raw
+// 8-row groups (eight rows are 16K bytes), boxes started on the 16-byte
+// word below each row segment, so the eight rows of a box share one
+// shift; the consumer warps shift them into the 128-byte swizzle in
+// shared memory, a box a warp with the shift a compile-time constant.
+// Column tiles are at most 192 wide (wgmma n128 + n64) and nearly equal,
+// so no tile rereads the value blocks for a few columns (K = 263: 136 +
+// 127, where 128-wide tiles left 7).  C comes in and out goes out as each
+// row's 16-byte words, 2-byte accesses only at a row's head and tail.
+// At band-73 x K = 263 it runs at about a third of its byte bound
+// (PERF.md); what holds it back: the epilogue (C folded and the
+// result staged a column at a time at each row's own offset, then
+// written back) runs between tiles on the consumers, and the shift adds
+// a shared-memory pass per chunk.  `nvcc -Xptxas -v` for sm_90a: 153
+// registers a thread (within the 384-thread block's 168), no spill.
 //
 // Each output element sums its products in one fixed order, so every
 // kernel here is deterministic.
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -87,6 +102,7 @@
 namespace {
 
 constexpr int kBlock = 128;           // R = C = 128
+constexpr unsigned kAll = 0xffffffffu;
 
 // ---- f32: 3xTF32 on mma.sync ----
 
@@ -279,43 +295,9 @@ bell_spmm_tf32x3_kernel(const float* __restrict__ vals,
   }
 }
 
-// ---- bf16: mma.sync m16n8k16 on the bf16 tensor cores ----
+// ---- bf16: wgmma on the bf16 tensor cores ----
 
 constexpr int kHK = 64;                    // depth chunk: 128 B of a row
-constexpr int kHStages = 3;                // ring depth, at two blocks an SM
-constexpr int kHAStride = kHK + 8;         // 144 B: ldmatrix rows hit
-constexpr int kHBStride = kTN + 8;         // 272 B:   distinct banks
-constexpr int kHAStage = kTM * kHAStride;  // elements
-constexpr int kHBStage = kHK * kHBStride;
-constexpr int kOStride = kTN + 8;          // f32 staging of the out tile
-constexpr int kSmemRing = kHStages * (kHAStage + kHBStage) * 2;
-constexpr int kSmemOut = kTM * kOStride * 4;
-constexpr int kSmemBf16 = kSmemRing > kSmemOut ? kSmemRing : kSmemOut;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float bf16_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -326,147 +308,6 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// the ring is filled by 2-byte loads staged through registers, so any K
-// and any bf16-aligned operand will do
-__global__ void __launch_bounds__(kThreadsTc, 2)
-bell_spmm_bf16_mma_kernel(const uint16_t* __restrict__ vals,
-                          const int32_t* __restrict__ bcol,
-                          const uint16_t* __restrict__ B,
-                          const uint16_t* __restrict__ Cin,
-                          uint16_t* __restrict__ out, int slots, int64_t m,
-                          int64_t n, int64_t k, float alpha, float beta) {
-  extern __shared__ __align__(16) uint16_t hsmem[];
-  uint16_t* As = hsmem;                        // [stage][128][kHAStride]
-  uint16_t* Bs = hsmem + kHStages * kHAStage;  // [stage][64][kHBStride]
-
-  const int64_t n_ctiles = (k + kTN - 1) / kTN;
-  const int64_t i = blockIdx.x / n_ctiles;
-  const int64_t n0 = (blockIdx.x % n_ctiles) * kTN;
-  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
-  const int wm = warp % 2, wn = warp / 2;  // warp tile rows 64wm, cols 32wn
-  const int g = ln / 4, t = ln % 4;
-  constexpr int kChunks = kBlock / kHK;    // 2 depth chunks per slot
-  const int steps = slots * kChunks;
-
-  auto load = [&](int step) {
-    const int s = step / kChunks, c0 = (step % kChunks) * kHK;
-    const uint16_t* blk = vals + ((i * slots + s) * kBlock) * kBlock + c0;
-    uint16_t* as = As + (step % kHStages) * kHAStage;
-    const int64_t brow0 = static_cast<int64_t>(bcol[i * slots + s]) * kBlock
-                          + c0;
-    uint16_t* bs = Bs + (step % kHStages) * kHBStage;
-#pragma unroll 8
-    for (int p = tid; p < kTM * kHK; p += kThreadsTc) {
-      const int r = p / kHK, q = p % kHK;
-      as[r * kHAStride + q] = blk[r * kBlock + q];
-    }
-#pragma unroll 8
-    for (int p = tid; p < kHK * kTN; p += kThreadsTc) {
-      const int r = p / kTN, q = p % kTN;
-      const int64_t row = brow0 + r, col = n0 + q;
-      bs[r * kHBStride + q] = row < n && col < k ? B[row * k + col] : 0;
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  // ldmatrix addresses: lane l names row l % 16 and 8-column half l / 16
-  // of a 16 x 16 piece (A: rows m, columns depth; B: rows depth, columns
-  // n, read transposed), so the four 8 x 8 matrices land as mma's a0..a3
-  // and as b0, b1 of two n8 tiles
-  const int lrow = ln % 16, lcol = (ln / 16) * 8;
-#pragma unroll
-  for (int st = 0; st < kHStages - 1; ++st)
-    if (st < steps) load(st);
-  for (int step = 0; step < steps; ++step) {
-    __syncthreads();   // chunk `step` stored; chunk step-1's stage is free
-    if (step + kHStages - 1 < steps) load(step + kHStages - 1);
-    const uint32_t as = smem_addr(As + (step % kHStages) * kHAStage +
-                                  (wm * 64 + lrow) * kHAStride + lcol);
-    const uint32_t bs = smem_addr(Bs + (step % kHStages) * kHBStage +
-                                  lrow * kHBStride + wn * 32 + lcol);
-#pragma unroll
-    for (int kk = 0; kk < kHK; kk += 16) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(a[mt], as + 2 * (mt * 16 * kHAStride + kk));
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(b[np], bs + 2 * (kk * kHBStride + np * 16));
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], a[mt], b[nt / 2][2 * (nt % 2)],
-                   b[nt / 2][2 * (nt % 2) + 1]);
-    }
-  }
-  __syncthreads();   // every warp is done with the ring: stage the tile
-
-  float* st = reinterpret_cast<float*>(hsmem);   // [128][kOStride]
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        *reinterpret_cast<float2*>(
-            st + (wm * 64 + mt * 16 + g + 8 * h) * kOStride + wn * 32 +
-            nt * 8 + 2 * t) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-  __syncthreads();
-
-  // a warp writes whole rows: lane l owns columns 4l .. 4l + 3, so C's
-  // reads and out's writes are 256 contiguous bytes a row
-  const int64_t col = n0 + 4 * ln;
-#pragma unroll 4
-  for (int r = warp; r < kTM; r += kThreadsTc / 32) {
-    const int64_t row = i * kBlock + r;
-    if (row >= m) break;
-    const float4 a = *reinterpret_cast<const float4*>(st + r * kOStride +
-                                                      4 * ln);
-    const int64_t o = row * k + col;
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (col + e < k) {
-        const __nv_bfloat16 v = __float2bfloat16_rn(
-            beta * bf16_lo(Cin[o + e]) + alpha * av[e]);
-        out[o + e] = *reinterpret_cast<const uint16_t*>(&v);
-      }
-  }
-}
-
-int launch_bf16_mma(const __nv_bfloat16* vals, const int32_t* bcol,
-                    const __nv_bfloat16* B, const __nv_bfloat16* C,
-                    __nv_bfloat16* out, int64_t n_brows, int64_t slots,
-                    int64_t m, int64_t n, int64_t k, double alpha,
-                    double beta, void* stream) {
-  if (n_brows > 0 && k > 0) {
-    auto kernel = bell_spmm_bf16_mma_kernel;
-    int rc = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16));
-    if (rc != 0) return rc;
-    const auto grid =
-        static_cast<unsigned int>(n_brows * ((k + kTN - 1) / kTN));
-    kernel<<<grid, kThreadsTc, kSmemBf16,
-             static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint16_t*>(vals), bcol,
-        reinterpret_cast<const uint16_t*>(B),
-        reinterpret_cast<const uint16_t*>(C),
-        reinterpret_cast<uint16_t*>(out), static_cast<int>(slots), m, n, k,
-        static_cast<float>(alpha), static_cast<float>(beta));
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bf16: wgmma fed by TMA, persistent blocks ----
@@ -560,9 +401,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
 #pragma unroll
-  for (int x = 0; x < 64; ++x) asm volatile("" : "+f"(d[x])::"memory");
+  for (int x = 0; x < N; ++x) asm volatile("" : "+f"(d[x])::"memory");
 }
 
 __global__ void __launch_bounds__(kWThreads, 1)
@@ -772,6 +614,453 @@ int launch_bf16_wgmma(const __nv_bfloat16* vals, const int32_t* bcol,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 for any K and alignment: wgmma on rows realigned in shared memory ----
+//
+// The `bf16` kernel's shape for a B whose rows TMA cannot describe: a row
+// stride of 2K bytes is not a multiple of 16 when K % 8 != 0, and a TMA
+// box must start on 16 bytes.  Eight rows are 16K bytes, so B is mapped
+// as "super rows" of 8 rows each (`tm_b`: dim 0 a super row's 8K
+// elements, dim 1 its index), and for each q in 0 .. 7 one box of 200
+// columns x 8 super rows, started at the 16-byte word at or below column
+// q K + n0, brings rows q, q + 8, ..., q + 56 of a 64-row depth chunk:
+// all eight lie alike on 16-byte words, shifted by the same sh_q bytes.
+// So a depth chunk arrives raw as 8 TMA boxes, beside the value block's
+// 128 x 64 piece (as in `bf16`, 128-byte swizzle), all on one mbarrier.
+// The consumers then shift the rows into place: consumer warp q takes box
+// q, lane l its rows' l-th 16-byte chunk (`funnel16` on two shared loads,
+// the shift a constant per box), and stores it into the 128-byte swizzle
+// of 64-column boxes that `wgmma` reads (row d at 128 d bytes, chunk c at
+// c ^ (d % 8)), in a double buffer; a barrier of the 256 consumer
+// threads, and both warpgroups run wgmma m64n128k16 on boxes 0-1 and
+// m64n64k16 on box 2 (also for a tile of 128 columns or fewer: a wgmma
+// under a branch is serialized), f32 accumulators.
+// Rows of the last, partial super row (n % 8 of them) lie outside the
+// map, which fills them with zeros; the consumers read those rows from
+// device memory instead.  Rows past n read as zero.
+//
+// One block an SM walks the output tiles (tile t: block row t / n_ctiles,
+// column tile t % n_ctiles; `ragged_tile_width` cuts K into nearly equal
+// tiles of at most 192 columns, so no tile carries a few columns and
+// rereads every value block of its row for them).  Warps 8-11 are the
+// producer warpgroup: its first thread keeps kRStages depth chunks in
+// flight by TMA, and the warpgroup loads each tile's C rows by cp.async,
+// 16-byte words as they lie in memory, into a staging buffer (row r at
+// 400 r bytes).  The epilogue reads C at its row offset there, folds
+// alpha and beta in f32, writes the rounded result back at out's row
+// offset, and writes each row's aligned interior to out as 16-byte
+// stores, its head and tail as 2-byte ones; rows past m are never
+// written.
+
+constexpr int kRStages = 3;
+constexpr int kRThreads = 384;           // 2 consumer warpgroups + producer
+constexpr int kRMaxW = 192;              // widest column tile: n128 + n64
+constexpr int kRBoxW = 200;              // a raw box's columns: 192 + shift
+constexpr int kRCRow = 2 * kRBoxW;       // 400 B: a raw or staged row
+constexpr int kRRaw = kHK * kRCRow;      // 25.6 KB: a depth chunk's rows
+constexpr int kRBox = kHK * 64 * 2;      // 8 KB: 64 rows x 64 columns
+constexpr int kRBStage = 3 * kRBox;      // 24 KB
+constexpr int kRCBuf = kTM * kRCRow;
+constexpr int kRSmem = 1024 + kRStages * (kWAStage + kRRaw) + 2 * kRBStage +
+                       kRCBuf + 8 * (2 * kRStages + 2);
+
+// K's column tiles: ceil(K / 192) of them, of width `ragged_tile_width`
+// (a multiple of 8, at most 192), the last cut to K; mirrored by
+// ops/bsr_pallas.py::ragged_column_tiles
+__host__ __device__ inline int64_t ragged_tile_width(int64_t k) {
+  const int64_t n = (k + kRMaxW - 1) / kRMaxW;
+  return ((k + n - 1) / n + 7) / 8 * 8;
+}
+
+// bytes [sh, sh + 16) of the 32 bytes lo:hi, sh even in 0 .. 14: word
+// selects and a 2-byte funnel (for a constant sh, the permutes alone)
+__device__ __forceinline__ uint4 funnel16(uint4 lo, uint4 hi, int sh) {
+  uint32_t r[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  if (sh & 8) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) r[i] = r[i + 2];
+  }
+  if (sh & 4) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) r[i] = r[i + 1];
+  }
+  const uint32_t sel = (sh & 2) ? 0x5432u : 0x3210u;
+  return make_uint4(__byte_perm(r[0], r[1], sel), __byte_perm(r[1], r[2], sel),
+                    __byte_perm(r[2], r[3], sel), __byte_perm(r[3], r[4], sel));
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_u16(uint32_t a) {
+  uint16_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void st_shared_u16(uint32_t a, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"(v) : "memory");
+}
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(x);
+  return *reinterpret_cast<const uint16_t*>(&b);
+}
+__device__ __forceinline__ uint4 ld_shared16(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+// the mbarrier counts one arrival once this thread's cp.asyncs so far land
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar) : "memory");
+}
+// lane l of a warp copies the l-th of the 16-byte words that cover `w`
+// bf16 at p (at most 25: w <= 192) to dst + 16 l
+__device__ __forceinline__ void copy_words(uint32_t dst, const uint16_t* p,
+                                           int w, int ln) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~uintptr_t(15);
+  if (lo + 16 * ln < a + 2 * w)
+    cp_async16(dst + 16 * ln, reinterpret_cast<const void*>(lo + 16 * ln),
+               16);
+}
+
+// Consumer warp q's box: rows d = q + 8 s of the depth chunk, lane ch its
+// rows' chunk ch, shifted by the box's constant kSh into buffer `dst`.
+// `row0` is the chunk's first B row; rows in [tail, n) come from device
+// memory (`src`: their 16-byte words from n0), rows past n are zero.
+template <int kSh>
+__device__ __forceinline__ void shift_box(uint32_t raw, uint32_t dst, int q,
+                                          int ch, int64_t row0, int64_t tail,
+                                          int64_t n, const uint16_t* B,
+                                          int64_t k, int64_t n0, int w) {
+#pragma unroll 4
+  for (int s = 0; s < 8; ++s) {
+    const int d = q + 8 * s;
+    const int64_t row = row0 + d;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (row < tail) {
+      const uint32_t r = raw + s * kRCRow + 16 * ch;
+      x = funnel16(ld_shared16(r),
+                   kSh ? ld_shared16(r + 16) : make_uint4(0, 0, 0, 0), kSh);
+    } else if (row < n) {
+      const uintptr_t a = reinterpret_cast<uintptr_t>(B + row * k + n0);
+      const uint4* p = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+      const uint4 lo = p[ch];
+      const uint4 hi = kSh && 16 * (ch + 1) < kSh + 2 * w
+                           ? p[ch + 1] : make_uint4(0, 0, 0, 0);
+      x = funnel16(lo, hi, kSh);
+    }
+    st_shared16(dst + (ch / 8) * kRBox + d * 128 + (((ch % 8) ^ q) * 16), x);
+  }
+}
+
+// d += A @ B over one k16 step, N = 64 (scale_d 0: d = A @ B)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// b_off: elements between tm_b's 16-byte base and B; s_full = n / 8 full
+// super rows (tm_b unused when 0); tm_a as in `bf16` (vals on 16 bytes)
+__global__ void __launch_bounds__(kRThreads, 1)
+bell_spmm_bf16_ragged_kernel(const __grid_constant__ CUtensorMap tm_a,
+                             const __grid_constant__ CUtensorMap tm_b,
+                             int b_off, int64_t s_full,
+                             const int32_t* __restrict__ bcol,
+                             const uint16_t* __restrict__ B,
+                             const uint16_t* __restrict__ Cin,
+                             uint16_t* __restrict__ out, int slots,
+                             int64_t m, int64_t n, int64_t k, int64_t tw,
+                             int n_tiles, int n_ctiles, float alpha,
+                             float beta) {
+  extern __shared__ uint8_t rsmem_raw[];
+  const uint32_t raw = smem_addr(rsmem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sA = base, sBr = sA + kRStages * kWAStage;
+  const uint32_t sR = sBr + 2 * kRBStage;
+  const uint32_t sC = sR + kRStages * kRRaw;
+  const uint32_t bars = sC + kRCBuf;     // full[S], empty[S], cf, ce
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kRStages + s); };
+  const uint32_t cfull = bars + 16 * kRStages, cempty = cfull + 8;
+
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < kRStages; ++s) {
+      mbar_init(full(s), 1);            // the TMA lane, with the tx
+      mbar_init(empty(s), 8);           // one arrival per consumer warp
+    }
+    mbar_init(cfull, 128);              // each producer thread's cp.asyncs
+    mbar_init(cempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int steps = slots * (kBlock / kHK);
+
+  if (warp >= 8) {                      // ---- producer warpgroup ----
+    const int pt = tid - 256, pw = warp - 8;
+    int gstep = 0, j = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+      const int64_t i = tile / n_ctiles;
+      const int64_t n0 = (tile % n_ctiles) * tw;
+      const int w = static_cast<int>(k - n0 < tw ? k - n0 : tw);
+      // the tile's C rows, once the last tile's epilogue is done with the
+      // buffer: after the tile's first stages are asked for (or at once)
+      auto load_c = [&]() {
+        mbar_wait(cempty, (j & 1) ^ 1);
+        for (int r = pw; r < kTM && i * kTM + r < m; r += 4)
+          copy_words(sC + r * kRCRow, Cin + (i * kTM + r) * k + n0, w, ln);
+        cp_async_arrive(cfull);
+      };
+      const int cstep = steps < kRStages ? steps - 1 : kRStages - 1;
+      if (steps == 0) load_c();
+      for (int step = 0; step < steps; ++step, ++gstep) {
+        const int st = gstep % kRStages;
+        const int64_t slot = i * slots + step / 2;
+        const int c0 = (step % 2) * kHK;
+        if (pt == 0) {
+          mbar_wait(empty(st), ((gstep / kRStages) & 1) ^ 1);
+          const int64_t s0 = (static_cast<int64_t>(__ldg(bcol + slot)) *
+                              kBlock + c0) / 8;   // the chunk's super rows
+          mbar_expect_tx(full(st), kWAStage + (s_full > 0 ? kRRaw : 0));
+          tma_load(sA + st * kWAStage, &tm_a, c0,
+                   static_cast<int>(slot * kBlock), full(st));
+          if (s_full > 0)
+            for (int q = 0; q < 8; ++q)
+              tma_load(sR + st * kRRaw + q * (kRRaw / 8), &tm_b,
+                       static_cast<int>((b_off + q * k + n0) & ~int64_t(7)),
+                       static_cast<int>(s0), full(st));
+        }
+        if (step == cstep) load_c();
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63; warp
+  // q = warp shifts box q of each depth chunk ----
+  const int wg = warp / 4, wq = warp % 4, g = ln / 4, t = ln % 4;
+  float d0[64], d1[32];
+  int gstep = 0, j = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+    const int64_t i = tile / n_ctiles;
+    const int64_t n0 = (tile % n_ctiles) * tw;
+    const int w = static_cast<int>(k - n0 < tw ? k - n0 : tw);
+    const int nch = (w + 7) / 8;
+    // box q's rows start sh_q bytes into their raw rows, q = this warp
+    const int sh = static_cast<int>(2 * ((b_off + warp * k + n0) & 7));
+#pragma unroll
+    for (int x = 0; x < 64; ++x) d0[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) d1[x] = 0.f;
+    for (int step = 0; step < steps; ++step, ++gstep) {
+      const int st = gstep % kRStages;
+      const int64_t row0 =
+          static_cast<int64_t>(__ldg(bcol + i * slots + step / 2)) * kBlock +
+          (step % 2) * kHK;
+      const uint32_t bb = sBr + (gstep % 2) * kRBStage;
+      mbar_wait(full(st), (gstep / kRStages) & 1);
+      if (ln < nch) {
+        const uint32_t rw = sR + st * kRRaw + warp * (kRRaw / 8);
+        const int64_t tail = 8 * s_full;
+        switch (sh) {
+          case 0: shift_box<0>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 2: shift_box<2>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 4: shift_box<4>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 6: shift_box<6>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 8: shift_box<8>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 10: shift_box<10>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          case 12: shift_box<12>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+          default: shift_box<14>(rw, bb, warp, ln, row0, tail, n, B, k, n0, w); break;
+        }
+      }
+      // both warpgroups' rows are in place (and the buffer's last reader,
+      // two chunks back, is done): generic stores, then wgmma's reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");
+      const uint32_t a0 = sA + st * kWAStage + wg * (kWAStage / 2);
+      acc_fence(d0);
+      acc_fence(d1);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kHK / 16; ++kk) {
+        // as in `bf16`: A +32 B a k16 step; B 16 rows (2048 B) a step,
+        // boxes 8 KB apart
+        const uint64_t da = sw128_desc(a0 + 32 * kk, 16, 1024);
+        // box 2 too on a tile of 128 columns or fewer (its columns are
+        // never stored): a wgmma under a branch is serialized
+        wgmma_m64n128k16(d0, da, sw128_desc(bb + 2048 * kk, kRBox, 1024),
+                         1);
+        wgmma_m64n64k16(d1, da,
+                        sw128_desc(bb + 2 * kRBox + 2048 * kk, kRBox, 1024),
+                        1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      acc_fence(d0);
+      acc_fence(d1);
+      if (ln == 0) mbar_arrive(empty(st));
+    }
+
+    // epilogue in the staging buffer: the thread's accumulators d0[4c + 2h
+    // + e] / d1[4c + 2h + e] are row 64 wg + 16 wq + g + 8h, column 8c +
+    // 2t + e / 128 + 8c + 2t + e
+    mbar_wait(cfull, j & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * wq + g + 8 * h;
+      const int64_t row = i * kTM + r;
+      if (row >= m) continue;
+      const uint32_t cr = sC + r * kRCRow + static_cast<uint32_t>(
+                                                reinterpret_cast<uintptr_t>(
+                                                    Cin + row * k + n0) & 15);
+      // d0 holds columns 0-127, d1 128-191
+      auto fold = [&](float& acc, int col) {
+        if (col < w)
+          acc = beta * bf16_lo(ld_shared_u16(cr + 2 * col)) + alpha * acc;
+      };
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          fold(d0[4 * c + 2 * h + e], 8 * c + 2 * t + e);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          fold(d1[4 * c + 2 * h + e], 128 + 8 * c + 2 * t + e);
+    }
+    // every C value of the warpgroup's rows is read: write the results
+    // at out's row offsets (which may differ from C's)
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * wq + g + 8 * h;
+      const int64_t row = i * kTM + r;
+      if (row >= m) continue;
+      const uint32_t orow = sC + r * kRCRow + static_cast<uint32_t>(
+                                                  reinterpret_cast<uintptr_t>(
+                                                      out + row * k + n0) & 15);
+      auto put = [&](float acc, int col) {
+        if (col < w) st_shared_u16(orow + 2 * col, bf16_bits(acc));
+      };
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          put(d0[4 * c + 2 * h + e], 8 * c + 2 * t + e);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          put(d1[4 * c + 2 * h + e], 128 + 8 * c + 2 * t + e);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    // a warp writes 16 rows, lane l the row's l-th word: whole words
+    // inside the row's columns as one 16-byte store, the head and tail
+    // words 2 bytes at a time
+    for (int q = 0; q < 16; ++q) {
+      const int r = 64 * wg + wq + 4 * q;
+      const int64_t row = i * kTM + r;
+      if (row >= m) break;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(out + row * k + n0);
+      const uintptr_t lo = a & ~uintptr_t(15), end = a + 2 * w;
+      const uintptr_t wa = lo + 16 * ln;
+      if (wa < end) {
+        const uint4 v = ld_shared16(sC + r * kRCRow + 16 * ln);
+        if (wa >= a && wa + 16 <= end) {
+          __stcs(reinterpret_cast<uint4*>(wa), v);
+        } else {
+          const uint16_t* hv = reinterpret_cast<const uint16_t*>(&v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (wa + 2 * e >= a && wa + 2 * e < end)
+              *reinterpret_cast<uint16_t*>(wa + 2 * e) = hv[e];
+        }
+      }
+    }
+    __syncwarp();
+    if (ln == 0) mbar_arrive(cempty);
+  }
+}
+
+// a 2-D bf16 tensor map over `ptr` (16-byte aligned): dims (d0, d1), d1's
+// stride `stride` bytes, unswizzled boxes of (b0, b1) elements, zeros
+// outside it
+bool bf16_map2(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+               uint64_t stride, uint32_t b0, uint32_t b1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16_ragged(const __nv_bfloat16* vals, const int32_t* bcol,
+                       const __nv_bfloat16* B, const __nv_bfloat16* C,
+                       __nv_bfloat16* out, int64_t n_brows, int64_t slots,
+                       int64_t m, int64_t n, int64_t k, double alpha,
+                       double beta, void* stream) {
+  if (n_brows <= 0 || k <= 0 || m <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int64_t tw = ragged_tile_width(k);
+  const int64_t n_ctiles = (k + tw - 1) / tw;
+  // int32 TMA coordinates and tile numbers
+  if (n_brows * n_ctiles > INT32_MAX || n_brows * slots * kBlock > INT32_MAX ||
+      8 * k + 8 > INT32_MAX || n / 8 > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // B's map starts at the 16-byte word at or below B
+  const int b_off =
+      static_cast<int>(reinterpret_cast<uintptr_t>(B) % 16) / 2;
+  const int64_t s_full = n / 8;
+  CUtensorMap tm_a, tm_b;
+  memset(&tm_a, 0, sizeof(tm_a));
+  memset(&tm_b, 0, sizeof(tm_b));
+  // a TMA box starts on 16 bytes: the wrapper hands vals there
+  if (slots > 0 &&
+      !bf16_map(&tm_a, vals, n_brows * slots * kBlock, kBlock, kTM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (s_full > 0 &&
+      !bf16_map2(&tm_b, B - b_off, b_off + 8 * k, s_full, 16 * k, kRBoxW, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        bell_spmm_bf16_ragged_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kRSmem));
+  if (rc != 0) return rc;
+  const int n_tiles = static_cast<int>(n_brows * n_ctiles);
+  bell_spmm_bf16_ragged_kernel<<<n_tiles < sms ? n_tiles : sms, kRThreads,
+                                 kRSmem, static_cast<cudaStream_t>(stream)>>>(
+      tm_a, tm_b, b_off, s_full, bcol, reinterpret_cast<const uint16_t*>(B),
+      reinterpret_cast<const uint16_t*>(C), reinterpret_cast<uint16_t*>(out),
+      static_cast<int>(slots), m, n, k, tw, n_tiles,
+      static_cast<int>(n_ctiles), static_cast<float>(alpha),
+      static_cast<float>(beta));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- f64: shared-memory tiled GEMM on the CUDA cores ----
 
 constexpr int kCols = 64;             // output columns per thread block
@@ -922,8 +1211,8 @@ int sblas_bell_spmm_bf16_ragged(const __nv_bfloat16* vals,
                                 int64_t n_brows, int64_t slots, int64_t m,
                                 int64_t n, int64_t k, double alpha,
                                 double beta, void* stream) {
-  return launch_bf16_mma(vals, bcol, B, C, out, n_brows, slots, m, n, k,
-                         alpha, beta, stream);
+  return launch_bf16_ragged(vals, bcol, B, C, out, n_brows, slots, m, n, k,
+                            alpha, beta, stream);
 }
 
 }  // extern "C"

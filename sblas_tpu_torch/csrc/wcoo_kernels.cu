@@ -51,37 +51,64 @@
 //
 // Two gather loops:
 //
-// - f32, f64 and `bf16_ragged`: one warp per unit.  It reads the unit's
-//   relrow/vals/xblk/lane 32 slots at a time, coalesced, hands them to
-//   the lanes by shuffle, and keeps `kInFlight` B loads in flight per
-//   lane.  Each lane holds two adjacent columns, so a warp covers 64
-//   columns and reads one row segment per entry (8-byte loads in f32
-//   when B's row stride and k0 are even); a wider chunk takes more
-//   64-column slabs on grid.y.
-// - `bf16` (B's row stride, k0, width multiples of 8; B, C, out on 16
-//   bytes): sub-warp rows.  In bf16 the two-column loop fits badly: a
-//   lane's load is 4 bytes, so a warp moves 128 bytes per entry, half of
-//   what it moves in f32, for the same shuffles, address work and
-//   branches per entry; and with registers for one load in flight per
-//   lane (the setting that measured fastest for that loop, at eight
-//   blocks an SM) an SM holds about 8 KB of loads in flight, where
-//   feeding 3.35 TB/s at device-memory latency takes about twice that.
-//   Here a group of 8 lanes owns one entry's 64 columns, 8 bf16 (one
-//   16-byte load) a lane, and the warp's four groups walk four units side
-//   by side: each shuffle, address and branch instruction serves four
-//   entries, each lane keeps `kBatch` 16-byte loads in flight, and the
-//   index streams are read 8 slots ahead.  At four blocks of 256 threads
-//   an SM that is 64 KB of B loads in flight per SM.  C is read and out
-//   written 16 bytes a lane, out with an evict-first hint, so the L2
-//   keeps B's rows.  A ring of bulk asynchronous copies into shared
-//   memory would take the bytes in flight out of registers as well; this
-//   loop already holds more than the card needs, and runs at half its
-//   bound at webbase x K = 64 in the fused form (PERF.md).
+// - f32, f64, and `bf16_ragged` where its operands lie unevenly (below):
+//   one warp per unit.  It reads the unit's relrow/vals/xblk/lane 32
+//   slots at a time, coalesced, hands them to the lanes by shuffle, and
+//   keeps `kInFlight` B loads in flight per lane.  Each lane holds two
+//   adjacent columns, so a warp covers 64 columns and reads one row
+//   segment per entry (8-byte loads in f32 when B's row stride and k0
+//   are even); a wider chunk takes more 64-column slabs on grid.y.
+// - bf16 otherwise: sub-warp rows.  In bf16 the two-column loop fits
+//   badly: a lane's load is 4 bytes (2 at an odd offset), so a warp moves
+//   128 bytes per entry, half of what it moves in f32, for the same
+//   shuffles, address work and branches per entry; and with registers
+//   for one load in flight per lane (the setting that measured fastest
+//   for that loop, at eight blocks an SM) an SM holds about 8 KB of loads
+//   in flight, where feeding 3.35 TB/s at device-memory latency takes
+//   about twice that.  Here a group of 8 lanes owns one entry's 64
+//   columns, 8 bf16 (one 16-byte load) a lane, and the warp's four groups
+//   walk four units side by side: each shuffle, address and branch
+//   instruction serves four entries, each lane keeps `kBatch` 16-byte
+//   loads in flight, and the index streams are read 8 slots ahead.  At
+//   four blocks of 256 threads an SM that is 64 KB of B loads in flight
+//   per SM.  C is read and out written 16 bytes a lane, out with an
+//   evict-first hint, so the L2 keeps B's rows.  A ring of bulk
+//   asynchronous copies into shared memory would take the bytes in flight
+//   out of registers as well; this loop already holds more than the card
+//   needs, and runs at half its bound at webbase x K = 64 in the fused
+//   form (PERF.md).
+//   `bf16` takes it where B's row stride, k0 and width are multiples of 8
+//   and B, C and out start on 16 bytes.  `bf16_ragged` takes it where
+//   only the row strides (B's, and C's and out's) are multiples of 8 and
+//   B at column k0, C and out lie at one offset o (0-7 columns) past a
+//   16-byte boundary: then every row segment of the launch starts o
+//   columns into a word, so the lanes count their columns from o columns
+//   before k0 and each lane's eight are one aligned word of B, C and out,
+//   as in `bf16`; a column outside [k0, k0 + width) is summed but never
+//   stored, the chunk's first and last word of a row go out 2 bytes a
+//   column, and carries a column at a time.  That is every chunk of an
+//   SpMM at K % 8 == 0 (`spmm_wcoo` passes contiguous B, C and out, and
+//   the JAX package's chunk width need not be a multiple of 8: 81
+//   columns at webbase-1M).  `sblas_window_reduce_bf16_ragged_masked`
+//   names the body a launch runs, and the wrapper counts launches by it.  Sums, carries and the epilogue are `bf16`'s, in its
+//   order, so where both can run they give the same bits.  A chunk wider
+//   than 64 columns takes one more 64-column slab even for a few columns
+//   (81 = 64 + 17): lanes owning two words each, one walk of the entries
+//   for 128 columns, measured slower (half the warps in flight on a
+//   gather that waits on memory; PERF.md).
+// - `bf16_ragged` at an odd row stride (K odd: every entry's B segment
+//   then lies at its own offset) or with operands at different offsets:
+//   the two-column loop.  Shifting each entry's words in registers on
+//   sub-warp rows (eight lanes reading the nine words that cover a
+//   segment, a shuffle and a per-entry funnel shift) was no faster than
+//   it at webbase-1M x K = 63 (PERF.md).
 //
 // `nvcc -Xptxas -v` for sm_90a: the `bf16` kernel 64 registers, no spill;
-// the f32 loop 64 and the f64 loop 96-98, no spill; `bf16_ragged` 32
-// registers (eight blocks an SM) with 32-64 bytes of spill; the carry
-// combine 32 (f64: 12 bytes of spill).
+// its `bf16_ragged` twin (the masked loop) 64 with 40 bytes of spill (at
+// three blocks an SM, 79 and none, and no faster); the f32 loop 64
+// and the f64 loop 96-98, no spill; the bf16 two-column loop 32 registers
+// (eight blocks an SM) with 32-64 bytes of spill; the carry combine 32
+// (f64: 12 bytes of spill).
 //
 // bf16 plans: values and B rows are read as bf16, each product is formed
 // in f32 (exact: two 8-bit mantissas), rows and carries are summed in f32
@@ -131,9 +158,9 @@ template <typename T> struct Store {
 // The two-column loop: B loads in flight per lane, and resident blocks
 // asked of the compiler.  In f32 four blocks (32 warps an SM, at most 64
 // registers) with 8 loads each measured faster than two blocks with 16.
-// bf16 (`bf16_ragged`, any stride and offset): one load in flight and
-// eight blocks measured fastest at webbase x K=64 (when it was the only
-// bf16 loop).  `Acc` is the type rows and carries are summed in.
+// bf16 (`bf16_ragged` at an odd stride or uneven offsets): one load in
+// flight and eight blocks measured fastest at webbase x K=64.  `Acc` is
+// the type rows and carries are summed in.
 template <typename T> struct Pair;
 template <> struct Pair<float> {
   using type = float2;
@@ -290,6 +317,13 @@ __device__ __forceinline__ void fma8(float (&acc)[8], float v, uint4 x) {
   }
 }
 
+// kMasked (`bf16_ragged` where B at k0, C and out share one 16-byte
+// offset and B's and out's row strides are multiples of 8): the lanes'
+// columns start `off` columns before k0, so each lane's eight are one
+// aligned 16-byte word of B, C and out, and only those in [0, width) are
+// kept: whole words as in `bf16`, the chunk's first and last word of a
+// row 2 bytes a column, carries a column at a time.
+template <bool kMasked>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks16)
 unit_reduce_bf16x8_kernel(const int32_t* __restrict__ units, int64_t n_units,
                           const int32_t* __restrict__ wb,
@@ -300,13 +334,16 @@ unit_reduce_bf16x8_kernel(const int32_t* __restrict__ units, int64_t n_units,
                           const __nv_bfloat16* __restrict__ B, int64_t ldb,
                           int64_t k0, int64_t width,
                           Store<__nv_bfloat16> st,
-                          float* __restrict__ carry) {
+                          float* __restrict__ carry, int off) {
   const int ln = threadIdx.x % 32, gl = ln % kGroup;
   const int64_t u =
       (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) *
           kGroups + ln / kGroup;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * kSlab + 8 * gl;
-  const bool okc = col < width;        // width % 8 == 0: all eight or none
+  const int64_t col = static_cast<int64_t>(blockIdx.y) * kSlab + 8 * gl -
+                      (kMasked ? off : 0);
+  // bf16: width % 8 == 0, all eight columns or none
+  const bool okc = col < width && (!kMasked || col + 8 > 0);
+  const bool whole = !kMasked || (col >= 0 && col + 8 <= width);
   int start = 0, info = 0;             // a group past the last unit: len 0
   if (u < n_units) {
     start = units[2 * u];
@@ -327,10 +364,17 @@ unit_reduce_bf16x8_kernel(const int32_t* __restrict__ units, int64_t n_units,
   auto flush = [&](bool last) {
     if (okc) {
       if ((first && left) || (last && right)) {
-        float4* dst = reinterpret_cast<float4*>(
-            carry + (2 * u + (first && left ? 0 : 1)) * width + col);
-        dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-        dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        float* dst = carry + (2 * u + (first && left ? 0 : 1)) * width + col;
+        if (kMasked) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (col + e >= 0 && col + e < width) dst[e] = acc[e];
+        } else {
+          reinterpret_cast<float4*>(dst)[0] =
+              make_float4(acc[0], acc[1], acc[2], acc[3]);
+          reinterpret_cast<float4*>(dst)[1] =
+              make_float4(acc[4], acc[5], acc[6], acc[7]);
+        }
       } else if (cur < st.m) {
         const int64_t at = static_cast<int64_t>(cur) * st.ldo + col;
         uint4 cv = make_uint4(0, 0, 0, 0);
@@ -349,7 +393,14 @@ unit_reduce_bf16x8_kernel(const int32_t* __restrict__ units, int64_t n_units,
           o2[i] = __floats2bfloat162_rn(bc.x + st.alpha * acc[2 * i],
                                         bc.y + st.alpha * acc[2 * i + 1]);
         }
-        __stcs(reinterpret_cast<uint4*>(st.out + at), o);
+        if (whole) {
+          __stcs(reinterpret_cast<uint4*>(st.out + at), o);
+        } else {
+          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&o);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (col + e >= 0 && col + e < width) st.out[at + e] = h[e];
+        }
       }
     }
     first = false;
@@ -478,7 +529,7 @@ dim3 unit_grid(int64_t n_units, int units_per_block, int64_t width) {
               static_cast<unsigned int>((width + kSlab - 1) / kSlab));
 }
 
-// The two-column loop (f32, f64, bf16_ragged), then the carry combine.
+// The two-column loop (f32, f64, bf16), then the carry combine.
 template <typename T>
 int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
            const int32_t* relrow, const T* vals, const int32_t* xblk,
@@ -517,6 +568,11 @@ int launch(const int32_t* units, const int32_t* rows, const int32_t* wb,
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// a bf16 pointer's place within its 16-byte word, in elements
+int elem_offset(const __nv_bfloat16* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16) / 2;
 }
 
 }  // namespace
@@ -576,17 +632,33 @@ int sblas_window_reduce_bf16(const int32_t* units, const int32_t* rows,
   auto s = static_cast<cudaStream_t>(stream);
   const Store<__nv_bfloat16> st = make_store(C, out, ldo, m, alpha, beta);
   if (width > 0 && n_units > 0) {
-    unit_reduce_bf16x8_kernel<<<unit_grid(n_units, kWarps * kGroups, width),
-                                kWarps * 32, 0, s>>>(
-        units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0, width, st,
-        carry);
+    unit_reduce_bf16x8_kernel<false>
+        <<<unit_grid(n_units, kWarps * kGroups, width), kWarps * 32, 0, s>>>(
+            units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0, width,
+            st, carry, 0);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
   return combine<__nv_bfloat16>(rows, n_rows, carry, width, st, s);
 }
 
-// bf16 for any stride, offset and alignment: the two-column loop.
+// Which body `sblas_window_reduce_bf16_ragged` runs on these operands
+// (the same B, k0, C, out, ldb and ldo): 1 for the sub-warp loop on whole
+// 16-byte words, where B at k0, C and out share one offset and the row
+// strides are multiples of 8; 0 for the two-column loop.
+int sblas_window_reduce_bf16_ragged_masked(const __nv_bfloat16* B,
+                                           const __nv_bfloat16* C,
+                                           const __nv_bfloat16* out,
+                                           int64_t ldb, int64_t k0,
+                                           int64_t ldo) {
+  const int o = elem_offset(B + k0);
+  return ldb % 8 == 0 && ldo % 8 == 0 && elem_offset(out) == o &&
+         (C == nullptr || elem_offset(C) == o);
+}
+
+// bf16 for any stride, offset, width and alignment: the sub-warp loop
+// (columns counted from the word before k0, the rest masked) or the
+// two-column loop, as `sblas_window_reduce_bf16_ragged_masked` says.
 int sblas_window_reduce_bf16_ragged(
     const int32_t* units, const int32_t* rows, const int32_t* wb,
     const int32_t* relrow, const __nv_bfloat16* vals, const int32_t* xblk,
@@ -594,10 +666,23 @@ int sblas_window_reduce_bf16_ragged(
     __nv_bfloat16* out, float* carry, int64_t n_units, int64_t n_rows,
     int64_t ldb, int64_t k0, int64_t width, int64_t ldo, int64_t m,
     double alpha, double beta, void* stream) {
-  return launch<__nv_bfloat16>(units, rows, wb, relrow, vals, xblk, lane, B,
-                               make_store(C, out, ldo, m, alpha, beta),
-                               carry, n_units, n_rows, ldb, k0, width,
-                               stream);
+  const Store<__nv_bfloat16> st = make_store(C, out, ldo, m, alpha, beta);
+  if (!sblas_window_reduce_bf16_ragged_masked(B, C, out, ldb, k0, ldo)) {
+    return launch<__nv_bfloat16>(units, rows, wb, relrow, vals, xblk, lane,
+                                 B, st, carry, n_units, n_rows, ldb, k0,
+                                 width, stream);
+  }
+  const int o = elem_offset(B + k0);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (width > 0 && n_units > 0) {
+    unit_reduce_bf16x8_kernel<true>
+        <<<unit_grid(n_units, kWarps * kGroups, width + o), kWarps * 32, 0,
+           s>>>(units, n_units, wb, relrow, vals, xblk, lane, B, ldb, k0,
+                width, st, carry, o);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  return combine<__nv_bfloat16>(rows, n_rows, carry, width, st, s);
 }
 
 }  // extern "C"

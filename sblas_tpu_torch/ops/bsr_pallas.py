@@ -12,8 +12,10 @@ f64 it runs f64 FMAs; in bf16 it runs on the bf16 tensor cores (exact
 products summed in f32), with alpha and beta folded in f32 and each
 output element rounded to bf16 once (the JAX kernel accumulated the
 slots in its bf16 output block).  `bf16_variant` picks between the two
-bf16 kernels: `wgmma` fed by TMA in persistent blocks where K and the
-operands allow TMA, `mma.sync` with element copies otherwise.
+bf16 kernels, both `wgmma` in persistent blocks fed by TMA: B's rows in
+64 x 64 boxes where K and the operands allow it, else (`bf16_ragged`) in
+8-row groups that the consumers shift into place, on the column tiles
+`ragged_column_tiles` names.
 
 `make_plan`'s dispatcher takes this path for K >= 256 on CUDA
 (`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.
@@ -29,6 +31,7 @@ from .bsr import BsrPlan, require_true_f32
 from .plans import _round_up
 
 BLOCK = 128   # K4's block edge: R = C = 128
+RAGGED_MAX_TILE = 192   # K4[bf16_ragged]'s widest column tile: n128 + n64
 
 
 def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
@@ -48,10 +51,27 @@ def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     return out.to(out_dtype)
 
 
+def ragged_column_tiles(k: int) -> list:
+    """The column tiles K4[bf16_ragged] runs for K columns, as (first
+    column, width): ceil(K / 192) tiles of one width, a multiple of 8 and
+    at most 192, the last cut to K; so no tile is left with a few columns
+    that reread every value block of its block row.  Informational (the
+    tiles printed beside K4's times): the kernel cuts its own tiles
+    (csrc/bsr_kernels.cu::ragged_tile_width, the same width), and the
+    `cuda` test `test_bell_spmm_bf16_ragged_every_column_tiling` holds
+    the kernel to its plain version at every K up to 776."""
+    if k <= 0:
+        return []
+    n = -(-k // RAGGED_MAX_TILE)
+    width = (-(-k // n) + 7) // 8 * 8
+    return [(c, min(width, k - c)) for c in range(0, k, width)]
+
+
 def bf16_variant(vals, B, C, out) -> str:
     """K4[bf16]'s variant: `bf16` (wgmma fed by TMA, which needs 16-byte
     row strides and bases) when K % 8 == 0, every operand starts on 16
-    bytes and there is a slot to read, else `bf16_ragged`."""
+    bytes and there is a slot to read, else `bf16_ragged` (wgmma on B's
+    rows brought as 8-row groups and shifted into place)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (vals, B, C, out))
     tma = B.shape[1] % 8 == 0 and vals.shape[1] > 0 and aligned
     return "bf16" if tma else "bf16_ragged"
@@ -60,7 +80,10 @@ def bf16_variant(vals, B, C, out) -> str:
 def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     """beta*C + alpha*(A @ B) for A in BELL layout with 128 x 128 blocks
     (see `bell_spmm_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch kernel K4 or raise."""
+    tensors launch kernel K4 or raise.  Any alignment is taken; a bf16
+    `vals` that does not start on 16 bytes (no plan makes one: plan
+    values are fresh allocations) is first copied to fresh storage, since
+    both bf16 kernels read the value blocks by TMA."""
     if vals.device.type == "cpu":
         return bell_spmm_plain(vals, bcol, B, C, alpha, beta)
     from ..utils.errors import KernelError, require
@@ -81,6 +104,8 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     _kernels.check_operand(C, "C", vals.dtype, (m, k), dev)
     out = torch.empty((m, k), dtype=vals.dtype, device=dev)
     if variant == "bf16":
+        if vals.data_ptr() % 16:
+            vals = vals.clone()
         variant = bf16_variant(vals, B, C, out)
     _kernels.launch(_kernels.launcher("bell_spmm", variant), dev, vals, bcol,
                     B, C, out, n_brows, L, m, n, k, float(alpha),

@@ -393,7 +393,10 @@ def window_reduce_plain(k3: K3Schedule, wb, relrow, vals, xblk, lane, B,
 def bf16_variant(B, k0: int, width: int, C=None, out=None) -> str:
     """K3[bf16]'s variant: `bf16` (8 columns, one 16-byte load, a lane)
     when B's row stride, k0 and width are multiples of 8 and B, C and out
-    start on 16 bytes, else `bf16_ragged` (the two-column loop)."""
+    start on 16 bytes, else `bf16_ragged` (the same loop on whole words,
+    counted from the word before k0, where the strides and offsets allow
+    it, as every SpMM chunk at K % 8 == 0 does; the two-column loop
+    otherwise: `ragged_body`)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (B, C, out)
                   if t is not None)
     wide = B.shape[1] % 8 == 0 and k0 % 8 == 0 and width % 8 == 0
@@ -444,14 +447,30 @@ def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
         c_at, out_at = C[:, k0:], out[:, k0:]
     if variant == "bf16":
         variant = bf16_variant(B, k0, width, C, out)
+    body = (ragged_body(B, k0, c_at, out_at, ldo)
+            if variant == "bf16_ragged" else None)
     carry = torch.empty((U, 2, width), dtype=sum_dtype(vals.dtype),
                         device=dev)
     _kernels.launch(_kernels.launcher("window_reduce", variant), dev,
                     k3.units, k3.rows, wb, relrow, vals, xblk, lane, B,
                     c_at, out_at, carry, U, R, B.shape[1], k0, width, ldo, m,
                     float(alpha), float(beta))
+    if body is not None:
+        _kernels.BODIES[f"window_reduce_bf16_ragged.{body}"] += 1
     window_reduce.launches += 1
     return out
+
+
+def ragged_body(B, k0: int, c_at, out_at, ldo: int) -> str:
+    """The body K3[bf16_ragged]'s launcher runs on these operands (B and
+    k0, C and out at column k0, out's row stride), as the launcher itself
+    decides it: `masked` (the `bf16` sub-warp rows on whole 16-byte words)
+    where the row strides are multiples of 8 and B at k0, C and out share
+    one offset in their 16-byte words, else `two_column`."""
+    masked = _kernels.library().sblas_window_reduce_bf16_ragged_masked(
+        B.data_ptr(), None if c_at is None else c_at.data_ptr(),
+        out_at.data_ptr(), B.shape[1], k0, ldo)
+    return "masked" if masked else "two_column"
 
 
 window_reduce.launches = 0   # K3 calls (two device launches each)

@@ -2,15 +2,14 @@
 
     python -m sblas_tpu_torch.tools.k3_inflight
 
-The two-column loop of kernel K3 (csrc/wcoo_kernels.cu: the f32 variant,
-and in bf16 the `bf16_ragged` one) keeps `kInFlight` B loads in flight
-per lane and asks the compiler for `kMinBlocks` resident 256-thread
-blocks an SM.  This tool builds copies of the kernel source with those
-two constants changed for one value type (into `_build/`, one `nvcc` per
-copy, all started together) and times each copy's launcher for that loop
-in the grid form at webbase x K=64, on tables cut at 128-slot units for
-both types.  The `bf16` variant (8-lane groups, 16-byte loads) is timed
-on the same tables beside them, through the package's library.
+The two-column loop of kernel K3 (csrc/wcoo_kernels.cu, the f32 variant)
+keeps `kInFlight` B loads in flight per lane and asks the compiler for
+`kMinBlocks` resident 256-thread blocks an SM.  This tool builds copies
+of the kernel source with those two constants changed (into `_build/`,
+one `nvcc` per copy, all started together) and times each copy's
+launcher in the grid form at webbase x K=64, on tables cut at 128-slot
+units.  (In bf16 only `bf16_ragged` at an odd stride or uneven operand
+offsets reaches this loop, so the tool times f32.)
 
 Prints one line per setting: registers and spill bytes of the loop's
 kernel (`nvcc -Xptxas -v`), the blocks an SM those registers allow, the
@@ -33,7 +32,7 @@ import torch
 
 from .. import _kernels
 from ..io.generate import webbase_like
-from ..ops.wcoo import UNIT, WcooPlan, window_reduce
+from ..ops.wcoo import UNIT, WcooPlan
 from ..utils.timing import device_time_ms
 from .k3_skew import _schedule
 
@@ -41,8 +40,6 @@ from .k3_skew import _schedule
 # source's own setting first)
 TYPES = {
     torch.float32: ("float", "f32", "If", 8, [(8, 4), (1, 8), (4, 4)]),
-    torch.bfloat16: ("__nv_bfloat16", "bf16_ragged", "I13__nv_bfloat16", 4,
-                     [(1, 8), (2, 8), (4, 4), (8, 4)]),
 }
 
 
@@ -105,8 +102,7 @@ def main() -> int:
         out = torch.empty((p.n_row_blocks * 128, k), dtype=dtype,
                           device=dev)
         carry = torch.empty((sched.units.shape[0], 2, k), device=dev,
-                            dtype=torch.float32 if dtype == torch.bfloat16
-                            else dtype)
+                            dtype=dtype)
         args = [t.data_ptr() for t in (sched.units, sched.rows, p.wb,
                                        p.relrow, p.vals, p.xblk, p.lane, B)]
         args += [None, out.data_ptr(), carry.data_ptr(),
@@ -133,13 +129,6 @@ def main() -> int:
                   f"spill_bytes={spill} blocks_per_sm={blocks} "
                   f"bytes_in_flight_per_sm={in_flight} ms={ms:.5f}",
                   flush=True)
-        if dtype == torch.bfloat16:
-            wargs = (sched, p.wb, p.relrow, p.vals, p.xblk, p.lane, B, 0, k)
-            ms = device_time_ms(lambda: window_reduce(*wargs), reps=10,
-                                inner=5)
-            print(f"bfloat16 sub-warp rows (bf16): in_flight=4 min_blocks=4 "
-                  f"bytes_in_flight_per_sm={4 * 8 * 32 * 4 * 16} "
-                  f"ms={ms:.5f}", flush=True)
         del p, sched, B, out, carry
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -186,3 +186,31 @@ def test_k4_bf16_variant_follows_k_and_alignment(k, offset, slots, variant):
     assert vals.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0
     assert tbp.bf16_variant(vals, B.view(200, k), C, out) == variant
 
+
+
+@pytest.mark.parametrize("k,tiles", [
+    (263, [(0, 136), (136, 127)]), (300, [(0, 152), (152, 148)]),
+    (257, [(0, 136), (136, 121)]), (383, [(0, 192), (192, 191)]),
+    (17, [(0, 17)]), (193, [(0, 104), (104, 89)]),
+    (1000, [(0, 168), (168, 168), (336, 168), (504, 168), (672, 168),
+            (840, 160)])])
+def test_k4_ragged_column_tiles(k, tiles):
+    """K4[bf16_ragged]'s column tiles at the path's K: ceil(K / 192) of
+    them, never a tile of a few columns (K=263 was 128 + 128 + 7)."""
+    assert tbp.ragged_column_tiles(k) == tiles
+
+
+def test_k4_ragged_column_tiles_cover_k_once():
+    """For every K up to 4096: the tiles cover [0, K) in order, once; all
+    but the last are one width, a multiple of 8; each is at most 192
+    wide, and there are ceil(K / 192) of them."""
+    assert tbp.ragged_column_tiles(0) == []
+    for k in range(1, 4097):
+        tiles = tbp.ragged_column_tiles(k)
+        starts = [c for c, _ in tiles]
+        widths = [w for _, w in tiles]
+        assert starts == [sum(widths[:j]) for j in range(len(tiles))], k
+        assert sum(widths) == k, k
+        assert all(w % 8 == 0 and w == widths[0] for w in widths[:-1]), k
+        assert 0 < widths[-1] <= widths[0] <= tbp.RAGGED_MAX_TILE, k
+        assert len(tiles) == -(-k // tbp.RAGGED_MAX_TILE), k

@@ -1162,7 +1162,7 @@ def test_bell_spmm_bf16_alpha_or_beta_zero(dev, alpha, beta):
 
 
 def test_bell_spmm_bf16_unaligned_operand_takes_ragged(dev):
-    """K = 256 but B two bytes off a 16-byte boundary: the element-copy
+    """K = 256 but B two bytes off a 16-byte boundary: the `bf16_ragged`
     variant runs, within one ulp."""
     from sblas_tpu_torch.io.generate import fem_banded_like
     from sblas_tpu_torch.ops.bsr import BsrPlan
@@ -1421,3 +1421,265 @@ def test_spmm_wcoo_keeps_a_wider_c_on_card(dev, plan_dtype, c_dtype):
     kept = 4.0 * C.double() + 3.0 * ab.double()
     rel = ((got.double() - kept).abs() / kept.abs()).max()
     assert rel <= torch.finfo(c_dtype).eps, rel
+
+
+# ---- the two ragged bf16 kernels over strides, offsets, widths and tails:
+# within one bf16 ulp of their plain versions, two launches bitwise ----
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of `t` starting `off` elements (2 off bytes for
+    bf16) past a 16-byte boundary."""
+    buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    return buf[off:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("offs", [(0, 0, 0), (0, 1, 7), (3, 5, 2)])
+@pytest.mark.parametrize("case,k", [("uneven", 257), ("uneven", 263),
+                                    ("uneven", 300), ("uneven", 383),
+                                    ("band20k", 263), ("band20k", 383)])
+def test_bell_spmm_bf16_ragged_within_one_ulp(dev, case, k, offs):
+    """K4[bf16_ragged] at K % 8 != 0 on m = 700, n = 900 (padding slots,
+    both dimensions' tails) and on a 157-block-row band (more tiles than
+    SMs: each persistent block walks several), with vals, B and C
+    starting 0 to 14 bytes past 16 (a vals off 16 bytes is copied to
+    fresh storage by the wrapper)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    A = (_uneven_block_rows() if case == "uneven"
+         else fem_banded_like(n=20_000, half_band=36))
+    plan = BsrPlan.from_csr(A, dtype=BF16, device=dev)
+    m, n = A.shape
+    g = torch.Generator(device=dev).manual_seed(k)
+    ov, ob, oc = offs
+    vals = _at_offset(plan.vals, ov)
+    B = _at_offset(torch.rand((n, k), generator=g, device=dev).to(BF16), ob)
+    C = _at_offset(torch.rand((m, k), generator=g, device=dev).to(BF16), oc)
+    args = (vals, plan.bcol, B, C, 3.0, 4.0)
+    _kernels.LAUNCHED.clear()
+    got, again = tb.bell_spmm(*args), tb.bell_spmm(*args)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_bell_spmm_bf16_ragged": 2}
+    assert torch.equal(got, again)
+    assert int(_ulps(got, tb.bell_spmm_plain(*args)).max()) <= 1
+
+
+@pytest.mark.parametrize("k,off", [(263, 0), (300, 3)])
+def test_bell_spmm_bf16_ragged_without_slots_is_beta_c(dev, k, off):
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    vals = torch.zeros((3, 0, 128, 128), dtype=BF16, device=dev)
+    bcol = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    B = torch.rand((100, k), device=dev).to(BF16)
+    C = _at_offset(torch.rand((300, k), device=dev).to(BF16), off)
+    _kernels.LAUNCHED.clear()
+    got = tb.bell_spmm(vals, bcol, B, C, 3.0, 4.0)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_bell_spmm_bf16_ragged": 1}
+    assert torch.equal(got, (4.0 * C.float()).to(BF16))
+
+
+@pytest.mark.parametrize("ob", [0, 1])
+def test_bell_spmm_bf16_ragged_every_column_tiling(dev, ob):
+    """K4[bf16_ragged] at every K from 1 to 776 (B one element off 16
+    bytes, or at K % 8 != 0, so the ragged variant runs at every K):
+    within one ulp of its plain version, so every column-tile schedule
+    the kernel cuts from K (`ragged_tile_width`) covers K's columns."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import bsr_pallas as tb
+    from sblas_tpu_torch.ops.bsr import BsrPlan
+    plan = BsrPlan.from_csr(_uneven_block_rows(), dtype=BF16, device=dev)
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(ob)
+    Bw = torch.rand((n, 776), generator=g, device=dev).to(BF16)
+    Cw = torch.rand((m, 776), generator=g, device=dev).to(BF16)
+    worst, launched = {}, 0
+    for k in range(1, 777):
+        if ob == 0 and k % 8 == 0:
+            continue
+        B = _at_offset(Bw[:, :k].contiguous(), ob)
+        args = (plan.vals, plan.bcol, B, Cw[:, :k].contiguous(), 3.0, 4.0)
+        _kernels.LAUNCHED.clear()
+        got = tb.bell_spmm(*args)
+        launched += _kernels.LAUNCHED["sblas_bell_spmm_bf16_ragged"]
+        worst[k] = int(_ulps(got, tb.bell_spmm_plain(*args)).max())
+    torch.cuda.synchronize()
+    assert launched == len(worst)
+    assert {k: u for k, u in worst.items() if u > 1} == {}
+
+
+# K3[bf16_ragged]'s two bodies: `masked` (the `bf16` sub-warp rows on whole
+# words) where the row strides are multiples of 8 and B at k0, C and out
+# share one 16-byte offset, `two_column` (the two-column loop) otherwise; each
+# test names the body it reaches and checks it by `_kernels.BODIES`.
+
+def _bodies():
+    from sblas_tpu_torch import _kernels
+    return {k[len("window_reduce_bf16_ragged."):]: v
+            for k, v in _kernels.BODIES.items()}
+
+
+# stride: "odd" (every entry's B row at its own offset), "even" (K % 8 !=
+# 0), "x8" (K % 8 == 0: the masked body, in the grid form where its width
+# is a multiple of 8); k0 = 0 at width 64 and "x8" is the `bf16` variant's
+_K3_RAGGED = [(k0, width, stride) for k0 in (0, 1, 3, 7)
+              for width in (1, 7, 47, 63, 64, 81)
+              for stride in ("odd", "even", "x8")
+              if (k0, width, stride) != (0, 64, "x8")]
+
+
+@pytest.mark.parametrize("form", ["grid", "fused"])
+@pytest.mark.parametrize("k0,width,stride", _K3_RAGGED)
+def test_window_reduce_bf16_ragged_grid_of_shapes(dev, k0, width, stride,
+                                                  form):
+    """K3[bf16_ragged] at k0 in {0, 1, 3, 7}, width in {1, 7, 47, 63, 64,
+    81} and an odd, an even or a multiple-of-8 row stride: within one ulp,
+    bitwise across launches, and in the fused form nothing written
+    outside its columns and rows.  In the grid form (out at its own 16
+    bytes) B starts -k0 elements off 16 bytes at the multiple-of-8
+    stride, so B at k0 and out share an offset."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, BF16, "web3k")
+    k = k0 + width + 2
+    if stride == "x8":
+        k = -(-k // 8) * 8
+    else:
+        k += (k % 2 == 1) != (stride == "odd")
+        k += 2 * (k % 8 == 0)
+    _kernels.BODIES.clear()
+    if form == "fused":
+        (got, again, want), launched = _k3_fused(plan, k, k0, width, BF16,
+                                                 seed=k0 + width)
+        outside = torch.ones_like(got, dtype=torch.bool)
+        outside[:plan.shape[0], k0:k0 + width] = False
+        assert bool((got[outside] == -7.0).all())
+        masked = stride == "x8"
+    else:
+        g = torch.Generator(device=dev).manual_seed(k0 + width)
+        B = torch.rand((plan.shape[1], k), generator=g, device=dev).to(BF16)
+        if stride == "x8":
+            B = _at_offset(B, -k0 % 8)
+        args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+                plan.lane, B, k0, width)
+        _kernels.LAUNCHED.clear()
+        got, again = tw.window_reduce(*args), tw.window_reduce(*args)
+        torch.cuda.synchronize()
+        launched = {n[len("sblas_window_reduce_"):]: v
+                    for n, v in _kernels.LAUNCHED.items()}
+        want = tw.window_reduce_plain(*args)
+        masked = stride == "x8" and width % 8 == 0
+    assert launched == {"bf16_ragged": 2}
+    assert _bodies() == {"masked" if masked else "two_column": 2}
+    assert torch.equal(got, again)
+    assert int(_ulps(got, want).max()) <= 1
+
+
+@pytest.mark.parametrize("k,offs", [
+    (90, (1, 0, 0)), (90, (0, 3, 5)), (90, (7, 7, 1)), (90, (2, 6, 4)),
+    (96, (1, 1, 1)), (96, (3, 3, 3)), (96, (6, 6, 6)), (96, (7, 7, 7))])
+@pytest.mark.parametrize("case,k0,width", [("web3k", 0, 64),
+                                           ("web3k", 3, 47),
+                                           ("long_row", 1, 81)])
+def test_window_reduce_bf16_ragged_offset_operands(dev, case, k0, width, k,
+                                                   offs):
+    """B, C and out starting 0 to 14 bytes past 16: at 90 columns each at
+    its own offset (the two-column loop, C's and out's words realigned
+    apart), at 96 all at one offset (the masked body); the long row spans
+    dozens of units (carries)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, BF16, case)
+    m, n = plan.shape
+    ob, oc, oo = offs
+    g = torch.Generator(device=dev).manual_seed(sum(offs))
+    B = _at_offset(torch.rand((n, k), generator=g, device=dev).to(BF16), ob)
+    C = _at_offset(torch.rand((m, k), generator=g, device=dev).to(BF16), oc)
+    outs = [_at_offset(torch.full((m, k), -7.0, device=dev, dtype=BF16), oo)
+            for _ in range(2)]
+    args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane,
+            B, k0, width)
+    _kernels.BODIES.clear()
+    for out in outs:
+        tw.window_reduce(*args, C=C, alpha=3.0, beta=4.0, out=out)
+    torch.cuda.synchronize()
+    want = tw.window_reduce_plain(*args, C=C, alpha=3.0, beta=4.0,
+                                  out=torch.full((m, k), -7.0, device=dev,
+                                                 dtype=BF16))
+    assert _bodies() == {"masked" if k % 8 == 0 else "two_column": 2}
+    assert torch.equal(outs[0], outs[1])
+    assert int(_ulps(outs[0], want).max()) <= 1
+
+
+@pytest.mark.parametrize("k0,width", [(0, 81), (81, 47)])
+@pytest.mark.parametrize("case", ["web20k", "long_row"])
+def test_window_reduce_bf16_ragged_spmm_chunks(dev, case, k0, width):
+    """The chunks a bf16 WCOO SpMM at K = 128 runs at webbase-1M's chunk
+    width of 81 (k0 = 0, 81 columns; k0 = 81, 47 columns; B, C and out
+    of 128 columns): the masked body, within one ulp and bitwise across
+    launches; the long row spans dozens of units (carries)."""
+    from sblas_tpu_torch import _kernels
+    plan, _ = _k3_case(dev, BF16, case)
+    _kernels.BODIES.clear()
+    (got, again, want), launched = _k3_fused(plan, 128, k0, width, BF16,
+                                             seed=k0)
+    assert launched == {"bf16_ragged": 2}
+    assert _bodies() == {"masked": 2}
+    assert torch.equal(got, again)
+    assert int(_ulps(got, want).max()) <= 1
+
+
+@pytest.mark.parametrize("form", ["grid", "fused"])
+@pytest.mark.parametrize("case", ["web20k", "long_row", "min_tiles"])
+def test_window_reduce_bf16_ragged_gives_the_bf16_bits(dev, case, form):
+    """Where `bf16` can run (the same 56 columns copied to aligned,
+    8-column-multiple operands) it and `bf16_ragged` at k0 = 1 (the
+    two-column loop in the grid form, whose out starts on 16 bytes; the
+    masked body in the fused form) sum in one order and round once alike:
+    the results are bitwise equal."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, BF16, case)
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(56)
+    B = torch.rand((n, 72), generator=g, device=dev).to(BF16)
+    C = torch.rand((m, 72), generator=g, device=dev).to(BF16)
+    Ba, Ca = B[:, 1:57].contiguous(), C[:, 1:57].contiguous()
+    tabs = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane)
+    epi = dict(C=C, alpha=3.0, beta=4.0) if form == "fused" else {}
+    epi_a = dict(epi, C=Ca) if epi else {}
+    _kernels.LAUNCHED.clear()
+    _kernels.BODIES.clear()
+    got = tw.window_reduce(*tabs, B, 1, 56, **epi)
+    want = tw.window_reduce(*tabs, Ba, 0, 56, **epi_a)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_window_reduce_bf16_ragged": 1,
+                                       "sblas_window_reduce_bf16": 1}
+    assert _bodies() == {"masked" if epi else "two_column": 1}
+    assert torch.equal(got[:, 1:57] if epi else got, want)
+
+
+@pytest.mark.parametrize("width,off,k", [(47, 0, 90), (81, 5, 90),
+                                         (47, 0, 96), (81, 0, 96)])
+def test_window_reduce_bf16_ragged_without_entries(dev, width, off, k):
+    """A plan with no entries (no units): every row of the fused form is
+    beta * C, written by the carry combine alone, behind either body (the
+    masked one at 96 columns with C on 16 bytes)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.containers import CsrMatrix
+    from sblas_tpu_torch.ops import wcoo as tw
+    m, n = 300, 200
+    A = CsrMatrix(np.zeros(m + 1, dtype=np.int64), np.zeros(0, np.int64),
+                  np.zeros(0, np.float32), (m, n))
+    plan = tw.WcooPlan.from_csr(A, dtype=BF16, device=dev)
+    B = torch.rand((n, k), device=dev).to(BF16)
+    C = _at_offset(torch.rand((m, k), device=dev).to(BF16), off)
+    _kernels.BODIES.clear()
+    out = tw.window_reduce(plan.k3, plan.wb, plan.relrow, plan.vals,
+                           plan.xblk, plan.lane, B, 3, width, C=C,
+                           alpha=3.0, beta=4.0)
+    torch.cuda.synchronize()
+    assert _bodies() == {"masked" if k % 8 == 0 else "two_column": 1}
+    assert torch.equal(out[:, 3:3 + width],
+                       (4.0 * C[:, 3:3 + width].float()).to(BF16))

@@ -320,3 +320,38 @@ def test_spmm_wcoo_refuses_a_c_of_another_shape():
               torch.ones((m, 3), dtype=torch.float64)):
         with pytest.raises(ShapeError):
             tw.spmm_wcoo(tp, B, ALPHA, BETA, C)
+
+
+@pytest.mark.parametrize("k,k_chunk", [(20, 9), (17, 5), (20, None)])
+def test_spmm_wcoo_bf16_ragged_chunks_match_jax(k, k_chunk):
+    """bf16 values in K-chunks that are not multiples of 8, as the JAX
+    package's chunk width makes them at webbase-1M (81 columns): every
+    chunk here would take K3's `bf16_ragged` on the card.  The port's
+    plain path against `spmm_wcoo(..., k_chunk)` of the JAX package
+    (its Pallas reduce in interpret mode) at the JAX package's bf16 bound
+    (rtol = atol = 0.15), and both against the numpy oracle on the same
+    bf16 operands."""
+    A = jgen.webbase_like(n=2000, avg_deg=3.0)
+    rng = np.random.RandomState(k)
+    B16 = torch.from_numpy(rng.rand(A.width, k)).to(torch.bfloat16)
+    C16 = torch.from_numpy(rng.rand(A.height, k)).to(torch.bfloat16)
+    tp = tw.WcooPlan.from_csr(_port(A), dtype=torch.bfloat16, device="cpu")
+    kc = k_chunk or tw.k_chunk_width(tp.n_tiles, k)
+    out = torch.empty_like(C16)
+    for k0 in range(0, k, kc):
+        width = min(kc, k - k0)
+        assert tw.bf16_variant(B16, k0, width, C16, out) == (
+            "bf16" if width % 8 == 0 and k0 % 8 == 0 and k % 8 == 0
+            else "bf16_ragged")
+    got = tw.spmm_wcoo(tp, B16, ALPHA, BETA, C16, k_chunk=k_chunk)
+    assert got.dtype == torch.bfloat16
+    got = got.double().numpy()
+    jp = jw.WcooPlan.from_csr(A, dtype=jnp.bfloat16)
+    want = np.asarray(jw.spmm_wcoo(
+        jp, jnp.asarray(B16.float().numpy(), jnp.bfloat16), ALPHA, BETA,
+        jnp.asarray(C16.float().numpy(), jnp.bfloat16),
+        k_chunk=k_chunk)).astype(np.float64)
+    oracle = spmm_cpu(A, JDenseMatrix(B16.double().numpy()), ALPHA, BETA,
+                      JDenseMatrix(C16.double().numpy()))
+    for x, y in ((got, want), (got, oracle), (want, oracle)):
+        np.testing.assert_allclose(x, y, rtol=0.15, atol=0.15)
