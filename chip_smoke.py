@@ -82,13 +82,16 @@ and the distribution layer in a world-1 NCCL group:
         bf16-valued plan's), K3 bf16 at webbase x K=64 in both forms (its
         `bf16` variant, 16-byte loads on 8-lane groups) and its
         `bf16_ragged` variant, each body its launcher picks held on the
-        path that runs it (counted by body, `_kernels.BODIES`): the
-        two-column loop at the SpMM at K=63's operands and on that SpMM
-        (an odd stride), the masked body (the same lanes on whole words,
-        columns counted from the word before k0) at k0 = 1 and on the
-        webbase bf16 SpMM at K=128's two chunks of 81 and 47 columns and
-        on that SpMM; bitwise the `bf16` variant's result on aligned
-        copies at k0 = 1, 56 columns, both forms), K4 bf16 (wgmma
+        path that runs it (counted by body, `_kernels.BODIES`): the ring
+        body (the same lanes fed by a shared-memory ring of each entry's
+        covering words, shifted on the read) at the SpMM at K=63's
+        operands and on that SpMM (an odd stride), and on the SpMM at
+        K=100's two chunks of 81 and 19 columns and on that SpMM; the
+        masked body (the same lanes on whole words, columns counted from
+        the word before k0) at k0 = 1 and on the webbase bf16 SpMM at
+        K=128's two chunks of 81 and 47 columns and on that SpMM; bitwise
+        the `bf16` variant's result on aligned copies at k0 = 1, 56
+        columns, in both forms and at the odd stride), K4 bf16 (wgmma
         fed by TMA, its `bf16` variant, checked) at band-73 x K=256 and
         (`bf16_ragged`, wgmma on B's rows brought by TMA as 8-row groups
         and shifted into place, checked) at K=263 and, off the path,
@@ -104,7 +107,7 @@ and the distribution layer in a world-1 NCCL group:
     [bf16-plans] plans with bf16 values against the oracle at the JAX
         package's bf16 bound (rtol = atol = 0.15): the webbase routed SpMV
         (K1 bf16, K2 bf16; and through K2' with `pregather`), the webbase
-        WCOO SpMM (K3) at K=64 and 63, the shell DIA SpMM and SpMV, the
+        WCOO SpMM (K3) at K=64, 63 and 100, the shell DIA SpMM and SpMV, the
         band-73 BELL SpMM
         at K=256 and K=263 (K4, each variant once)
     [bf16-dist] the distributed modes over containers with bf16 values,
@@ -1177,8 +1180,8 @@ def bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels) -> None:
 def body_launches(title, expect: dict) -> dict:
     """The last `launches_of` run's K3[bf16_ragged] launches by the body
     its launcher ran (`_kernels.BODIES`: `masked`, the `bf16` sub-warp
-    rows on whole words; `two_column`, the two-column loop), which must be
-    `expect`."""
+    rows on whole words; `ring`, the sub-warp rows fed by the
+    shared-memory ring), which must be `expect`."""
     from sblas_tpu_torch import _kernels
     got = {k[len("window_reduce_bf16_ragged."):]: v
            for k, v in _kernels.BODIES.items()}
@@ -1224,13 +1227,14 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
                    kernels) -> None:
     """K3[bf16_ragged], each of its launcher's two bodies held within one
     bf16 ulp of its plain version at the operands of the path that runs
-    it and timed with its bound.  The two-column loop at the SpMM at
-    K=63's own operands (B and C cut to 63 columns, an odd row stride;
-    k0 = 0), then that SpMM (the oracle cut alike), one call on that
-    loop; the masked body at k0 = 1 of the K=64 operands (63 columns at
-    an odd offset, the shape PERF.md's row is measured at); the aligned
-    `bf16` bits; then the SpMM at K=128, whose two chunks take the
-    masked body (`bf16_wcoo_k128`)."""
+    it and timed with its bound.  The ring body at the SpMM at K=63's own
+    operands (B and C cut to 63 columns, an odd row stride; k0 = 0), then
+    that SpMM (the oracle cut alike), one call on that body; the masked
+    body at k0 = 1 of the K=64 operands (63 columns at an odd offset, the
+    shape PERF.md's row is measured at); the aligned `bf16` bits; then
+    the SpMM at K=100, whose two chunks take the ring body
+    (`bf16_wcoo_k100`), and at K=128, whose two chunks take the masked
+    body (`bf16_wcoo_k128`)."""
     from sblas_tpu_torch.ops import spmm
     from sblas_tpu_torch.ops.wcoo import k_chunk_width
     KR = B16.shape[1] - 1
@@ -1244,9 +1248,9 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
     lib_ms = library_or_none(
         f"torch.addmm bf16 CSR x dense, K={KR}",
         lambda: torch.addmm(CR, A_csr, BR, beta=BETA, alpha=ALPHA))
-    name = "window_reduce[bf16_ragged.two_column]"
+    name = "window_reduce[bf16_ragged.ring]"
     err, rel, ms, plain_ms = ragged_compare(name, [(BR, 0, KR, tabs)], CR,
-                                            "two_column")
+                                            "ring")
     kc = k_chunk_width(wp.n_tiles, KR)
     out, counts = launches_of(counters, lambda: spmm(wp, BR, ALPHA, BETA, CR))
     expect_launches(f"WCOO SpMM bf16 K={KR}", counts,
@@ -1254,7 +1258,7 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
     by_variant = variant_launches(f"WCOO SpMM bf16 K={KR}",
                                   {"window_reduce_bf16_ragged": -(-KR // kc)})
     by_body = body_launches(f"WCOO SpMM bf16 K={KR}",
-                            {"two_column": -(-KR // kc)})
+                            {"ring": -(-KR // kc)})
     phase("bf16-kernels", kernel=f"K3 {name} fused", k0=0, K=KR, ldb=KR,
           main_path_launches=by_body, max_abs_err=f"{err:.3e}",
           rel_err=f"{rel:.3e}", ulps=1, deterministic=True, ms=f"{ms:.5f}",
@@ -1265,7 +1269,7 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
         name=name, route="cuda", source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
         replaces="sblas_tpu/ops/wcoo.py:291", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms,
-        launches=by_body["two_column"], **bnd)
+        launches=by_body["ring"], **bnd)
     phase("bf16-plans", path=f"spmm WcooPlan bf16 webbase-1M K={KR}",
           launches=counts, by_variant=by_variant, by_body=by_body,
           check=checked_bf16(f"WCOO SpMM bf16 K={KR}", out, want[:, :KR]),
@@ -1282,42 +1286,102 @@ def bf16_ragged_k3(A, wp, A_csr, B16, C16, want, counters, none,
           bound_by=bnd["bound_by"],
           share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
     ragged_gives_bf16_bits(wp, B16, C16)
+    bf16_wcoo_k100(A, wp, A_csr, B16, C16, want, counters, none)
     bf16_wcoo_k128(A, A_csr, B16, C16, want, counters, none, kernels)
 
 
 def ragged_gives_bf16_bits(wp, B16, C16) -> None:
     """K3[bf16_ragged] at k0 = 1 over 56 columns against K3[bf16] on
-    aligned copies of the same 56 columns (k0 = 0): the two sum in one
-    order and round once the same way, so both store forms must agree
-    bitwise (the grid form, whose out starts on 16 bytes, on the
-    two-column loop; the fused form on the masked body)."""
+    aligned copies of the same 56 columns (k0 = 0): the bodies sum in one
+    order and round once the same way, so every store form must agree
+    bitwise: the grid form, whose out starts on 16 bytes, on the ring
+    body; the fused form on the masked body; and the fused form at the
+    odd row stride 63 (B and C cut to 63 columns) on the ring body."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops.wcoo import window_reduce
     W = 56
     tabs = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane)
     Ba, Ca = B16[:, 1:1 + W].contiguous(), C16[:, 1:1 + W].contiguous()
+    Bo, Co = B16[:, :63].contiguous(), C16[:, :63].contiguous()
     epi = dict(alpha=ALPHA, beta=BETA)
     _kernels.LAUNCHED.clear()
     _kernels.BODIES.clear()
     grid_r = window_reduce(*tabs, B16, 1, W)
     fused_r = window_reduce(*tabs, B16, 1, W, C=C16, **epi)[:, 1:1 + W]
+    odd_r = window_reduce(*tabs, Bo, 1, W, C=Co, **epi)[:, 1:1 + W]
     grid_a = window_reduce(*tabs, Ba, 0, W)
     fused_a = window_reduce(*tabs, Ba, 0, W, C=Ca, **epi)
     torch.cuda.synchronize()
     got = {k[len("sblas_window_reduce_"):]: v
            for k, v in _kernels.LAUNCHED.items()}
-    if got != {"bf16_ragged": 2, "bf16": 2}:
+    if got != {"bf16_ragged": 3, "bf16": 2}:
         raise AssertionError(f"ragged vs bf16: variants {got}")
-    body_launches("ragged vs bf16", {"two_column": 1, "masked": 1})
-    same = (torch.equal(grid_r, grid_a), torch.equal(fused_r, fused_a))
+    body_launches("ragged vs bf16", {"ring": 2, "masked": 1})
+    same = (torch.equal(grid_r, grid_a), torch.equal(fused_r, fused_a),
+            torch.equal(odd_r, fused_a))
     if not all(same):
         raise AssertionError(f"K3[bf16_ragged] at k0=1 differs from "
-                             f"K3[bf16] on aligned copies (grid, fused "
-                             f"equal: {same})")
+                             f"K3[bf16] on aligned copies (grid, fused, "
+                             f"fused at stride 63 equal: {same})")
     window_reduce.launches = 0
     phase("bf16-kernels", kernel="K3 bf16_ragged vs bf16, aligned copies",
-          k0=1, width=W, grid_bitwise=True, grid_body="two_column",
-          fused_bitwise=True, fused_body="masked")
+          k0=1, width=W, grid_bitwise=True, grid_body="ring",
+          fused_bitwise=True, fused_body="masked",
+          stride63_fused_bitwise=True, stride63_body="ring")
+
+
+def bf16_wcoo_k100(A, wp, A_csr, B16, C16, want, counters, none) -> None:
+    """[bf16-kernels] the webbase-1M bf16 WCOO SpMM at K=100 (`spmm` on
+    the bf16 WcooPlan): the JAX package's chunk width (81 at webbase)
+    makes two K3 calls, 81 and 19 columns wide at row stride 100, both
+    `bf16_ragged` on its ring body.  That body is held within one bf16
+    ulp of its plain version on the same two chunks and timed, with the
+    bound and `torch.addmm` beside it; then the SpMM against the oracle.
+    B and C are the K=64 operands and the first 36 of their columns
+    reversed, so the oracle is the K=64 one extended alike."""
+    from sblas_tpu_torch.ops import spmm
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    K = 100
+    extra = K - B16.shape[1]
+    B = torch.cat([B16, B16.flip(1)[:, :extra]], 1).contiguous()
+    C = torch.cat([C16, C16.flip(1)[:, :extra]], 1).contiguous()
+    want = np.concatenate([want, want[:, ::-1][:, :extra]], 1)
+    kc = k_chunk_width(wp.n_tiles, K)
+    chunks = [(k0, min(kc, K - k0)) for k0 in range(0, K, kc)]
+    tabs = (wp.k3, wp.wb, wp.relrow, wp.vals, wp.xblk, wp.lane)
+    index = nbytes(wp.k3_units, wp.k3_rows, wp.wb, wp.relrow, wp.vals,
+                   wp.xblk, wp.lane)
+    m = C.shape[0]
+    # each call reads the index streams once; B, C and out once in all
+    bnd = bound(len(chunks) * index + (B.shape[0] + 2 * m) * K * 2,
+                2 * A.nnz * K + 3 * m * K, rate=BF16_FLOPS)
+    name = "window_reduce[bf16_ragged.ring]"
+    err, rel, ms, plain_ms = ragged_compare(
+        name, [(B, k0, w, tabs) for k0, w in chunks], C, "ring")
+    lib_ms = library_or_none(
+        f"torch.addmm bf16 CSR x dense, K={K}",
+        lambda: torch.addmm(C, A_csr, B, beta=BETA, alpha=ALPHA))
+    out, counts = launches_of(counters, lambda: spmm(wp, B, ALPHA, BETA, C))
+    expect_launches(f"WCOO SpMM bf16 K={K}", counts,
+                    dict(none, window_reduce=len(chunks)))
+    by_variant = variant_launches(f"WCOO SpMM bf16 K={K}",
+                                  {"window_reduce_bf16_ragged": 2})
+    by_body = body_launches(f"WCOO SpMM bf16 K={K}", {"ring": 2})
+    phase("bf16-kernels", kernel=f"K3 {name} fused, the K={K} chunks",
+          body="ring", chunks=chunks, ldb=K, main_path_launches=by_body,
+          max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", ulps=1,
+          deterministic=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          library_ms=_fmt_ms(lib_ms), bound_ms=f"{bnd['bound_ms']:.5f}",
+          bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / ms:.3f}")
+    times = call_times(lambda: spmm(wp, B, ALPHA, BETA, C), A.nnz, K)
+    phase("bf16-plans", path=f"spmm WcooPlan bf16 webbase-1M K={K}",
+          chunks=[w for _, w in chunks], launches=counts,
+          by_variant=by_variant, by_body=by_body,
+          check=checked_bf16(f"WCOO SpMM bf16 K={K}", out, want),
+          bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+          share_of_bound=f"{bnd['bound_ms'] / float(times['device_ms']):.3f}",
+          **times)
 
 
 def bf16_wcoo_k128(A, A_csr, B16, C16, want, counters, none,

@@ -66,9 +66,9 @@ LAUNCHERS = {
 # host-side queries a wrapper asks before it launches: name -> argument
 # types (returning int)
 QUERIES = {
-    # the body `sblas_window_reduce_bf16_ragged` runs (1 masked sub-warp
-    # rows, 0 the two-column loop): B, C, out, ldb, k0, ldo
-    "sblas_window_reduce_bf16_ragged_masked": [_p] * 3 + [_i64] * 3,
+    # the body `sblas_window_reduce_bf16_ragged` runs (an index into
+    # `ops.wcoo.RAGGED_BODIES`): B, C, out, ldb, k0, ldo
+    "sblas_window_reduce_bf16_ragged_body": [_p] * 3 + [_i64] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -77,7 +77,7 @@ _lib: Optional[ctypes.CDLL] = None
 # each wrapper's own `launches` counts all of its variants)
 LAUNCHED: Counter = Counter()
 # launches by kernel body, for a launcher that picks one of several bodies
-# (`window_reduce_bf16_ragged.masked` / `.two_column`)
+# (`window_reduce_bf16_ragged.masked` / `.ring`)
 BODIES: Counter = Counter()
 
 

@@ -395,8 +395,8 @@ def bf16_variant(B, k0: int, width: int, C=None, out=None) -> str:
     when B's row stride, k0 and width are multiples of 8 and B, C and out
     start on 16 bytes, else `bf16_ragged` (the same loop on whole words,
     counted from the word before k0, where the strides and offsets allow
-    it, as every SpMM chunk at K % 8 == 0 does; the two-column loop
-    otherwise: `ragged_body`)."""
+    it, as every SpMM chunk at K % 8 == 0 does; the same lanes fed by a
+    shared-memory ring otherwise: `ragged_body`)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (B, C, out)
                   if t is not None)
     wide = B.shape[1] % 8 == 0 and k0 % 8 == 0 and width % 8 == 0
@@ -461,16 +461,22 @@ def window_reduce(k3: K3Schedule, wb, relrow, vals, xblk, lane, B, k0: int,
     return out
 
 
+# K3[bf16_ragged]'s bodies, by the index its launcher's query returns
+RAGGED_BODIES = ("masked", "ring")
+
+
 def ragged_body(B, k0: int, c_at, out_at, ldo: int) -> str:
     """The body K3[bf16_ragged]'s launcher runs on these operands (B and
     k0, C and out at column k0, out's row stride), as the launcher itself
     decides it: `masked` (the `bf16` sub-warp rows on whole 16-byte words)
     where the row strides are multiples of 8 and B at k0, C and out share
-    one offset in their 16-byte words, else `two_column`."""
-    masked = _kernels.library().sblas_window_reduce_bf16_ragged_masked(
-        B.data_ptr(), None if c_at is None else c_at.data_ptr(),
-        out_at.data_ptr(), B.shape[1], k0, ldo)
-    return "masked" if masked else "two_column"
+    one offset in their 16-byte words, else `ring` (the same sub-warp rows
+    fed by a shared-memory ring of each entry's covering words, shifted on
+    the read, at any stride and offset)."""
+    return RAGGED_BODIES[
+        _kernels.library().sblas_window_reduce_bf16_ragged_body(
+            B.data_ptr(), None if c_at is None else c_at.data_ptr(),
+            out_at.data_ptr(), B.shape[1], k0, ldo)]
 
 
 window_reduce.launches = 0   # K3 calls (two device launches each)

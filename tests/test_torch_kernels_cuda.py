@@ -1019,7 +1019,7 @@ def _aten_ops(fn):
 
 @pytest.mark.parametrize("dtype,k,k_chunk", [
     (torch.float32, 80, 32), (torch.float64, 64, None), (BF16, 64, None),
-    (BF16, 80, 24), (BF16, 40, 13)])
+    (BF16, 80, 24), (BF16, 40, 13), (BF16, 63, None), (BF16, 100, 81)])
 def test_spmm_wcoo_is_k3_alone(dev, dtype, k, k_chunk):
     """The WCOO SpMM on the card is K3's calls, one per K-chunk, all
     writing one result: no slice copy, concatenation or elementwise
@@ -1511,8 +1511,10 @@ def test_bell_spmm_bf16_ragged_every_column_tiling(dev, ob):
 
 # K3[bf16_ragged]'s two bodies: `masked` (the `bf16` sub-warp rows on whole
 # words) where the row strides are multiples of 8 and B at k0, C and out
-# share one 16-byte offset, `two_column` (the two-column loop) otherwise; each
-# test names the body it reaches and checks it by `_kernels.BODIES`.
+# share one 16-byte offset, `ring` (the same sub-warp rows fed by a
+# shared-memory ring of each entry's covering words, shifted on the read)
+# otherwise; each test names the body it reaches and checks it by
+# `_kernels.BODIES`.
 
 def _bodies():
     from sblas_tpu_torch import _kernels
@@ -1571,23 +1573,93 @@ def test_window_reduce_bf16_ragged_grid_of_shapes(dev, k0, width, stride,
         want = tw.window_reduce_plain(*args)
         masked = stride == "x8" and width % 8 == 0
     assert launched == {"bf16_ragged": 2}
-    assert _bodies() == {"masked" if masked else "two_column": 2}
+    assert _bodies() == {"masked" if masked else "ring": 2}
+    assert torch.equal(got, again)
+    assert int(_ulps(got, want).max()) <= 1
+
+
+# the row strides of the bf16 WCOO SpMM at K = 63 (one chunk) and K = 100
+# (webbase-1M's chunks of 81 + 19 columns): k0 in {0, 1, 3, 7}, widths
+# from one column to the row's end
+_K3_RING = [(k, k0, width) for k in (63, 100) for k0 in (0, 1, 3, 7)
+            for width in (1, 19, 47, k - k0)]
+
+
+@pytest.mark.parametrize("form", ["grid", "fused", "offsets"])
+@pytest.mark.parametrize("case", ["web3k", "long_row"])
+@pytest.mark.parametrize("k,k0,width", _K3_RING)
+def test_window_reduce_bf16_ragged_ring_at_spmm_strides(dev, case, k, k0,
+                                                        width, form):
+    """The ring body at row strides 63 and 100 (every entry's B segment at
+    its own offset in its 16-byte words, and C's and out's rows too):
+    within one ulp of the plain version, bitwise across launches, in the
+    fused form nothing written outside its columns and rows, also with B,
+    C and out each starting at its own offset past 16 bytes ("offsets");
+    the long row (10,000 entries) spans dozens of units (carries)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import wcoo as tw
+    plan, _ = _k3_case(dev, BF16, case)
+    _kernels.BODIES.clear()
+    if form == "offsets":
+        m, n = plan.shape
+        g = torch.Generator(device=dev).manual_seed(k + k0 + width)
+        B = _at_offset(torch.rand((n, k), generator=g, device=dev).to(BF16),
+                       3)
+        C = _at_offset(torch.rand((m, k), generator=g, device=dev).to(BF16),
+                       5)
+        outs = [_at_offset(torch.full((m, k), -7.0, device=dev, dtype=BF16),
+                           1) for _ in range(2)]
+        args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+                plan.lane, B, k0, width)
+        _kernels.LAUNCHED.clear()
+        for out in outs:
+            tw.window_reduce(*args, C=C, alpha=3.0, beta=4.0, out=out)
+        torch.cuda.synchronize()
+        launched = {n[len("sblas_window_reduce_"):]: v
+                    for n, v in _kernels.LAUNCHED.items()}
+        got, again = outs
+        want = tw.window_reduce_plain(*args, C=C, alpha=3.0, beta=4.0,
+                                      out=torch.full((m, k), -7.0,
+                                                     device=dev, dtype=BF16))
+        outside = torch.ones_like(got, dtype=torch.bool)
+        outside[:, k0:k0 + width] = False
+        assert bool((got[outside] == -7.0).all())
+    elif form == "fused":
+        (got, again, want), launched = _k3_fused(plan, k, k0, width, BF16,
+                                                 seed=k + k0 + width)
+        outside = torch.ones_like(got, dtype=torch.bool)
+        outside[:plan.shape[0], k0:k0 + width] = False
+        assert bool((got[outside] == -7.0).all())
+    else:
+        g = torch.Generator(device=dev).manual_seed(k + k0 + width)
+        B = torch.rand((plan.shape[1], k), generator=g, device=dev).to(BF16)
+        args = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk,
+                plan.lane, B, k0, width)
+        _kernels.LAUNCHED.clear()
+        got, again = tw.window_reduce(*args), tw.window_reduce(*args)
+        torch.cuda.synchronize()
+        launched = {n[len("sblas_window_reduce_"):]: v
+                    for n, v in _kernels.LAUNCHED.items()}
+        want = tw.window_reduce_plain(*args)
+    assert launched == {"bf16_ragged": 2}
+    assert _bodies() == {"ring": 2}
     assert torch.equal(got, again)
     assert int(_ulps(got, want).max()) <= 1
 
 
 @pytest.mark.parametrize("k,offs", [
     (90, (1, 0, 0)), (90, (0, 3, 5)), (90, (7, 7, 1)), (90, (2, 6, 4)),
-    (96, (1, 1, 1)), (96, (3, 3, 3)), (96, (6, 6, 6)), (96, (7, 7, 7))])
+    (96, (1, 1, 1)), (96, (3, 3, 3)), (96, (6, 6, 6)), (96, (7, 7, 7)),
+    (91, (1, 0, 0)), (91, (0, 3, 5)), (100, (7, 7, 1)), (100, (2, 6, 4))])
 @pytest.mark.parametrize("case,k0,width", [("web3k", 0, 64),
                                            ("web3k", 3, 47),
                                            ("long_row", 1, 81)])
 def test_window_reduce_bf16_ragged_offset_operands(dev, case, k0, width, k,
                                                    offs):
-    """B, C and out starting 0 to 14 bytes past 16: at 90 columns each at
-    its own offset (the two-column loop, C's and out's words realigned
-    apart), at 96 all at one offset (the masked body); the long row spans
-    dozens of units (carries)."""
+    """B, C and out starting 0 to 14 bytes past 16: at 90, 91 and 100
+    columns each at its own offset (the ring body, C's and out's rows at
+    their own offsets), at 96 all at one offset (the masked body); the
+    long row spans dozens of units (carries)."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import wcoo as tw
     plan, _ = _k3_case(dev, BF16, case)
@@ -1607,44 +1679,50 @@ def test_window_reduce_bf16_ragged_offset_operands(dev, case, k0, width, k,
     want = tw.window_reduce_plain(*args, C=C, alpha=3.0, beta=4.0,
                                   out=torch.full((m, k), -7.0, device=dev,
                                                  dtype=BF16))
-    assert _bodies() == {"masked" if k % 8 == 0 else "two_column": 2}
+    assert _bodies() == {"masked" if k % 8 == 0 else "ring": 2}
     assert torch.equal(outs[0], outs[1])
     assert int(_ulps(outs[0], want).max()) <= 1
 
 
-@pytest.mark.parametrize("k0,width", [(0, 81), (81, 47)])
+@pytest.mark.parametrize("k,k0,width,body", [
+    (128, 0, 81, "masked"), (128, 81, 47, "masked"), (100, 0, 81, "ring"),
+    (100, 81, 19, "ring"), (63, 0, 63, "ring")])
 @pytest.mark.parametrize("case", ["web20k", "long_row"])
-def test_window_reduce_bf16_ragged_spmm_chunks(dev, case, k0, width):
-    """The chunks a bf16 WCOO SpMM at K = 128 runs at webbase-1M's chunk
-    width of 81 (k0 = 0, 81 columns; k0 = 81, 47 columns; B, C and out
-    of 128 columns): the masked body, within one ulp and bitwise across
-    launches; the long row spans dozens of units (carries)."""
+def test_window_reduce_bf16_ragged_spmm_chunks(dev, case, k, k0, width,
+                                               body):
+    """The chunks a bf16 WCOO SpMM runs at webbase-1M's chunk width of 81:
+    at K = 128 (k0 = 0, 81 columns; k0 = 81, 47 columns) the masked body,
+    at K = 100 (81 + 19 columns) and K = 63 (one chunk) the ring body;
+    within one ulp and bitwise across launches; the long row spans dozens
+    of units (carries)."""
     from sblas_tpu_torch import _kernels
     plan, _ = _k3_case(dev, BF16, case)
     _kernels.BODIES.clear()
-    (got, again, want), launched = _k3_fused(plan, 128, k0, width, BF16,
+    (got, again, want), launched = _k3_fused(plan, k, k0, width, BF16,
                                              seed=k0)
     assert launched == {"bf16_ragged": 2}
-    assert _bodies() == {"masked": 2}
+    assert _bodies() == {body: 2}
     assert torch.equal(got, again)
     assert int(_ulps(got, want).max()) <= 1
 
 
+@pytest.mark.parametrize("k", [72, 63])
 @pytest.mark.parametrize("form", ["grid", "fused"])
 @pytest.mark.parametrize("case", ["web20k", "long_row", "min_tiles"])
-def test_window_reduce_bf16_ragged_gives_the_bf16_bits(dev, case, form):
+def test_window_reduce_bf16_ragged_gives_the_bf16_bits(dev, case, form, k):
     """Where `bf16` can run (the same 56 columns copied to aligned,
-    8-column-multiple operands) it and `bf16_ragged` at k0 = 1 (the
-    two-column loop in the grid form, whose out starts on 16 bytes; the
-    masked body in the fused form) sum in one order and round once alike:
-    the results are bitwise equal."""
+    8-column-multiple operands) it and `bf16_ragged` at k0 = 1 (the ring
+    body in the grid form, whose out starts on 16 bytes, and at the odd
+    row stride 63 in both forms; the masked body in the fused form at
+    72) sum in one order and round once alike: the results are bitwise
+    equal."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.ops import wcoo as tw
     plan, _ = _k3_case(dev, BF16, case)
     m, n = plan.shape
     g = torch.Generator(device=dev).manual_seed(56)
-    B = torch.rand((n, 72), generator=g, device=dev).to(BF16)
-    C = torch.rand((m, 72), generator=g, device=dev).to(BF16)
+    B = torch.rand((n, k), generator=g, device=dev).to(BF16)
+    C = torch.rand((m, k), generator=g, device=dev).to(BF16)
     Ba, Ca = B[:, 1:57].contiguous(), C[:, 1:57].contiguous()
     tabs = (plan.k3, plan.wb, plan.relrow, plan.vals, plan.xblk, plan.lane)
     epi = dict(C=C, alpha=3.0, beta=4.0) if form == "fused" else {}
@@ -1656,16 +1734,17 @@ def test_window_reduce_bf16_ragged_gives_the_bf16_bits(dev, case, form):
     torch.cuda.synchronize()
     assert dict(_kernels.LAUNCHED) == {"sblas_window_reduce_bf16_ragged": 1,
                                        "sblas_window_reduce_bf16": 1}
-    assert _bodies() == {"masked" if epi else "two_column": 1}
+    assert _bodies() == {"masked" if epi and k % 8 == 0 else "ring": 1}
     assert torch.equal(got[:, 1:57] if epi else got, want)
 
 
 @pytest.mark.parametrize("width,off,k", [(47, 0, 90), (81, 5, 90),
-                                         (47, 0, 96), (81, 0, 96)])
+                                         (47, 0, 96), (81, 0, 96),
+                                         (60, 3, 63), (81, 1, 100)])
 def test_window_reduce_bf16_ragged_without_entries(dev, width, off, k):
     """A plan with no entries (no units): every row of the fused form is
     beta * C, written by the carry combine alone, behind either body (the
-    masked one at 96 columns with C on 16 bytes)."""
+    masked one at 96 columns with C on 16 bytes, the ring one else)."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.containers import CsrMatrix
     from sblas_tpu_torch.ops import wcoo as tw
@@ -1680,6 +1759,6 @@ def test_window_reduce_bf16_ragged_without_entries(dev, width, off, k):
                            plan.xblk, plan.lane, B, 3, width, C=C,
                            alpha=3.0, beta=4.0)
     torch.cuda.synchronize()
-    assert _bodies() == {"masked" if k % 8 == 0 else "two_column": 1}
+    assert _bodies() == {"masked" if k % 8 == 0 else "ring": 1}
     assert torch.equal(out[:, 3:3 + width],
                        (4.0 * C[:, 3:3 + width].float()).to(BF16))

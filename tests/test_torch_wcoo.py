@@ -322,11 +322,13 @@ def test_spmm_wcoo_refuses_a_c_of_another_shape():
             tw.spmm_wcoo(tp, B, ALPHA, BETA, C)
 
 
-@pytest.mark.parametrize("k,k_chunk", [(20, 9), (17, 5), (20, None)])
+@pytest.mark.parametrize("k,k_chunk", [(20, 9), (17, 5), (20, None),
+                                       (63, None), (100, 81)])
 def test_spmm_wcoo_bf16_ragged_chunks_match_jax(k, k_chunk):
     """bf16 values in K-chunks that are not multiples of 8, as the JAX
-    package's chunk width makes them at webbase-1M (81 columns): every
-    chunk here would take K3's `bf16_ragged` on the card.  The port's
+    package's chunk width makes them at webbase-1M (81 columns; K = 63 one
+    chunk, K = 100 chunks of 81 + 19): every chunk here would take K3's
+    `bf16_ragged` on the card (its ring body at these row strides).  The port's
     plain path against `spmm_wcoo(..., k_chunk)` of the JAX package
     (its Pallas reduce in interpret mode) at the JAX package's bf16 bound
     (rtol = atol = 0.15), and both against the numpy oracle on the same
