@@ -40,10 +40,15 @@ and the distribution layer in a world-1 NCCL group:
         port's GATHER_NS / ROUTE_NS) and the engine they give
     [xfoot-shard] xfoot_worst_local(A, n) -> RoutedPlan.from_csr(min_*) at
         n = 4 and 16: the stock SpMV (K2) and the fused one (P1), pass-1
-        tiles bitwise, both against the oracle, both timed
+        tiles bitwise, both against the oracle, both timed; the stock
+        SpMV's kernels on the shard's own tables (`[xfoot-shard
+        kernels]`: K1 on the main route's first layer, (8192, 128) and
+        (2048, 128), beside torch.gather; K2 on the 53 and 14 tiles), each
+        with its bound and share
     [plancache] the world-1 xfoot shards and the n=16 routed plan saved,
         loaded on the card, bitwise equal, one loaded run vs the oracle
-    [p1] / [p2] kernels P1 (at the full plan's T_g and at the n=16 shard)
+    [p1] / [p2] kernels P1 (at the full plan's T_g and at the n=16 shard,
+        both kept in P1's `kernels` entry, the shard's as `shard16_*`)
         and P2 (webbase x K=64 windows, every gathered row checked) vs
         their plain versions, with P2's index_select yardsticks (f32,
         bf16) and the 64-wide row permutation a bridge would cost
@@ -812,7 +817,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K3's launches in [um]'s streamed SpMM; K3's grid form beside its
     # fused one
-    extra = ("um_launches", "grid_ms", "grid_bound_ms", "sparse_mm_ms")
+    extra = ("um_launches", "grid_ms", "grid_bound_ms", "sparse_mm_ms",
+             # P1 at the n=16 xfoot shard beside its full-plan reading
+             "shard16_n_gtiles", "shard16_ms", "shard16_plain_ms",
+             "shard16_bound_ms", "shard16_max_abs_err")
     for rec in kernels.values():
         missing = [k for k in keys if k not in rec]
         if missing or rec["launches"] < 1:
@@ -1740,8 +1748,42 @@ def p1_compare(plan, x_slabs, title) -> dict:
                **bound(nbytes(*args, plan.gvals), 0))
     phase("p1", shapes=title, n_gtiles=T_g, n_slabs=x_slabs.shape[0],
           bitwise_equal=True, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"])
+          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+          share=f"{rec['bound_ms'] / ms:.3f}")
     return rec
+
+
+def shard_k1_k2(plan, x_slabs, n, launched) -> None:
+    """[xfoot-shard kernels]: the stock shard SpMV's kernels on the n-way
+    worst shard's own tables, each against its plain version: K1 on the
+    main route's first layer viewed as (route_n / 128, 128), beside
+    `torch.gather` (its plain version), and K2 on the shard's tiles;
+    launches from the stock run `launched`, bound by bytes."""
+    from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
+                                           lane_shuffle_plain)
+    from sblas_tpu_torch.ops.rspmv import slab_gather, slab_gather_plain
+    card = card_line()
+    gen = torch.Generator(device=x_slabs.device)
+    gen.manual_seed(SEED + n)
+    idx = plan.tables[0].reshape(-1, LANES)
+    x2d = torch.rand(idx.shape, generator=gen, device=idx.device)
+    args = (plan.gslab, x_slabs, plan.gidx, plan.gvals)
+    for title, counter, run, plain, moved in (
+            ("K1 lane_shuffle", lane_shuffle, lambda: lane_shuffle(x2d, idx),
+             lambda: lane_shuffle_plain(x2d, idx), (x2d, idx, x2d)),
+            ("K2 slab_gather", slab_gather, lambda: slab_gather(*args),
+             lambda: slab_gather_plain(*args), (*args, plan.gvals))):
+        err, _, ms, plain_ms = compare(title, run, plain, counter)
+        bnd = bound(nbytes(*moved), 0)
+        phase("xfoot-shard kernels", n_shards=n, kernel=title,
+              shape=(tuple(idx.shape) if counter is lane_shuffle
+                     else (plan.n_gtiles, LANES, LANES)),
+              launches=launched[counter.__name__], bitwise_equal=True,
+              max_abs_err=err, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+              library_ms=(f"{plain_ms:.5f} (torch.gather)"
+                          if counter is lane_shuffle else None),
+              bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+              share=f"{bnd['bound_ms'] / ms:.3f}", card=card)
 
 
 def _tensors_of(obj) -> list:
@@ -1891,11 +1933,16 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
         for name in ("stock", "fused", "fused", "stock"):
             phase("xfoot-shard", n_shards=n, path=name,
                   **call_times(runs[name], local.nnz))
+        shard_k1_k2(plan, x_slabs_of(plan, xl), n, launched["stock"])
         if n == 16:
+            # the full plan's reading stays; the shard's goes beside it
+            shard = p1_compare(plan, x_slabs_of(plan, xl),
+                               "xfoot worst shard of 16")
             kernels["stage_fuse_gather"].update(
                 launches=launched["fused"]["stage_fuse_gather"],
-                **p1_compare(plan, x_slabs_of(plan, xl),
-                             "xfoot worst shard of 16"))
+                shard16_n_gtiles=plan.n_gtiles,
+                **{f"shard16_{k}": shard[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "max_abs_err")})
             plan16, xl16, yl16, want16 = plan, xl, yl, want_l
 
     # ---- [plancache]: save, load on the card, compare, run once ----

@@ -128,6 +128,22 @@ def build() -> str:
     return so
 
 
+def build_copy(stem: str, src: str) -> tuple:
+    """Build a copy of a kernel source, e.g. one of the tools' variants:
+    `src` is written to `_build/<stem>.cu` (it may include the headers of
+    `csrc/`) and compiled with `-Xptxas -v` into `_build/<stem>.so`.
+    Returns (the library's path, or None if nvcc refused the copy; the
+    compiler's report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = os.path.join(BUILD_DIR, f"{stem}.cu")
+    so = cu[:-3] + ".so"
+    with open(cu, "w") as fh:
+        fh.write(src)
+    proc = _run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC_DIR,
+                 "-shared", cu, "-o", so])
+    return (so if proc.returncode == 0 else None), proc.stderr
+
+
 def _run(cmd) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True)
 

@@ -9,14 +9,33 @@
 //
 // i.e. kernel K2's product followed by K1's first layer of the main route
 // (i1 = tables[0] cut to the T_g*128 tile rows), without writing the
-// products in between.  One thread per output slot, K2's grid: T_g x
-// kChunks blocks of 256 threads, 4 slots a thread, gslab[t] read per block
-// (the TPU scalar-prefetched it).  What bounds it on the H100:
-// device-memory bytes, 20 B per f32 slot (i1, gidx, gvals, out and one x
-// read) against 28 B for K2 then K1 (16 + 12).  The gidx/gvals reads are
-// permuted inside one 128-wide row of the tile (512 B in f32), so a warp's
-// reads stay within a few sectors of the row its neighbours also read;
-// i1 and out stay coalesced.  Flat offsets are 64-bit.
+// products in between.  Every operand is row-local: row r of tile t reads
+// row r of its tile's gidx, gvals and i1 and row r of slab gslab[t].  So
+// one warp takes one whole 128-lane row (512 B at f32: one 16-byte vector
+// a lane; 1 KB at f64: two), kRows = 4 rows of one tile a block, T_g * 32
+// blocks.  Two dependent round trips a row: gslab[t] (one address a warp)
+// with the row's gidx, gvals and i1 as coalesced 16-byte (f64 index:
+// 8-byte) vectors; then x_slabs[gslab[t], r, gidx[c] & 127], gathered
+// through L1 from the 512-byte slab row.  contrib[c] = gvals[c] * x is
+// one multiply, as in the plain version (nothing to contract), kept in
+// shared memory; after a warp sync, out[j] = contrib[i1[j] & 127] leaves
+// as one 16-byte store a lane.  i1 need not be a permutation: repeated
+// lanes read the same product.  The body this one replaced ran one thread
+// a slot with three dependent round trips (i1, then gidx and gvals at the
+// slot i1 named, then x).  The slab row staged in shared memory before the
+// products, warp shuffles for pass 1, 2, 8 or 16 rows a block, and the
+// output stored through the Pack (which the compiler splits into 4-byte
+// stores at a 16-byte lane stride: four times the store transactions)
+// were each slower at some shape (tools/p1_variants.py).
+//
+// What bounds it on the H100: at the full 1M-row plan (188 tiles, 53 MB),
+// device-memory bytes, 20 B an f32 slot (i1, gidx, gvals, out and one x
+// read) against 28 B for K2 then K1 (16 + 12).  At an xfoot shard's few
+// tiles (14 at n=16: 4.5 MB, L2-resident, one wave) the launch itself: a
+// back-to-back launch of a one-element fill costs more than the bytes'
+// bound, and the two round trips a warp waits on come on top.  Flat
+// offsets are 64-bit.  The vector loads and stores need gidx, gvals, i1
+// and out to start on 16 bytes (the wrapper checks them).
 //
 // P2 replaces the TPU kernel experiments/wcoo_gather_probe.py::kern
 // (wrapper `window_lane_gather` in experiments/wcoo_gather_probe.py):
@@ -38,28 +57,76 @@
 
 namespace {
 
-constexpr int kSlab = 128 * 128;     // slots per gather tile / slab
-constexpr int kThreads = 256;
-constexpr int kChunks = 16;          // blocks per tile
-constexpr int kPerBlock = kSlab / kChunks;   // 1024 slots = 8 rows
+constexpr int kThreads = 256;        // P2's block
+
+// n values of E on one n * sizeof(E)-byte load or store
+template <typename E, int n>
+struct alignas(sizeof(E) * n) Pack {
+  E v[n];
+};
+
+// one 16-byte vector store: the compiler splits a Pack's store, and a
+// float4's, into four 4-byte stores a lane, at a 16-byte lane stride
+__device__ __forceinline__ void store16(float* p, const Pack<float, 4>& a) {
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "f"(a.v[0]), "f"(a.v[1]), "f"(a.v[2]), "f"(a.v[3])
+               : "memory");
+}
+__device__ __forceinline__ void store16(double* p,
+                                        const Pack<double, 2>& a) {
+  asm volatile("st.global.v2.f64 [%0], {%1, %2};" ::"l"(p), "d"(a.v[0]),
+               "d"(a.v[1])
+               : "memory");
+}
+
+constexpr int kRows = 4;             // P1: tile rows a block, one a warp
+constexpr int kLanes = 128;
 
 template <typename T>
-__global__ void stage_fuse_kernel(const int32_t* __restrict__ gslab,
-                                  const T* __restrict__ x_slabs,
-                                  const int32_t* __restrict__ gidx,
-                                  const T* __restrict__ gvals,
-                                  const int32_t* __restrict__ i1,
-                                  T* __restrict__ out) {
-  const int64_t t = blockIdx.x;
-  const T* slab = x_slabs + static_cast<int64_t>(gslab[t]) * kSlab;
-  const int64_t base = t * kSlab;
+__global__ void __launch_bounds__(kRows * 32)
+stage_fuse_kernel(const int32_t* __restrict__ gslab,
+                  const T* __restrict__ x_slabs,
+                  const int32_t* __restrict__ gidx,
+                  const T* __restrict__ gvals,
+                  const int32_t* __restrict__ i1, T* __restrict__ out) {
+  constexpr int kV = 16 / sizeof(T);          // values a 16-byte vector
+  constexpr int kN = kLanes / (32 * kV);      // vectors a lane: 1 f32, 2 f64
+  using Vals = Pack<T, kV>;
+  using Idx = Pack<int32_t, kV>;
+  __shared__ __align__(16) T contrib[kRows][kLanes];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + w;
+  const int64_t base = g * kLanes;            // the row's first slot
+  // round trip 1: the tile's slab and the row's three tables
+  const int64_t s = gslab[g / kLanes];
+  Idx gi[kN], ii[kN];
+  Vals gv[kN];
 #pragma unroll
-  for (int k = 0; k < kPerBlock / kThreads; ++k) {
-    const int e = blockIdx.y * kPerBlock + k * kThreads + threadIdx.x;
-    const int row = e >> 7;
-    // the slot of this row that route pass 1 moves to lane e & 127
-    const int64_t src = base + ((row << 7) | (i1[base + e] & 127));
-    out[base + e] = gvals[src] * slab[(row << 7) | (gidx[src] & 127)];
+  for (int n = 0; n < kN; ++n) {
+    const int c = n * 32 * kV + lane * kV;
+    gi[n] = *reinterpret_cast<const Idx*>(gidx + base + c);
+    ii[n] = *reinterpret_cast<const Idx*>(i1 + base + c);
+    gv[n] = *reinterpret_cast<const Vals*>(gvals + base + c);
+  }
+  // round trip 2: slab row r, read through L1 where each product needs it
+  const T* x = x_slabs + (s * kLanes + (g % kLanes)) * kLanes;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int c = n * 32 * kV + lane * kV;
+    Vals p;
+#pragma unroll
+    for (int k = 0; k < kV; ++k) p.v[k] = gv[n].v[k] * x[gi[n].v[k] & 127];
+    *reinterpret_cast<Vals*>(&contrib[w][c]) = p;
+  }
+  __syncwarp();
+  // route pass 1 on the row's products
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int c = n * 32 * kV + lane * kV;
+    Vals o;
+#pragma unroll
+    for (int k = 0; k < kV; ++k) o.v[k] = contrib[w][ii[n].v[k] & 127];
+    store16(out + base + c, o);
   }
 }
 
@@ -98,8 +165,9 @@ int launch_fuse(const int32_t* gslab, const T* x_slabs, const int32_t* gidx,
                 const T* gvals, const int32_t* i1, T* out, int64_t n_tiles,
                 void* stream) {
   if (n_tiles > 0) {
-    dim3 grid(static_cast<unsigned int>(n_tiles), kChunks);
-    stage_fuse_kernel<T><<<grid, kThreads, 0,
+    const auto blocks =
+        static_cast<unsigned int>(n_tiles * (kLanes / kRows));
+    stage_fuse_kernel<T><<<blocks, kRows * 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         gslab, x_slabs, gidx, gvals, i1, out);
   }
@@ -122,7 +190,8 @@ int launch_window(const T* B, const int32_t* wblk, const int32_t* idx,
 extern "C" {
 
 // gslab (n_tiles,); x_slabs (n_slabs, 128, 128); gidx, gvals, i1, out
-// (n_tiles, 128, 128); all contiguous on the device of `stream`.
+// (n_tiles, 128, 128); all contiguous on the device of `stream`; gidx,
+// gvals, i1 and out start on 16 bytes.
 int sblas_stage_fuse_gather_f32(const int32_t* gslab, const float* x_slabs,
                                 const int32_t* gidx, const float* gvals,
                                 const int32_t* i1, float* out,

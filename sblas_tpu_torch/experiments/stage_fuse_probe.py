@@ -57,7 +57,9 @@ def stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1) -> torch.Tensor:
     """The slab gather fused with route pass 1 (see
     `stage_fuse_gather_plain`) over (T_g, 128, 128) tiles.  CPU tensors
     take the plain version; CUDA tensors launch kernel P1
-    (csrc/probe_kernels.cu) or raise."""
+    (csrc/probe_kernels.cu) or raise.  P1 reads gidx, gvals and i1 as
+    16-byte vectors, so each must start on 16 bytes (gslab and x_slabs
+    are read one value at a time)."""
     if x_slabs.device.type == "cpu":
         return stage_fuse_gather_plain(gslab, x_slabs, gidx, gvals, i1)
     from ..utils.errors import KernelError, require
@@ -76,6 +78,10 @@ def stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1) -> torch.Tensor:
     _kernels.check_operand(gidx, "gidx", torch.int32, tile_shape, dev)
     _kernels.check_operand(gvals, "gvals", x_slabs.dtype, tile_shape, dev)
     _kernels.check_operand(i1, "i1", torch.int32, tile_shape, dev)
+    for name, t in (("gidx", gidx), ("gvals", gvals), ("i1", i1)):
+        require(t.data_ptr() % 16 == 0, KernelError,
+                f"{name} must start on 16 bytes for P1's vector loads "
+                f"(data_ptr % 16 = {t.data_ptr() % 16})")
     out = torch.empty(tile_shape, dtype=x_slabs.dtype, device=dev)
     _kernels.launch(fn, dev, gslab, x_slabs, gidx, gvals, i1, out, T_g)
     stage_fuse_gather.launches += 1

@@ -56,17 +56,11 @@ def _source(ctype: str, in_flight: int, min_blocks: int) -> str:
 
 def _build(tag: str, src: str) -> tuple:
     """(library path, ptxas report) of one copy of the source."""
-    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_kernels.BUILD_DIR, f"k3_inflight_{tag}.cu")
-    so = cu[:-3] + ".so"
-    with open(cu, "w") as fh:
-        fh.write(src)
-    proc = subprocess.run(
-        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         _kernels.CSRC_DIR, "-shared", cu, "-o", so],
-        capture_output=True, text=True)
-    _kernels._check(["nvcc", cu], proc)
-    return so, proc.stderr
+    so, report = _kernels.build_copy(f"k3_inflight_{tag}", src)
+    if so is None:
+        raise _kernels.KernelError(f"nvcc refused k3_inflight_{tag}:\n"
+                                   f"{report}")
+    return so, report
 
 
 def _usage(report: str, mangled: str) -> tuple:

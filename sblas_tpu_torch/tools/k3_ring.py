@@ -318,20 +318,6 @@ def _source(setting: tuple, patches=()) -> str:
     return src
 
 
-def _build(tag: str, src: str) -> tuple:
-    """(library path, or None if nvcc refused the copy; its report)."""
-    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_kernels.BUILD_DIR, f"k3_ring_{tag}.cu")
-    so = cu[:-3] + ".so"
-    with open(cu, "w") as fh:
-        fh.write(src)
-    proc = subprocess.run(
-        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         _kernels.CSRC_DIR, "-shared", cu, "-o", so],
-        capture_output=True, text=True)
-    return (so if proc.returncode == 0 else None), proc.stderr
-
-
 def _usage(report: str) -> tuple:
     """(registers, spill store bytes, static shared bytes) of the ring
     kernel."""
@@ -374,8 +360,9 @@ def main(argv=None) -> int:
              for name in filter(None, args.ablations.split(","))]
     jobs = {tag: _source(s, patches) for tag, s, patches in runs}
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = dict(zip(jobs, pool.map(lambda kv: _build(*kv),
-                                        jobs.items())))
+        built = dict(zip(jobs, pool.map(
+            lambda kv: _kernels.build_copy(f"k3_ring_{kv[0]}", kv[1]),
+            jobs.items())))
     A = webbase_like(dtype=np.float32)
     wp = make_plan(A, dtype=BF16, force="wcoo", device=dev)
     gen = torch.Generator(device=dev)

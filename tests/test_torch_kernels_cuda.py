@@ -392,29 +392,55 @@ def test_spmm_paths_on_card_match_cpu(dev, dtype, np_dtype):
 # ---- P1 (stage_fuse_gather), P2 (window_lane_gather) and xfoot ----
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (188, 62)])
+@pytest.mark.parametrize("n_tiles,n_slabs,dups", [
+    pytest.param(1, 1, False, id="1-1"),
+    pytest.param(5, 3, False, id="5-3"),
+    pytest.param(14, 12, False, id="14-12"),     # the n=16 xfoot shard
+    pytest.param(188, 62, False, id="188-62"),   # the full webbase-1M plan
+    pytest.param(6, 4, True, id="dups-6-4")])
 def test_stage_fuse_gather_kernel_matches_plain(dev, dtype, n_tiles,
-                                                n_slabs):
+                                                n_slabs, dups):
     from sblas_tpu_torch.experiments import stage_fuse_probe as sf
     g = torch.Generator(device=dev).manual_seed(n_tiles)
-    shape = (n_tiles, 128, 128)
+    shape, slots = (n_tiles, 128, 128), n_tiles * 128 * 128
     x_slabs = torch.randn((n_slabs, 128, 128), generator=g, device=dev,
                           dtype=dtype)
     gslab = torch.randint(0, n_slabs, (n_tiles,), generator=g, device=dev,
                           dtype=torch.int32)
     gidx, i1 = (torch.randint(0, 128, shape, generator=g, device=dev,
                               dtype=torch.int32) for _ in range(2))
-    gvals = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    if dups:
+        # slabs repeated and out of order; each row's i1 names 3 lanes
+        gslab = torch.tensor([3, 1, 3, 0, 2, 1], device=dev,
+                             dtype=torch.int32)
+        i1 = torch.tensor([0, 127, 64], device=dev, dtype=torch.int32)[
+            torch.randint(0, 3, shape, generator=g, device=dev)]
+    # one spare value, for a view that starts off 16 bytes
+    gvals_flat = torch.randn(slots + 1, generator=g, device=dev, dtype=dtype)
+    gvals = gvals_flat[:slots].view(shape)
     before = sf.stage_fuse_gather.launches
     got = sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1)
     torch.cuda.synchronize()
     assert sf.stage_fuse_gather.launches == before + 1
-    assert torch.equal(got, sf.stage_fuse_gather_plain(gslab, x_slabs, gidx,
-                                                       gvals, i1))
+    want = sf.stage_fuse_gather_plain(gslab, x_slabs, gidx, gvals, i1)
+    assert torch.equal(got, want)
+    # x_slabs is read one value at a time: a view one value in launches
+    x_off = torch.cat([x_slabs.view(-1)[:1], x_slabs.view(-1)])[1:]
+    assert torch.equal(sf.stage_fuse_gather(
+        gslab, x_off.view(x_slabs.shape), gidx, gvals, i1), want)
     with pytest.raises(KernelError):
         sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1.long())
     with pytest.raises(ShapeError):
         sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals, i1[:, :64])
+    # gvals and i1 are read as 16-byte vectors: a view one value in raises
+    with pytest.raises(KernelError, match="16 bytes"):
+        sf.stage_fuse_gather(gslab, x_slabs, gidx,
+                             gvals_flat[1:1 + slots].view(shape), i1)
+    with pytest.raises(KernelError, match="16 bytes"):
+        sf.stage_fuse_gather(gslab, x_slabs, gidx, gvals,
+                             torch.cat([i1[0, 0, :1], i1.view(-1)])[1:]
+                             .view(shape))
+    assert sf.stage_fuse_gather.launches == before + 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

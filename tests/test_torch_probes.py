@@ -72,13 +72,22 @@ def _jax_fused(gslab, x_slabs, gidx, gvals, i1):
 
 
 @pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (3, 2)])
-def test_p1_plain_bitwise_equals_jax_kernel(np_dtype, n_tiles, n_slabs):
+@pytest.mark.parametrize("n_tiles,n_slabs,dups", [
+    pytest.param(1, 1, False, id="1-1"),
+    pytest.param(3, 2, False, id="3-2"),
+    pytest.param(3, 3, True, id="dups-3-3")])
+def test_p1_plain_bitwise_equals_jax_kernel(np_dtype, n_tiles, n_slabs,
+                                            dups):
     rng = np.random.RandomState(n_tiles)
     gslab = rng.randint(0, n_slabs, n_tiles).astype(np.int32)
     x_slabs = rng.standard_normal((n_slabs, LANES, LANES)).astype(np_dtype)
     gidx, i1 = (rng.randint(0, LANES, (n_tiles, LANES, LANES))
                 .astype(np.int32) for _ in range(2))
+    if dups:
+        # slabs repeated and out of order; each row's i1 names 3 lanes
+        gslab = np.array([2, 0, 2], np.int32)
+        i1 = np.array([0, 127, 64], np.int32)[
+            rng.randint(0, 3, (n_tiles, LANES, LANES))]
     gvals = rng.standard_normal((n_tiles, LANES, LANES)).astype(np_dtype)
     args = (gslab, x_slabs, gidx, gvals, i1)
     want = np.asarray(_jax_fused(*(jnp.asarray(a) for a in args)))

@@ -246,6 +246,8 @@ def test_port_imports_no_jax():
             "import sblas_tpu_torch.cli.unit_test\n"
             "import sblas_tpu_torch.tools.link_bw\n"
             "import sblas_tpu_torch.tools.mode2_comm\n"
+            "import sblas_tpu_torch.tools.p1_shapes\n"
+            "import sblas_tpu_torch.tools.p1_variants\n"
             "import sblas_tpu_torch.examples.cg\n"
             "import sblas_tpu_torch.examples.pagerank\n"
             "import sblas_tpu_torch.examples.pagerank_dist\n"
