@@ -10,7 +10,11 @@ tensor cores, with the f32 CUDA-core bound printed beside it),
 then runs every main path at full size, counting kernel launches on each:
 
     webbase_like() (1M rows, f32) -> make_plan(op="spmv") -> RoutedPlan
-        -> spmv (K1, K2), and the tier-0 COO SpMV beside it
+        -> spmv (K1, K2: each launch counted by body, all on the row
+        body, launched with programmatic dependent launch), and the
+        tier-0 COO SpMV beside it; `[K1/K2 variants]`: every variant of
+        K1 (f32, f64, bf16, bf16_i16) and K2 (f32, f64, bf16, f32_bf16)
+        bitwise at that plan's first route layer and tiles
     webbase_like() x K=64 -> make_plan(op="spmm") -> WcooPlan -> spmm (K3,
         writing beta*C + alpha*A@B itself; K3 timed in that fused form
         and in its grid form, each with its bound)
@@ -43,8 +47,10 @@ and the distribution layer in a world-1 NCCL group:
         tiles bitwise, both against the oracle, both timed; the stock
         SpMV's kernels on the shard's own tables (`[xfoot-shard
         kernels]`: K1 on the main route's first layer, (8192, 128) and
-        (2048, 128), beside torch.gather; K2 on the 53 and 14 tiles), each
-        with its bound and share
+        (2048, 128), beside torch.gather; K2 on the 53 and 14 tiles; every
+        variant of each, bitwise), each with its bound and share, the
+        variant the stock SpMV ran with its launches and body there, and
+        the shard's whole main route's device ms
     [plancache] the world-1 xfoot shards and the n=16 routed plan saved,
         loaded on the card, bitwise equal, one loaded run vs the oracle
     [p1] / [p2] kernels P1 (at the full plan's T_g and at the n=16 shard,
@@ -332,6 +338,25 @@ def variant_launches(title, expect: dict) -> dict:
     return got
 
 
+def row_bodies(title, launches: dict) -> dict:
+    """The last `launches_of` run's K1 and K2 launches by body
+    (`_kernels.BODIES`): every one must be the row body (`vector`), the
+    port's own paths giving them only operands on its vectors.  Returns
+    the run's K1 and K2 launches by variant (launcher name without its
+    `sblas_` prefix).  Both bodies are launched with programmatic
+    dependent launch (`csrc/row_io.cuh`'s `launch_pdl`); no query reads
+    the launch mode back, so none is printed."""
+    from sblas_tpu_torch import _kernels
+    got = {k: v for k, v in _kernels.BODIES.items()
+           if k.split(".")[0] in ("lane_shuffle", "slab_gather")}
+    want = {f"{k}.vector": n for k, n in launches.items() if n}
+    if got != want:
+        raise AssertionError(f"{title}: K1/K2 launches by body {got}, "
+                             f"expected {want}")
+    return {k[len("sblas_"):]: v for k, v in _kernels.LAUNCHED.items()
+            if k.startswith(("sblas_lane_shuffle_", "sblas_slab_gather_"))}
+
+
 def checked_bf16(title, got, want, bar=None):
     """A bf16 path's result against the f64 oracle: finite, of the
     expected shape, and within `bar` relative (check_equal, the bf16
@@ -572,11 +597,14 @@ def main() -> int:
                               lambda: spmv(plan, xd, ALPHA, BETA, yd))
     expect_launches("routed SpMV", counts, dict(
         none, lane_shuffle=plan.n_route_gathers, slab_gather=1))
+    ran = row_bodies("routed SpMV", dict(
+        lane_shuffle=plan.n_route_gathers, slab_gather=1))
     for name in ("lane_shuffle", "slab_gather"):
-        kernels[name]["launches"] = counts[name]
+        kernels[name].update(launches=counts[name], body="vector")
     phase("main path", plan="RoutedPlan", launches=counts,
           check=checked("routed SpMV", out, want),
           **call_times(lambda: spmv(plan, xd, ALPHA, BETA, yd), A.nnz))
+    k1_k2_at("K1/K2 variants", "webbase-1M plan", plan, ran)
 
     # ---- tier 0: COO SpMV on the same matrix ----
     coo = make_plan(A, dtype=torch.float32, force="coo", device=dev)
@@ -820,7 +848,9 @@ def main() -> int:
     extra = ("um_launches", "grid_ms", "grid_bound_ms", "sparse_mm_ms",
              # P1 at the n=16 xfoot shard beside its full-plan reading
              "shard16_n_gtiles", "shard16_ms", "shard16_plain_ms",
-             "shard16_bound_ms", "shard16_max_abs_err")
+             "shard16_bound_ms", "shard16_max_abs_err",
+             # the body K1 and K2 ran on their main path
+             "body")
     for rec in kernels.values():
         missing = [k for k in keys if k not in rec]
         if missing or rec["launches"] < 1:
@@ -1089,9 +1119,11 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
     by_variant = variant_launches("routed SpMV bf16 transport", {
         "lane_shuffle_bf16_i16": main_gathers,
         "lane_shuffle_f32": other_gathers, "slab_gather_f32_bf16": 1})
-    kernels["lane_shuffle[bf16_i16]"]["launches"] = by_variant[
-        "lane_shuffle_bf16_i16"]
-    kernels["slab_gather[f32_bf16]"]["launches"] = 1
+    row_bodies("routed SpMV bf16 transport", dict(
+        lane_shuffle=plan16.n_route_gathers, slab_gather=1))
+    kernels["lane_shuffle[bf16_i16]"].update(
+        launches=by_variant["lane_shuffle_bf16_i16"], body="vector")
+    kernels["slab_gather[f32_bf16]"].update(launches=1, body="vector")
     check = checked_bf16("routed SpMV bf16 transport", out, want,
                          bar=BF16_TRANSPORT_BAR)
     times = {}
@@ -1127,8 +1159,11 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
             "lane_shuffle_bf16": pv.n_route_gathers, f"{kname}_bf16": 1})
         kernels[f"{kname}[bf16]"]["launches"] = 1
         if not pregather:
-            kernels["lane_shuffle[bf16]"]["launches"] = by_variant[
-                "lane_shuffle_bf16"]
+            row_bodies("routed SpMV bf16 values", dict(
+                lane_shuffle=pv.n_route_gathers, slab_gather=1))
+            kernels["lane_shuffle[bf16]"].update(
+                launches=by_variant["lane_shuffle_bf16"], body="vector")
+            kernels["slab_gather[bf16]"]["body"] = "vector"
         phase("bf16-plans", path=f"spmv_routed bf16 values webbase-1M"
               f"{' pregather (K2prime)' if pregather else ''}",
               build_s=f"{build_s:.2f}", launches=counts,
@@ -1753,37 +1788,75 @@ def p1_compare(plan, x_slabs, title) -> dict:
     return rec
 
 
-def shard_k1_k2(plan, x_slabs, n, launched) -> None:
-    """[xfoot-shard kernels]: the stock shard SpMV's kernels on the n-way
-    worst shard's own tables, each against its plain version: K1 on the
-    main route's first layer viewed as (route_n / 128, 128), beside
-    `torch.gather` (its plain version), and K2 on the shard's tiles;
-    launches from the stock run `launched`, bound by bytes."""
-    from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
-                                           lane_shuffle_plain)
-    from sblas_tpu_torch.ops.rspmv import slab_gather, slab_gather_plain
+def k1_k2_at(title, where, plan, ran) -> None:
+    """K1 on `plan`'s first main-route layer viewed as (route_n / 128, 128)
+    and K2 on its tiles, every variant of each against its plain version
+    (bitwise) on random values, beside `torch.gather` for K1; bound by
+    bytes.  One `title` line a kernel and variant; `ran` is the path's
+    launches by variant (`row_bodies`): a variant the path ran gets its
+    launches and its body there (the row body, checked), the others
+    null."""
+    from sblas_tpu_torch.ops.route import (LANE_SHUFFLE_VARIANTS, LANES,
+                                           lane_shuffle, lane_shuffle_plain)
+    from sblas_tpu_torch.ops.rspmv import (SLAB, SLAB_GATHER_VARIANTS,
+                                           slab_gather, slab_gather_plain)
     card = card_line()
-    gen = torch.Generator(device=x_slabs.device)
-    gen.manual_seed(SEED + n)
-    idx = plan.tables[0].reshape(-1, LANES)
-    x2d = torch.rand(idx.shape, generator=gen, device=idx.device)
-    args = (plan.gslab, x_slabs, plan.gidx, plan.gvals)
-    for title, counter, run, plain, moved in (
-            ("K1 lane_shuffle", lane_shuffle, lambda: lane_shuffle(x2d, idx),
-             lambda: lane_shuffle_plain(x2d, idx), (x2d, idx, x2d)),
-            ("K2 slab_gather", slab_gather, lambda: slab_gather(*args),
-             lambda: slab_gather_plain(*args), (*args, plan.gvals))):
-        err, _, ms, plain_ms = compare(title, run, plain, counter)
+    dev = plan.gslab.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + plan.n_gtiles)
+    table = plan.tables[0].reshape(-1, LANES).int()
+    n_slabs = -(-plan.shape[1] // SLAB)
+    runs = []
+    for variant, (dt, it) in LANE_SHUFFLE_VARIANTS.items():
+        x2d = torch.rand(table.shape, generator=gen, device=dev).to(dt)
+        idx = table.to(it)
+        runs.append(("K1 lane_shuffle", variant, lane_shuffle,
+                     lambda x2d=x2d, idx=idx: lane_shuffle(x2d, idx),
+                     lambda x2d=x2d, idx=idx: lane_shuffle_plain(x2d, idx),
+                     (x2d, idx, x2d),
+                     lambda x2d=x2d: torch.gather(x2d, 1, table)))
+    for variant, (dt, ot) in SLAB_GATHER_VARIANTS.items():
+        x_slabs = torch.rand((n_slabs, LANES, LANES), generator=gen,
+                             device=dev).to(dt)
+        args = (plan.gslab, x_slabs, plan.gidx, plan.gvals.to(dt), ot)
+        out = torch.empty(plan.gidx.shape, dtype=ot or dt, device=dev)
+        runs.append(("K2 slab_gather", variant, slab_gather,
+                     lambda args=args: slab_gather(*args),
+                     lambda args=args: slab_gather_plain(*args),
+                     (*args[:4], out), None))
+    for kernel, variant, counter, run, plain, moved, lib in runs:
+        err, _, ms, plain_ms = compare(f"{kernel}[{variant}] {where}", run,
+                                       plain, counter)
         bnd = bound(nbytes(*moved), 0)
-        phase("xfoot-shard kernels", n_shards=n, kernel=title,
-              shape=(tuple(idx.shape) if counter is lane_shuffle
-                     else (plan.n_gtiles, LANES, LANES)),
-              launches=launched[counter.__name__], bitwise_equal=True,
+        lib_ms = _device_ms(lib) if lib is not None else None
+        launches = ran.get(f"{counter.__name__}_{variant}")
+        phase(title, where=where, kernel=f"{kernel}[{variant}]",
+              shape=tuple(moved[2].shape), launches=launches,
+              body="vector" if launches else None, bitwise_equal=True,
               max_abs_err=err, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-              library_ms=(f"{plain_ms:.5f} (torch.gather)"
-                          if counter is lane_shuffle else None),
+              library_ms=(f"{lib_ms:.5f} (torch.gather)"
+                          if lib_ms is not None else None),
               bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
               share=f"{bnd['bound_ms'] / ms:.3f}", card=card)
+
+
+def shard_k1_k2(plan, n, ran) -> None:
+    """[xfoot-shard kernels]: the stock shard SpMV's kernels on the n-way
+    worst shard's own tables (`k1_k2_at`), then the shard's whole main
+    route as the SpMV launches it (its K1 layers, a transpose copy
+    between each pair)."""
+    from sblas_tpu_torch.ops.route import apply_route
+    k1_k2_at("xfoot-shard kernels", f"n={n} shard", plan, ran)
+    gen = torch.Generator(device=plan.gslab.device)
+    gen.manual_seed(SEED + n)
+    contrib = torch.rand(plan.route_n, generator=gen,
+                         device=plan.gslab.device)
+    route_ms = _device_ms(lambda: apply_route(plan.schedule, contrib,
+                                              plan.tables))
+    phase("xfoot-shard kernels", n_shards=n, kernel="main route",
+          route_n=plan.route_n, ops=len(plan.schedule),
+          k1_layers=sum(op[0] == "gather" for op in plan.schedule),
+          device_ms=f"{route_ms:.5f}", card=card_line())
 
 
 def _tensors_of(obj) -> list:
@@ -1918,6 +1991,9 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
             out, launched[name] = launches_of(counters, run)
             expect_launches(f"xfoot-shard {name} n={n}", launched[name],
                             expect[name])
+            if name == "stock":
+                ran = row_bodies(f"xfoot-shard stock n={n}", dict(
+                    lane_shuffle=plan.n_route_gathers, slab_gather=1))
             checks[name] = checked(f"xfoot-shard {name} n={n}", out, want_l)
         if not torch.equal(stage_fuse_gather(*pass1_operands(plan, xl)),
                            pass1_tiles_stock(plan, xl)):
@@ -1933,7 +2009,7 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
         for name in ("stock", "fused", "fused", "stock"):
             phase("xfoot-shard", n_shards=n, path=name,
                   **call_times(runs[name], local.nnz))
-        shard_k1_k2(plan, x_slabs_of(plan, xl), n, launched["stock"])
+        shard_k1_k2(plan, n, ran)
         if n == 16:
             # the full plan's reading stays; the shard's goes beside it
             shard = p1_compare(plan, x_slabs_of(plan, xl),

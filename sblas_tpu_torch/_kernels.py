@@ -2,14 +2,15 @@
 
 The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
 `rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, the
-probes' P1 and P2 `probe_kernels.cu`, and the shared header
-`value_types.cuh`) each expose
+probes' P1 and P2 `probe_kernels.cu`, and the shared headers
+`value_types.cuh` and `row_io.cuh`) each expose
 plain `extern "C"` launchers that return `cudaGetLastError()`, one per
 variant: `sblas_<kernel>_<variant>`, the variant naming the value type
 (`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
 `bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K3's and
 K4's `bf16_ragged` is their bf16 kernel for any stride and alignment,
-where `bf16` needs 16-byte rows and bases.  At first
+where `bf16` needs 16-byte rows and bases.  K1 and K2 are launched
+with programmatic dependent launch (`row_io.cuh`).  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
 loaded with ctypes: nothing is built or imported when the package is
@@ -43,7 +44,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
            "bsr_kernels.cu", "probe_kernels.cu")
-HEADERS = ("value_types.cuh",)
+HEADERS = ("value_types.cuh", "row_io.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -52,8 +53,11 @@ SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # kernel -> (argument types before the stream, its variants)
 LAUNCHERS = {
-    "lane_shuffle": ([_p, _p, _p, _i64], ("f32", "f64", "bf16", "bf16_i16")),
-    "slab_gather": ([_p] * 5 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
+    # the last argument of K1 and K2: 1 for the row body (`row_vectors`)
+    "lane_shuffle": ([_p, _p, _p, _i64, _i64],
+                     ("f32", "f64", "bf16", "bf16_i16")),
+    "slab_gather": ([_p] * 5 + [_i64, _i64],
+                    ("f32", "f64", "bf16", "f32_bf16")),
     "tile_gather": ([_p] * 4 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "window_reduce": ([_p] * 11 + [_i64] * 7 + [_f64, _f64],
                       ("f32", "f64", "bf16", "bf16_ragged")),
@@ -76,8 +80,9 @@ _lib: Optional[ctypes.CDLL] = None
 # launches since the last clear, by launcher name (one count per variant;
 # each wrapper's own `launches` counts all of its variants)
 LAUNCHED: Counter = Counter()
-# launches by kernel body, for a launcher that picks one of several bodies
-# (`window_reduce_bf16_ragged.masked` / `.ring`)
+# launches by kernel body, for a kernel with several bodies
+# (`window_reduce_bf16_ragged.masked` / `.ring`, `lane_shuffle.vector` /
+# `.scalar`, `slab_gather.vector` / `.scalar`)
 BODIES: Counter = Counter()
 
 
@@ -176,6 +181,11 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
                   shape: tuple, device: torch.device) -> None:
     """Raise unless `t` is what a kernel takes: a contiguous CUDA tensor of
     `dtype` and `shape` on `device`."""
+    # every wrapper checks its operands on each launch: the messages are
+    # formatted only for an operand that fails
+    if (t.device == device and t.dtype == dtype and t.shape == shape
+            and t.is_contiguous()):
+        return
     require(t.device == device, KernelError,
             f"{name} is on {t.device}, expected {device}")
     require(t.dtype == dtype, KernelError,
@@ -194,9 +204,9 @@ def value_suffix(dtype: torch.dtype) -> str:
 def launcher(kernel: str, variant: str) -> str:
     """The launcher's name, `sblas_<kernel>_<variant>`; raises
     `KernelError` for a variant the kernel does not have."""
-    require(variant in LAUNCHERS[kernel][1], KernelError,
-            f"kernel {kernel} has no {variant} variant (it has "
-            f"{', '.join(LAUNCHERS[kernel][1])})")
+    if variant not in LAUNCHERS[kernel][1]:
+        raise KernelError(f"kernel {kernel} has no {variant} variant (it "
+                          f"has {', '.join(LAUNCHERS[kernel][1])})")
     return f"sblas_{kernel}_{variant}"
 
 
@@ -209,6 +219,16 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args]
         rc = getattr(lib, fn_name)(*c_args, stream)
-    require(rc == 0, KernelError,
-            f"{fn_name} launch failed: cudaError {rc}")
+    if rc != 0:
+        raise KernelError(f"{fn_name} launch failed: cudaError {rc}")
     LAUNCHED[fn_name] += 1
+
+
+def row_vectors(*operands) -> bool:
+    """Whether every operand, a (pointer, element bytes) pair, starts on
+    the vector of K1's and K2's row bodies: 4 values, at most 16 bytes
+    (`row_io.cuh`'s `Pack`)."""
+    for at, width in operands:
+        if at % (16 if width >= 4 else 4 * width):
+            return False
+    return True

@@ -55,29 +55,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_io.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;        // P2's block
 
-// n values of E on one n * sizeof(E)-byte load or store
-template <typename E, int n>
-struct alignas(sizeof(E) * n) Pack {
-  E v[n];
-};
-
-// one 16-byte vector store: the compiler splits a Pack's store, and a
-// float4's, into four 4-byte stores a lane, at a 16-byte lane stride
-__device__ __forceinline__ void store16(float* p, const Pack<float, 4>& a) {
-  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
-               "f"(a.v[0]), "f"(a.v[1]), "f"(a.v[2]), "f"(a.v[3])
-               : "memory");
-}
-__device__ __forceinline__ void store16(double* p,
-                                        const Pack<double, 2>& a) {
-  asm volatile("st.global.v2.f64 [%0], {%1, %2};" ::"l"(p), "d"(a.v[0]),
-               "d"(a.v[1])
-               : "memory");
-}
+using sblas::Pack;
+using sblas::store_vec;
 
 constexpr int kRows = 4;             // P1: tile rows a block, one a warp
 constexpr int kLanes = 128;
@@ -126,7 +111,7 @@ stage_fuse_kernel(const int32_t* __restrict__ gslab,
     Vals o;
 #pragma unroll
     for (int k = 0; k < kV; ++k) o.v[k] = contrib[w][ii[n].v[k] & 127];
-    store16(out + base + c, o);
+    store_vec(out + base + c, o);
   }
 }
 

@@ -9,15 +9,44 @@
 // this was the VPU's in-register dynamic lane gather; every `gather` op of
 // a route program (x relabel, main route, unrank) runs it once.
 //
-// What bounds it on the H100: device-memory bytes.  Each element reads its
-// index and writes one value; the value read lands inside the same
-// 256-B (bf16) / 512-B (f32) / 1-KB (f64) row that neighbouring threads
-// read, so it is served from L1/L2 after the first touch: ~12 B per
-// element in f32 with int32 indices.  The design therefore does nothing
-// but keep every stream coalesced: one thread per element, consecutive
-// threads on consecutive elements, no shared memory and no
-// synchronisation.  The index is masked to 7 bits so a corrupt table
-// cannot read outside its own row.
+// What bounds it on the H100: device-memory bytes at the main plan's
+// (32768, 128) layers, 12 B an f32 element (idx, x, out); at an xfoot
+// shard's (2048, 128) layers (3 MB, in L2) the launch: a plain
+// back-to-back launch of any kernel costs more than the bytes' bound.
+//
+// The row body (`lane_shuffle_rows`): one warp a whole row, 4 KB of
+// values a block (`kWarps`: 4 rows of f64, 8 of f32, 16 of bf16), each
+// lane on 4 lanes of the row (`RowShare`: 4 consecutive lanes, or two
+// pairs at f64 so that each warp instruction covers whole sectors).  A
+// row's idx and x do not depend on each other, so both loads are issued
+// together and the body waits on one trip to memory; the warp then puts
+// its x row in shared memory, syncs, reads each output at idx & 127 and
+// stores each vector as one instruction (inline PTX: the compiler splits
+// a Pack's store).  The index is masked to 7 bits, so a corrupt table
+// cannot read outside its own row.  Tried and lost
+// (tools/k1k2_variants.py): 8 rows a block at 16-bit values (1.3x the
+// time at the main plan with int16 indices: the blocks, not the bytes,
+// set the pace), 4 or 32 rows a block at f32, the element body's gather
+// through L1 (idx first, then x at idx: two round trips), the exchange
+// by warp shuffles, 4 consecutive f64 lanes a thread; and 2 or 4 rows a
+// warp, no faster, so the body takes one.
+//
+// The launch: programmatic dependent launch (row_io.cuh), so a K1 is
+// scheduled while the kernel before it (a K1, K2, a transpose copy)
+// drains; its blocks wait (`pdl_wait`) before their first load and let
+// the next grid in once their loads are done (`pdl_trigger`; after the
+// stores instead: no faster).  Read-before-wait audit: idx is a table no
+// kernel writes just before a K1 on the port's paths (route tables are
+// host copies, or cast on the device by `with_transport` and sliced by
+// the stage-fuse probe, long before), but loading it ahead of the wait
+// gained nothing measurable, so nothing is read before the wait.
+//
+// The element body (`lane_shuffle_elems`), this kernel's second body:
+// one thread an element, for an x, idx or out whose base is not a
+// multiple of the row body's vector (16 B; 8 for 16-bit values and int16
+// indices), which the port's own paths never give it.  The wrapper
+// checks the bases, passes its choice to the launcher (`vector`) and
+// counts the launch by body.
 //
 // 16-bit lanes: the bf16 route transport (config.routed_transport="bf16")
 // moves the main route's contributions as bf16 with int16 tables, 6 B an
@@ -30,28 +59,92 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_io.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // the element body's block
+// the row body: warps a block, one row a warp: 4 KB of values a block
+// (4 rows of f64, 8 of f32, 16 of bf16)
+template <typename T>
+constexpr int kWarps = 32 / static_cast<int>(sizeof(T));
+constexpr int kLanes = 128;
+
+using sblas::Pack;
+using sblas::pdl_trigger;
+using sblas::pdl_wait;
 
 template <typename T, typename I>
-__global__ void lane_shuffle_kernel(const T* __restrict__ x,
-                                    const I* __restrict__ idx,
-                                    T* __restrict__ out, int64_t n) {
+__global__ void __launch_bounds__(kWarps<T> * 32)
+lane_shuffle_rows(const T* __restrict__ x, const I* __restrict__ idx,
+                  T* __restrict__ out, int64_t rows) {
+  using S = sblas::RowShare<T>;
+  using Vals = Pack<T, S::kSpan>;
+  using Idx = Pack<I, S::kSpan>;
+  __shared__ __align__(16) T row[kWarps<T>][kLanes];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps<T> + w;
+  Idx iv[S::kVecs];
+  Vals xv[S::kVecs];
+  pdl_wait();
+  // one trip to memory: the row's indices and values together
+  if (r < rows) {
+#pragma unroll
+    for (int n = 0; n < S::kVecs; ++n) {
+      const int64_t at = r * kLanes + S::lane0(n, lane);
+      iv[n] = *reinterpret_cast<const Idx*>(idx + at);
+      xv[n] = *reinterpret_cast<const Vals*>(x + at);
+    }
+    // the row through shared memory, read back where the indices say
+#pragma unroll
+    for (int n = 0; n < S::kVecs; ++n) {
+      *reinterpret_cast<Vals*>(&row[w][S::lane0(n, lane)]) = xv[n];
+    }
+  }
+  __syncwarp();
+  pdl_trigger();
+  if (r < rows) {
+#pragma unroll
+    for (int n = 0; n < S::kVecs; ++n) {
+      Vals o;
+#pragma unroll
+      for (int k = 0; k < S::kSpan; ++k) o.v[k] = row[w][iv[n].v[k] & 127];
+      sblas::store_vec(out + r * kLanes + S::lane0(n, lane), o);
+    }
+  }
+}
+
+template <typename T, typename I>
+__global__ void lane_shuffle_elems(const T* __restrict__ x,
+                                   const I* __restrict__ idx,
+                                   T* __restrict__ out, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  pdl_wait();
   if (i < n) {
     const int64_t lane = static_cast<int64_t>(idx[i] & 127);
     out[i] = x[(i & ~static_cast<int64_t>(127)) | lane];
   }
 }
 
+// vector: the row body, whose x, idx and out the caller has checked start
+// on its vectors (16 B; 8 for 16-bit values and int16 indices); else the
+// element body
 template <typename T, typename I>
-int launch(const T* x, const I* idx, T* out, int64_t n, void* stream) {
+int launch(const T* x, const I* idx, T* out, int64_t n, int64_t vector,
+           void* stream) {
   if (n > 0) {
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    lane_shuffle_kernel<T, I><<<static_cast<unsigned int>(blocks), kThreads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
-        x, idx, out, n);
+    if (vector) {
+      const int64_t rows = n / kLanes;
+      sblas::launch_pdl(lane_shuffle_rows<T, I>,
+                        dim3(static_cast<unsigned int>(
+                            (rows + kWarps<T> - 1) / kWarps<T>)),
+                        dim3(kWarps<T> * 32), stream, x, idx, out, rows);
+    } else {
+      sblas::launch_pdl(lane_shuffle_elems<T, I>,
+                        dim3(static_cast<unsigned int>(
+                            (n + kThreads - 1) / kThreads)),
+                        dim3(kThreads), stream, x, idx, out, n);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -60,27 +153,31 @@ int launch(const T* x, const I* idx, T* out, int64_t n, void* stream) {
 
 extern "C" {
 
-// n = R * 128 elements; x, idx, out contiguous on the device of `stream`.
+// n = R * 128 elements; x, idx, out contiguous on the device of `stream`;
+// vector: 1 for the row body (every base on its vector: the wrapper
+// checks), 0 for the element body.
 int sblas_lane_shuffle_f32(const float* x, const int32_t* idx, float* out,
-                           int64_t n, void* stream) {
-  return launch<float, int32_t>(x, idx, out, n, stream);
+                           int64_t n, int64_t vector, void* stream) {
+  return launch<float, int32_t>(x, idx, out, n, vector, stream);
 }
 
 int sblas_lane_shuffle_f64(const double* x, const int32_t* idx, double* out,
-                           int64_t n, void* stream) {
-  return launch<double, int32_t>(x, idx, out, n, stream);
+                           int64_t n, int64_t vector, void* stream) {
+  return launch<double, int32_t>(x, idx, out, n, vector, stream);
 }
 
 // bf16 values (their bit patterns) with int32 indices: a bf16-valued plan
 int sblas_lane_shuffle_bf16(const uint16_t* x, const int32_t* idx,
-                            uint16_t* out, int64_t n, void* stream) {
-  return launch<uint16_t, int32_t>(x, idx, out, n, stream);
+                            uint16_t* out, int64_t n, int64_t vector,
+                            void* stream) {
+  return launch<uint16_t, int32_t>(x, idx, out, n, vector, stream);
 }
 
 // bf16 values with int16 indices: the main route under bf16 transport
 int sblas_lane_shuffle_bf16_i16(const uint16_t* x, const int16_t* idx,
-                                uint16_t* out, int64_t n, void* stream) {
-  return launch<uint16_t, int16_t>(x, idx, out, n, stream);
+                                uint16_t* out, int64_t n, int64_t vector,
+                            void* stream) {
+  return launch<uint16_t, int16_t>(x, idx, out, n, vector, stream);
 }
 
 }  // extern "C"

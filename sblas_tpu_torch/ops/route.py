@@ -404,7 +404,9 @@ def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx in
     [0, 128): int32, or int16 with bf16 values.  CPU tensors take the
     plain version; CUDA tensors launch kernel K1 (csrc/route_kernels.cu)
-    or raise."""
+    or raise: its row body where x2d, idx and out start on the body's
+    vectors (`_kernels.row_vectors`), else its element body, each launch
+    counted by body in `_kernels.BODIES`."""
     if x2d.device.type == "cpu":
         return lane_shuffle_plain(x2d, idx)
     from ..utils.errors import KernelError, require
@@ -420,12 +422,23 @@ def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _kernels.check_operand(x2d, "x2d", x2d.dtype, x2d.shape, x2d.device)
     _kernels.check_operand(idx, "idx", idx.dtype, x2d.shape, x2d.device)
     out = torch.empty_like(x2d)
-    _kernels.launch(fn, x2d.device, x2d, idx, out, x2d.numel())
+    at = (x2d.data_ptr(), idx.data_ptr(), out.data_ptr())
+    width = x2d.element_size()
+    vector = _kernels.row_vectors((at[0], width), (at[1], idx.element_size()),
+                                  (at[2], width))
+    _kernels.launch(fn, x2d.device, *at, x2d.numel(), int(vector))
+    _kernels.BODIES["lane_shuffle.vector" if vector
+                    else "lane_shuffle.scalar"] += 1
     lane_shuffle.launches += 1
     return out
 
 
 lane_shuffle.launches = 0   # K1 launches since the last reset
+# K1's variants: launcher suffix -> (value dtype, index dtype)
+LANE_SHUFFLE_VARIANTS = {
+    "f32": (torch.float32, torch.int32), "f64": (torch.float64, torch.int32),
+    "bf16": (torch.bfloat16, torch.int32),
+    "bf16_i16": (torch.bfloat16, torch.int16)}
 
 
 def route_tables(prog: RouteProgram, device, index_dtype=np.int32

@@ -707,7 +707,9 @@ def slab_gather_plain(gslab, x_slabs, gidx, gvals,
 def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None) -> torch.Tensor:
     """Slab-bucket gather (see `slab_gather_plain`) over (T_g, 128, 128)
     tiles.  CPU tensors take the plain version; CUDA tensors launch kernel
-    K2 (csrc/rspmv_kernels.cu) or raise."""
+    K2 (csrc/rspmv_kernels.cu) or raise: its row body where gidx, gvals
+    and out start on the body's vectors (`_kernels.row_vectors`), else its
+    slot body, each launch counted by body in `_kernels.BODIES`."""
     if x_slabs.device.type == "cpu":
         return slab_gather_plain(gslab, x_slabs, gidx, gvals, out_dtype)
     from ..utils.errors import KernelError, require
@@ -727,12 +729,23 @@ def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None) -> torch.Tensor:
     _kernels.check_operand(gvals, "gvals", x_slabs.dtype, tile_shape, dev)
     out = torch.empty(tile_shape, dtype=out_dtype or x_slabs.dtype,
                       device=dev)
-    _kernels.launch(fn, dev, gslab, x_slabs, gidx, gvals, out, T_g)
+    at = (gidx.data_ptr(), gvals.data_ptr(), out.data_ptr())
+    vector = _kernels.row_vectors((at[0], 4), (at[1], gvals.element_size()),
+                                  (at[2], out.element_size()))
+    _kernels.launch(fn, dev, gslab, x_slabs, *at, T_g, int(vector))
+    _kernels.BODIES["slab_gather.vector" if vector
+                    else "slab_gather.scalar"] += 1
     slab_gather.launches += 1
     return out
 
 
 slab_gather.launches = 0   # K2 launches since the last reset
+# K2's variants: launcher suffix -> (value dtype, stored dtype, None for
+# the value dtype)
+SLAB_GATHER_VARIANTS = {
+    "f32": (torch.float32, None), "f64": (torch.float64, None),
+    "bf16": (torch.bfloat16, None),
+    "f32_bf16": (torch.float32, torch.bfloat16)}
 
 
 def tile_gather_plain(x_tiles, gidx, gvals, out_dtype=None) -> torch.Tensor:

@@ -67,7 +67,7 @@ _PASS1_SMEM = """    *reinterpret_cast<Vals*>(&contrib[w][c]) = p;
     Vals o;
 #pragma unroll
     for (int k = 0; k < kV; ++k) o.v[k] = contrib[w][ii[n].v[k] & 127];
-    store16(out + base + c, o);
+    store_vec(out + base + c, o);
   }"""
 # route pass 1 by warp shuffles: each output takes the lane's four
 # products from the owner lane of its slot and keeps the one it names
@@ -90,7 +90,7 @@ _PASS1_SHFL = """    pv[n] = p;
       }
       o.v[k] = r;
     }
-    store16(out + base + c, o);
+    store_vec(out + base + c, o);
   }"""
 _NEW_BODY_START = "template <typename T>\n__global__ void __launch_bounds__"
 _NEW_LAUNCH = """    const auto blocks =
@@ -138,7 +138,7 @@ VARIANTS = {
     "rows16": [_rows(16)],
     # the output stored through the Pack itself, which the compiler split
     # into four 4-byte stores a lane
-    "pack_store": [("    store16(out + base + c, o);",
+    "pack_store": [("    store_vec(out + base + c, o);",
                     "    *reinterpret_cast<Vals*>(out + base + c) = o;")],
     "staged_x": [(_L1_READ, _STAGED),
                  ("p.v[k] = gv[n].v[k] * x[gi[n].v[k] & 127];",

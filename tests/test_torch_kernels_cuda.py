@@ -20,6 +20,9 @@ from sblas_tpu_torch.io.generate import webbase_like
 from sblas_tpu_torch.ops import make_plan, spmv
 from sblas_tpu_torch.ops import route as troute
 from sblas_tpu_torch.ops import rspmv as tr
+# K1's variants: (value dtype, index dtype); K2's: (value dtype, stored)
+from sblas_tpu_torch.ops.route import LANE_SHUFFLE_VARIANTS as K1_VARIANTS
+from sblas_tpu_torch.ops.rspmv import SLAB_GATHER_VARIANTS as K2_VARIANTS
 from sblas_tpu_torch.utils.errors import KernelError, ShapeError
 
 pytestmark = pytest.mark.cuda
@@ -34,22 +37,34 @@ def dev():
     return torch.device("cuda")
 
 
+def _bodies_of(kernel: str) -> dict:
+    """Launches of K1 (`lane_shuffle`) or K2 (`slab_gather`) by body since
+    `_kernels.BODIES` was last cleared."""
+    from sblas_tpu_torch import _kernels
+    return {k[len(kernel) + 1:]: v for k, v in _kernels.BODIES.items()
+            if k.startswith(kernel + ".")}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows", [1, 37, 32768])
+@pytest.mark.parametrize("rows", [1, 37, 2048, 32768])
 def test_lane_shuffle_kernel_matches_plain(dev, dtype, rows):
+    from sblas_tpu_torch import _kernels
     g = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn((rows, 128), generator=g, device=dev, dtype=dtype)
     idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
                         dtype=torch.int32)
     before = troute.lane_shuffle.launches
+    _kernels.BODIES.clear()
     got = troute.lane_shuffle(x, idx)
     torch.cuda.synchronize()
     assert troute.lane_shuffle.launches == before + 1
+    assert _bodies_of("lane_shuffle") == {"vector": 1}
     assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (188, 62)])
+@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (14, 12),
+                                             (188, 62)])
 def test_slab_gather_kernel_matches_plain(dev, dtype, n_tiles, n_slabs):
     g = torch.Generator(device=dev).manual_seed(n_tiles)
     x_slabs = torch.randn((n_slabs, 128, 128), generator=g, device=dev,
@@ -60,10 +75,13 @@ def test_slab_gather_kernel_matches_plain(dev, dtype, n_tiles, n_slabs):
                          device=dev, dtype=torch.int32)
     gvals = torch.randn((n_tiles, 128, 128), generator=g, device=dev,
                         dtype=dtype)
+    from sblas_tpu_torch import _kernels
     before = tr.slab_gather.launches
+    _kernels.BODIES.clear()
     got = tr.slab_gather(gslab, x_slabs, gidx, gvals)
     torch.cuda.synchronize()
     assert tr.slab_gather.launches == before + 1
+    assert _bodies_of("slab_gather") == {"vector": 1}
     assert torch.equal(got, tr.slab_gather_plain(gslab, x_slabs, gidx,
                                                  gvals))
 
@@ -816,16 +834,19 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int16])
-@pytest.mark.parametrize("rows", [1, 37, 32768])
+@pytest.mark.parametrize("rows", [1, 37, 2048, 32768])
 def test_lane_shuffle_bf16_kernel_matches_plain(dev, idx_dtype, rows):
     g = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn((rows, 128), generator=g, device=dev).to(BF16)
     idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
                         dtype=torch.int32).to(idx_dtype)
+    from sblas_tpu_torch import _kernels
     before = troute.lane_shuffle.launches
+    _kernels.BODIES.clear()
     got = troute.lane_shuffle(x, idx)
     torch.cuda.synchronize()
     assert troute.lane_shuffle.launches == before + 1
+    assert _bodies_of("lane_shuffle") == {"vector": 1}
     assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
 
 
@@ -837,7 +858,8 @@ def test_lane_shuffle_refuses_int16_with_wide_values(dev):
 
 
 @pytest.mark.parametrize("variant", ["f32_bf16", "bf16"])
-@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (188, 62)])
+@pytest.mark.parametrize("n_tiles,n_slabs", [(1, 1), (5, 3), (14, 12),
+                                             (188, 62)])
 def test_gather_bf16_kernels_match_plain(dev, variant, n_tiles, n_slabs):
     """K2 and K2' storing bf16 (from f32 or bf16 operands): bitwise
     their plain versions."""
@@ -851,13 +873,16 @@ def test_gather_bf16_kernels_match_plain(dev, variant, n_tiles, n_slabs):
     gidx = torch.randint(0, 128, shape, generator=g, device=dev,
                          dtype=torch.int32)
     gvals = torch.randn(shape, generator=g, device=dev).to(dt)
+    from sblas_tpu_torch import _kernels
     before = (tr.slab_gather.launches, tr.tile_gather.launches)
+    _kernels.BODIES.clear()
     got = tr.slab_gather(gslab, x_slabs, gidx, gvals, BF16)
     tiles = torch.index_select(x_slabs, 0, gslab)
     got_t = tr.tile_gather(tiles, gidx, gvals, BF16)
     torch.cuda.synchronize()
     assert (tr.slab_gather.launches, tr.tile_gather.launches) == (
         before[0] + 1, before[1] + 1)
+    assert _bodies_of("slab_gather") == {"vector": 1}
     assert got.dtype == got_t.dtype == BF16
     assert torch.equal(got, tr.slab_gather_plain(gslab, x_slabs, gidx,
                                                  gvals, BF16))
@@ -1545,7 +1570,8 @@ def test_bell_spmm_bf16_ragged_every_column_tiling(dev, ob):
 def _bodies():
     from sblas_tpu_torch import _kernels
     return {k[len("window_reduce_bf16_ragged."):]: v
-            for k, v in _kernels.BODIES.items()}
+            for k, v in _kernels.BODIES.items()
+            if k.startswith("window_reduce_bf16_ragged.")}
 
 
 # stride: "odd" (every entry's B row at its own offset), "even" (K % 8 !=
@@ -1788,3 +1814,160 @@ def test_window_reduce_bf16_ragged_without_entries(dev, width, off, k):
     assert _bodies() == {"masked" if k % 8 == 0 else "ring": 1}
     assert torch.equal(out[:, 3:3 + width],
                        (4.0 * C[:, 3:3 + width].float()).to(BF16))
+
+
+# ---- K1 and K2: the scalar body, and PDL launches back to back ----
+
+
+
+def _one_in(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` whose base is one element past an allocation's."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("operand", ["x", "idx"])
+@pytest.mark.parametrize("variant", list(K1_VARIANTS))
+def test_lane_shuffle_unaligned_base_runs_scalar_body(dev, variant,
+                                                      operand):
+    """An x or idx one element off the row body's vector runs K1's scalar
+    body: bitwise the plain version, counted apart in `BODIES`."""
+    from sblas_tpu_torch import _kernels
+    dt, it = K1_VARIANTS[variant]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((37, 128), generator=g, device=dev).to(dt)
+    idx = torch.randint(0, 128, (37, 128), generator=g, device=dev,
+                        dtype=torch.int32).to(it)
+    if operand == "x":
+        x = _one_in(x)
+    else:
+        idx = _one_in(idx)
+    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
+    got = troute.lane_shuffle(x, idx)
+    torch.cuda.synchronize()
+    assert _bodies_of("lane_shuffle") == {"scalar": 1}
+    assert dict(_kernels.LAUNCHED) == {f"sblas_lane_shuffle_{variant}": 1}
+    assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
+
+
+@pytest.mark.parametrize("operand", ["gidx", "gvals", "x_slabs"])
+@pytest.mark.parametrize("variant", list(K2_VARIANTS))
+def test_slab_gather_unaligned_base_runs_scalar_body(dev, variant,
+                                                     operand):
+    """A gidx or gvals one element off the row body's vector runs K2's
+    scalar body, bitwise, counted apart; x_slabs is read by element, so
+    an offset x_slabs keeps the row body."""
+    from sblas_tpu_torch import _kernels
+    dt, ot = K2_VARIANTS[variant]
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (5, 128, 128)
+    x_slabs = torch.randn((3, 128, 128), generator=g, device=dev).to(dt)
+    gslab = torch.randint(0, 3, (5,), generator=g, device=dev,
+                          dtype=torch.int32)
+    gidx = torch.randint(0, 128, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    gvals = torch.randn(shape, generator=g, device=dev).to(dt)
+    ops = dict(x_slabs=x_slabs, gidx=gidx, gvals=gvals)
+    ops[operand] = _one_in(ops[operand])
+    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
+    got = tr.slab_gather(gslab, ops["x_slabs"], ops["gidx"], ops["gvals"],
+                         ot)
+    torch.cuda.synchronize()
+    body = "vector" if operand == "x_slabs" else "scalar"
+    assert _bodies_of("slab_gather") == {body: 1}
+    assert dict(_kernels.LAUNCHED) == {f"sblas_slab_gather_{variant}": 1}
+    assert torch.equal(got, tr.slab_gather_plain(
+        gslab, ops["x_slabs"], ops["gidx"], ops["gvals"], ot))
+
+
+def _k1_k2_chain(variant: str, dev, n_slabs=62, n_tiles=188, seed=8):
+    """A K1 -> K1 -> K2 chain in which each kernel reads what the kernel
+    just before wrote: K1 twice on x viewed as (n_slabs * 128, 128) rows,
+    K2 on the result as its slabs; under `transport` (f32 values, the
+    bf16 route transport) K2 stores bf16 and K1 `bf16_i16` runs twice on
+    its products.  Returns (run, x): `run(True)` launches the kernels,
+    `run(False)` their plain versions, both on the tensor x."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = {"f64": torch.float64, "bf16": BF16}.get(variant, torch.float32)
+    rows = n_slabs * 128
+    x = torch.randn((rows, 128), generator=g, device=dev).to(dt)
+    idx = [torch.randint(0, 128, (rows, 128), generator=g, device=dev,
+                         dtype=torch.int32) for _ in range(2)]
+    gslab = torch.randint(0, n_slabs, (n_tiles,), generator=g, device=dev,
+                          dtype=torch.int32)
+    shape = (n_tiles, 128, 128)
+    gidx = torch.randint(0, 128, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    gvals = torch.randn(shape, generator=g, device=dev).to(dt)
+    idx16 = [torch.randint(0, 128, (n_tiles * 128, 128), generator=g,
+                           device=dev, dtype=torch.int16) for _ in range(2)]
+    ot = BF16 if variant == "transport" else None
+
+    def run(kernels: bool):
+        k1 = troute.lane_shuffle if kernels else troute.lane_shuffle_plain
+        k2 = tr.slab_gather if kernels else tr.slab_gather_plain
+        a = k1(k1(x, idx[0]), idx[1])
+        out = k2(gslab, a.view(n_slabs, 128, 128), gidx, gvals, ot)
+        if variant == "transport":
+            out = k1(k1(out.view(-1, 128), idx16[0]), idx16[1])
+        return out
+    return run, x
+
+
+@pytest.mark.parametrize("variant", ["f32", "f64", "bf16", "transport"])
+def test_k1_k2_chain_back_to_back_bitwise(dev, variant):
+    """K1 -> K1 -> K2 (-> K1 -> K1), each launched with programmatic
+    dependent launch on what the one before wrote: eagerly, 8 chains back
+    to back, and replayed from a CUDA graph (its edges programmatic), each
+    bitwise the plain chain; the graph again after new input."""
+    from sblas_tpu_torch import _kernels
+    run, x = _k1_k2_chain(variant, dev)
+    want = run(False)
+    _kernels.BODIES.clear()
+    outs = [run(True) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert set(_kernels.BODIES) == {"lane_shuffle.vector",
+                                    "slab_gather.vector"}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        run(True)                       # warm-up off the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x.copy_(torch.flip(x, (0,)))
+    want = run(False)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+def test_slab_gather_after_a_device_cast_of_gvals(dev, variant):
+    """`_gathered_contrib`'s order: gvals cast on the device (f64 to the
+    values' dtype) right before K2, whose PDL launch must wait for the
+    cast: bitwise the plain product, 8 times back to back."""
+    dt = torch.float32 if variant == "f32" else BF16
+    g = torch.Generator(device=dev).manual_seed(9)
+    shape = (188, 128, 128)
+    x_slabs = torch.randn((62, 128, 128), generator=g, device=dev).to(dt)
+    gslab = torch.randint(0, 62, (188,), generator=g, device=dev,
+                          dtype=torch.int32)
+    gidx = torch.randint(0, 128, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    g64 = torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+    want = tr.slab_gather_plain(gslab, x_slabs, gidx, g64.to(dt))
+    outs = [tr.slab_gather(gslab, x_slabs, gidx, g64.to(dt))
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)

@@ -34,6 +34,7 @@ from sblas_tpu_torch.experiments import stage_fuse_probe as tsf
 from sblas_tpu_torch.experiments import wcoo_gather_probe as twg
 from sblas_tpu_torch.ops import rspmv as tr
 from sblas_tpu_torch.parallel import xfoot as tx
+from sblas_tpu_torch.tools import p1_variants
 from sblas_tpu_torch.utils.errors import KernelError
 
 LANES = 128
@@ -289,3 +290,13 @@ def test_worst_shard_of_the_toy_world_is_jaxs(worst_shard):
     tloc, tsizes = tx.xfoot_worst_local(_port(W), 4)
     assert tsizes == sizes
     assert np.array_equal(tloc.col_idx, local.col_idx)
+
+
+@pytest.mark.parametrize("variant", sorted(p1_variants.VARIANTS))
+def test_p1_variant_patches_match_the_source(variant):
+    """Every copy the P1 variants tool builds is made from the current
+    csrc/probe_kernels.cu: each patch matches exactly once."""
+    patches = p1_variants.VARIANTS[variant]
+    copy = p1_variants._source(patches)
+    assert "sblas_stage_fuse_gather_f32" in copy
+    assert (copy == p1_variants._source([])) == (not patches)

@@ -9,6 +9,7 @@ the reference's 1e-3 check against the numpy oracle."""
 
 import dataclasses
 import functools
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +20,12 @@ from sblas_tpu.containers import DenseVector as JDenseVector
 from sblas_tpu.io.generate import adversarial_skew, webbase_like
 from sblas_tpu.ops import rspmv as jr
 from sblas_tpu.ops.cpu_reference import spmv_cpu
+from sblas_tpu_torch import _kernels
 from sblas_tpu_torch.config import DEFAULT
 from sblas_tpu_torch.containers import CsrMatrix
 from sblas_tpu_torch.ops import rspmv as tr
 from sblas_tpu_torch.ops import route as troute
+from sblas_tpu_torch.tools import k1k2_variants
 from sblas_tpu_torch.utils.errors import KernelError, PlanError
 from sblas_tpu_torch.utils.verify import check_equal
 
@@ -241,3 +244,111 @@ def test_is_profitable_matches_jax():
         At = CsrMatrix(A.row_ptr, A.col_idx, A.values, A.shape)
         assert (tr.RoutedPlan.is_profitable(At)
                 == jr.RoutedPlan.is_profitable(A))
+
+
+# ---- K1 and K2 on the port's own paths take their row bodies ----
+#
+# On the card K1's and K2's wrappers launch their row body only where
+# every vector operand (K1's x, idx and out; K2's gidx, gvals and out)
+# starts on the body's vector (16 bytes; 8 for 16-bit values and int16
+# indices: `_kernels.row_vectors`), else their counted scalar body.  Each
+# path below records every operand its K1 and K2 calls get (here the
+# plain versions run them), and must give only aligned ones.
+
+@functools.lru_cache(maxsize=None)
+def _web20k():
+    from sblas_tpu_torch.io.generate import webbase_like as twebbase_like
+    return twebbase_like(n=20000, avg_deg=4.0)
+
+
+@pytest.fixture
+def kernel_bases(monkeypatch):
+    """(kernel, operand, byte offset mod 16, on the row body's vector) of
+    every K1 and K2 call the test makes, through every module that calls
+    them."""
+    from sblas_tpu_torch.experiments import stage_fuse_probe as sfp
+    seen = []
+    k1, k2 = troute.lane_shuffle, tr.slab_gather
+
+    def record(kernel, **operands):
+        seen.extend((kernel, name, t.data_ptr() % 16,
+                     _kernels.row_vectors((t.data_ptr(), t.element_size())))
+                    for name, t in operands.items())
+
+    def lane_shuffle(x2d, idx):
+        out = k1(x2d, idx)
+        record("K1", x2d=x2d, idx=idx, out=out)
+        return out
+
+    def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None):
+        out = k2(gslab, x_slabs, gidx, gvals, out_dtype)
+        record("K2", gidx=gidx, gvals=gvals, out=out)   # x: by element
+        return out
+
+    for mod in (troute, sfp):
+        monkeypatch.setattr(mod, "lane_shuffle", lane_shuffle)
+    for mod in (tr, sfp):
+        monkeypatch.setattr(mod, "slab_gather", slab_gather)
+    return seen
+
+
+def _paths_run(path):
+    """Run one of the port's paths through K1 and K2 on the CPU."""
+    from sblas_tpu_torch.experiments.stage_fuse_probe import (
+        pass1_tiles_stock, spmv_routed_fused1)
+    from sblas_tpu_torch.ops import make_plan, spmv
+    from sblas_tpu_torch.parallel import Mesh, partition_xfoot
+    from sblas_tpu_torch.parallel.modes import row_block
+    from sblas_tpu_torch.parallel.xfoot import (xfoot_extract,
+                                                xfoot_worst_local)
+    A = _web20k()
+    dtype = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
+        path, torch.float32)
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.standard_normal(A.shape[1])).to(dtype)
+    y = torch.from_numpy(rng.standard_normal(A.shape[0])).to(dtype)
+    if path == "xfoot4":
+        local, (tg, srs, prs, sks) = xfoot_worst_local(A, 4)
+        plan = tr.RoutedPlan.from_csr(local, dtype=dtype, min_gtiles=tg,
+                                      min_srows=srs, min_prows=prs,
+                                      min_sranks=sks, device="cpu")
+        xl = x[1: 1 + local.shape[1]]      # a view one element in
+        tr.spmv_routed(plan, xl, 3.0, 4.0, y[: local.shape[0]])
+        for rank in range(4):
+            sh = partition_xfoot(A, 4, dtype=dtype, kind="coo",
+                                 extract="route", device="cpu", rank=rank)
+            mesh = Mesh(None, rank, 4, torch.device("cpu"))
+            xfoot_extract(sh, sh.local(rank),
+                          row_block(x, mesh, sh.r_x * 4))
+        return
+    plan = make_plan(A, dtype=dtype, force="routed", device="cpu")
+    if path == "bf16_transport":
+        plan = plan.with_transport("bf16")
+    if path == "stage_fuse":
+        spmv_routed_fused1(plan, x, 3.0, 4.0, y)
+        pass1_tiles_stock(plan, x)
+        return
+    spmv(plan, x, 3.0, 4.0, y)
+
+
+@pytest.mark.parametrize("path", ["f32", "f64", "bf16", "bf16_transport",
+                                  "xfoot4", "stage_fuse"])
+def test_port_paths_give_k1_k2_row_aligned_bases(kernel_bases, path):
+    _paths_run(path)
+    kernels = {k for k, *_ in kernel_bases}
+    assert kernels == {"K1", "K2"}
+    off = [rec for rec in kernel_bases if not rec[3]]
+    assert not off, f"operands off the row bodies' vectors: {off[:5]}"
+
+
+@pytest.mark.parametrize("variant", sorted(k1k2_variants.VARIANTS))
+def test_k1k2_variant_patches_match_the_sources(variant):
+    """Every copy the K1/K2 variants tool builds is made from the current
+    sources: each of its patches matches exactly once and changes the
+    text (the tool's base copies, `k1` and `k2`, are the sources)."""
+    kernel, name, patches = k1k2_variants.VARIANTS[variant]
+    with open(os.path.join(_kernels.CSRC_DIR, name)) as fh:
+        src = fh.read()
+    copy = k1k2_variants.patched_sources()[variant]
+    assert (copy == src) == (not patches)
+    assert f"sblas_{kernel}_f32" in copy
