@@ -6,7 +6,8 @@ Builds the hand-written CUDA kernels from `sblas_tpu_torch/csrc/`, holds
 each against its plain PyTorch version at the shapes its main path gives
 it (K1/K2/K2'/P1/P2 bitwise, K3/K4 within a stated tolerance, each
 deterministic; K4's bound is that of f32-accurate 3xTF32 work on the
-tensor cores, with the f32 CUDA-core bound printed beside it),
+tensor cores, with the f32 CUDA-core bound printed beside it; every
+`kernels` entry carries its share of bound),
 then runs every main path at full size, counting kernel launches on each:
 
     webbase_like() (1M rows, f32) -> make_plan(op="spmv") -> RoutedPlan
@@ -134,6 +135,24 @@ and the distribution layer in a world-1 NCCL group:
         streamed and tuned, bytes streamed beside f32's; the world-1 UM
         modes over bf16 shards; spmm_um_hostdense on the shell in bf16
 
+    the f64 values, each f64 variant held against its plain version at
+    its f32 row's shapes (K1, K2, K2', P1, P2 bitwise; K3, K4 within
+    1e-12 normwise, deterministic), launched and counted by variant on a
+    path, with its bound (bytes; K4: the f64 tensor cores' FLOPs, the
+    CUDA cores' beside it), share and library time, one `[f64]` line
+    each (the f32 plans' tables cast to f64, `cast_plan`):
+    [f64] webbase-1M routed at f64: spmv (K1, K2 f64; their rows are
+        `[K1/K2 variants]`' f64 readings), spmv_routed with `pregather`
+        (K2' f64) and spmv_routed_fused1 (P1 f64); webbase x K=64 at
+        f64: K3 in both forms beside f64 `torch.addmm`, then spmm (K3
+        f64); P2 f64 on the [p2] windows beside f64 `index_select`; K4
+        f64 (mma.sync f64 on the tensor cores; its DMMA kernels' registers
+        and spills from the build's `-Xptxas -v` report, none may spill)
+        at the full band-73 plan x K=256 beside f64 `torch.addmm`, then
+        fem_banded_like(n=80_000) at f64 -> make_plan(op="spmm")
+        unforced -> BsrPlan -> spmm at K=256 (one K4 f64 launch; the
+        oracle on every third column); the seconds the section adds
+
 each checked against the numpy oracle, and the SpMV and SpMM CLIs on a
 200k-row `.mtx` (single mode, method 1, --mode distp, method 2p, --mode
 xfoot, and --mode xfoot --plan-cache saving then loading; `[cli bf16]`:
@@ -179,6 +198,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+# the same data sheet's f64 rates: the CUDA cores and the f64 tensor
+# cores (DMMA, reached through mma.sync f64)
+FP64_FLOPS = 33.5e12
+FP64_TC_FLOPS = 67e12
 BF16 = torch.bfloat16
 # the bf16 route transport's documented bar (the JAX CLI's and bench's),
 # and the JAX package's bound for bf16-valued plans (rtol = atol = 0.15,
@@ -188,6 +211,9 @@ BF16_PLAN_TOL = 0.15
 # K3/K4 sum in another order than their plain versions (index_add_,
 # einsum): max |kernel - plain| / max(1, max |plain|) must stay below this
 F32_REL_TOL = 1e-5
+# the same bar for the f64 kernels (K3[f64], K4[f64]): f64 products and
+# sums in another order than their plain versions
+F64_REL_TOL = 1e-12
 ORACLE_COLS = 64   # spmm_cpu column chunk: bounds its (nnz, cols) transient
 # device ms (and streamed bytes) of f32 paths, by path, printed beside
 # their bf16 counterparts in [bf16-dist] and [um bf16]
@@ -457,11 +483,40 @@ def k3_forms(title, args, C, A_csr, nnz, rate, rel_tol=0.0, ulps=None):
 
 def sparse_csr(A, dev, dtype=torch.float32):
     """A as a torch sparse CSR tensor on `dev` (f32 unless named), for the
-    library yardstick calls only."""
+    library yardstick calls only; A's values are cast once, to `dtype`
+    (an f64 yardstick multiplies A's own values)."""
     return torch.sparse_csr_tensor(
         torch.from_numpy(A.row_ptr), torch.from_numpy(A.col_idx),
-        torch.from_numpy(A.values.astype(np.float32)).to(dtype),
+        torch.from_numpy(A.values).to(dtype),
         size=A.shape, device=dev, check_invariants=False)
+
+
+def cast_plan(plan, dtype):
+    """`plan` with its floating tensors cast to `dtype`.  For a matrix
+    with f32 values this is the plan `make_plan(A, dtype)` builds: a
+    layout depends on the sparsity alone (tests/test_torch_f64.py holds
+    the routed, WCOO and BELL plans to it field by field), so the [f64]
+    phases reuse the f32 phases' tables instead of building them again."""
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).to(dtype)
+        for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), torch.Tensor)
+        and getattr(plan, f.name).is_floating_point()})
+
+
+# seconds the [f64] phases add, by phase
+F64_SECONDS: dict = {}
+
+
+def f64_line(name, rec, **fields) -> None:
+    """One [f64] line for kernel `name`'s f64 variant (its `kernels`
+    record `rec`): time, bound, share, plain and library times."""
+    phase("f64", kernel=f"{name}[f64]", launches=rec.get("launches"),
+          max_abs_err=f"{rec['max_abs_err']:.3e}", ms=f"{rec['ms']:.5f}",
+          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+          share_of_bound=f"{rec['bound_ms'] / rec['ms']:.3f}",
+          plain_ms=f"{rec['plain_ms']:.5f}",
+          library_ms=_fmt_ms(rec["library_ms"]), **fields)
 
 
 T_START = time.perf_counter()
@@ -604,7 +659,8 @@ def main() -> int:
     phase("main path", plan="RoutedPlan", launches=counts,
           check=checked("routed SpMV", out, want),
           **call_times(lambda: spmv(plan, xd, ALPHA, BETA, yd), A.nnz))
-    k1_k2_at("K1/K2 variants", "webbase-1M plan", plan, ran)
+    k1k2 = k1_k2_at("K1/K2 variants", "webbase-1M plan", plan, ran)
+    f64_routed(A, plan, xd, yd, want, k1k2, counters, none, kernels)
 
     # ---- tier 0: COO SpMV on the same matrix ----
     coo = make_plan(A, dtype=torch.float32, force="coo", device=dev)
@@ -652,6 +708,7 @@ def main() -> int:
     phase("wcoo spmm", plan="WcooPlan", K=K, fill=f"{wplan.fill_ratio:.3f}",
           launches=counts, check=checked("WCOO SpMM", out, want),
           **call_times(lambda: spmm(wplan, Bd, ALPHA, BETA, Cd), A.nnz, K))
+    f64_wcoo(A, wplan, Bd, Cd, want, counters, none, kernels)
     wp16 = bf16_wcoo_phases(A, Bd, Cd, want, counters, none, kernels)
     spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none)
     um_webbase_phases(A, Bd, Cd, want, mesh, counters, none, kernels)
@@ -741,6 +798,9 @@ def main() -> int:
     phase("bell spmm", plan="BsrPlan", K=K4, launches=counts,
           check=checked("BELL SpMM K=256", out, want),
           **call_times(lambda: spmm(bplan, Bd, ALPHA, BETA, Cd), F.nnz, K4))
+    f64_bell(F, bplan, Bd, Cd, n_blocks, counters, none, kernels)
+    phase("f64", section_seconds=f"{sum(F64_SECONDS.values()):.1f}",
+          **{f"{k}_s": f"{v:.1f}" for k, v in F64_SECONDS.items()})
     bp16 = bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels)
     bf16_bell_mode1(F, bplan, bp16, Bd, Cd, want, counters, none)
     del bp16
@@ -842,7 +902,8 @@ def main() -> int:
     phase("total", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+            "library_ms")
     # K3's launches in [um]'s streamed SpMM; K3's grid form beside its
     # fused one
     extra = ("um_launches", "grid_ms", "grid_bound_ms", "sparse_mm_ms",
@@ -850,8 +911,12 @@ def main() -> int:
              "shard16_n_gtiles", "shard16_ms", "shard16_plain_ms",
              "shard16_bound_ms", "shard16_max_abs_err",
              # the body K1 and K2 ran on their main path
-             "body")
+             "body",
+             # K4[f64]'s bound on the f64 CUDA cores beside its
+             # tensor-core one
+             "cuda_core_bound_ms")
     for rec in kernels.values():
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         missing = [k for k in keys if k not in rec]
         if missing or rec["launches"] < 1:
             raise AssertionError(f"kernel {rec['name']}: missing {missing} "
@@ -864,6 +929,230 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def f64_routed(A, plan, xd, yd, want, k1k2, counters, none,
+               kernels) -> None:
+    """[f64] on the webbase-1M routed plan at f64 values (the f32 plan's
+    tables, `cast_plan`; `choose_kind` must pick routed at f64): K2' and
+    P1 against their plain versions at the plan's tiles; the routed SpMV
+    (K1 and K2 f64, counted by variant and body), the same through K2'
+    (`pregather`, the distributed shard's branch) and through P1
+    (`spmv_routed_fused1`), each against the oracle.  K1's and K2's f64
+    rows are `[K1/K2 variants]`' readings (`k1k2`) at the same plan."""
+    from sblas_tpu_torch.experiments.stage_fuse_probe import (
+        spmv_routed_fused1)
+    from sblas_tpu_torch.ops import choose_kind, spmv
+    from sblas_tpu_torch.ops.rspmv import (SLAB, spmv_routed, tile_gather,
+                                           tile_gather_plain)
+    t0 = time.perf_counter()
+    dev, f64 = xd.device, torch.float64
+    if choose_kind(A, f64, op="spmv") != "routed":
+        raise AssertionError("webbase-1M at f64: make_plan(op='spmv') "
+                             "does not choose routed")
+    p64 = cast_plan(plan, f64)
+    x64, y64 = xd.double(), yd.double()
+    n_k1 = p64.n_route_gathers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 64)
+    x_slabs = torch.rand((-(-A.shape[1] // SLAB), 128, 128), generator=gen,
+                         device=dev, dtype=f64)
+    x_tiles = torch.index_select(x_slabs, 0, p64.gslab)
+    targs = (x_tiles, p64.gidx, p64.gvals)
+    err, _, ms, plain_ms = compare(
+        "tile_gather[f64]", lambda: tile_gather(*targs),
+        lambda: tile_gather_plain(*targs), tile_gather)
+    kernels["tile_gather[f64]"] = kernel_rec(
+        "tile_gather", "f64", "rspmv_kernels.cu",
+        "sblas_tpu/ops/rspmv.py:592", err, ms, plain_ms, None,
+        bound(nbytes(*targs, p64.gvals), 0))
+    del x_tiles, targs
+    kernels["stage_fuse_gather[f64]"] = dict(
+        name="stage_fuse_gather[f64]", route="cuda",
+        source="sblas_tpu_torch/csrc/probe_kernels.cu",
+        replaces="experiments/stage_fuse_probe.py:41", library_ms=None,
+        **p1_compare(p64, x_slabs, "full webbase-1M plan, f64"))
+    del x_slabs
+    for name, src, at in (("lane_shuffle", "route_kernels.cu",
+                           "sblas_tpu/ops/route.py:388"),
+                          ("slab_gather", "rspmv_kernels.cu",
+                           "sblas_tpu/ops/rspmv.py:582")):
+        r = k1k2[name, "f64"]
+        kernels[f"{name}[f64]"] = kernel_rec(
+            name, "f64", src, at, r["max_abs_err"], r["ms"], r["plain_ms"],
+            r["library_ms"], {k: r[k] for k in ("bound_ms", "bound_by")})
+
+    out, counts = launches_of(counters,
+                              lambda: spmv(p64, x64, ALPHA, BETA, y64))
+    expect_launches("routed SpMV f64", counts,
+                    dict(none, lane_shuffle=n_k1, slab_gather=1))
+    by_variant = variant_launches("routed SpMV f64", {
+        "lane_shuffle_f64": n_k1, "slab_gather_f64": 1})
+    row_bodies("routed SpMV f64", dict(lane_shuffle=n_k1, slab_gather=1))
+    kernels["lane_shuffle[f64]"].update(launches=n_k1, body="vector")
+    kernels["slab_gather[f64]"].update(launches=1, body="vector")
+    phase("f64", path="spmv RoutedPlan webbase-1M f64", launches=counts,
+          by_variant=by_variant, check=checked("routed SpMV f64", out, want),
+          **call_times(lambda: spmv(p64, x64, ALPHA, BETA, y64), A.nnz))
+    for title, run, kname in (
+            ("spmv_routed f64 pregather (K2prime)",
+             lambda: spmv_routed(p64, x64, ALPHA, BETA, y64, pregather=True),
+             "tile_gather"),
+            ("spmv_routed_fused1 f64 (P1)",
+             lambda: spmv_routed_fused1(p64, x64, ALPHA, BETA, y64),
+             "stage_fuse_gather")):
+        out, counts = launches_of(counters, run)
+        if (counts[kname] != 1 or counts["slab_gather"]
+                or counts["lane_shuffle"] < 1):
+            raise AssertionError(f"{title}: kernel launches {counts}")
+        variant_launches(title, {f"{kname}_f64": 1,
+                                 "lane_shuffle_f64": counts["lane_shuffle"]})
+        kernels[f"{kname}[f64]"]["launches"] = 1
+        phase("f64", path=f"{title} webbase-1M", launches=counts,
+              check=checked(title, out, want), **call_times(run, A.nnz))
+    del out
+    for name in ("lane_shuffle", "slab_gather", "tile_gather",
+                 "stage_fuse_gather"):
+        f64_line(name, kernels[f"{name}[f64]"], card=card_line())
+    F64_SECONDS["routed"] = time.perf_counter() - t0
+
+
+def f64_wcoo(A, wplan, Bd, Cd, want, counters, none, kernels) -> None:
+    """[f64] on webbase x K at f64 values (the f32 WcooPlan's tables,
+    `cast_plan`; `choose_kind` must pick wcoo at f64): K3[f64] in both
+    store forms against its plain version (1e-12 normwise,
+    deterministic), beside `torch.addmm` on A as an f64 CSR tensor; then
+    the WCOO SpMM through K3[f64], counted, against the oracle."""
+    from sblas_tpu_torch.ops import choose_kind, spmm
+    from sblas_tpu_torch.ops.wcoo import k_chunk_width
+    t0 = time.perf_counter()
+    dev, f64, K = Bd.device, torch.float64, Bd.shape[1]
+    if choose_kind(A, f64, op="spmm") != "wcoo":
+        raise AssertionError("webbase-1M at f64: make_plan(op='spmm') "
+                             "does not choose wcoo")
+    wp64 = cast_plan(wplan, f64)
+    B64, C64 = Bd.double(), Cd.double()
+    kc = k_chunk_width(wp64.n_tiles, K)
+    args = (wp64.k3, wp64.wb, wp64.relrow, wp64.vals, wp64.xblk, wp64.lane,
+            B64, 0, kc)
+    A_csr = sparse_csr(A, dev, f64)
+    kernels["window_reduce[f64]"] = dict(
+        name="window_reduce[f64]", route="cuda",
+        source="sblas_tpu_torch/csrc/wcoo_kernels.cu",
+        replaces="sblas_tpu/ops/wcoo.py:291",
+        **k3_forms("K3 window_reduce[f64]", args, C64, A_csr, A.nnz,
+                   FP64_FLOPS, rel_tol=F64_REL_TOL))
+    del A_csr
+    run = lambda: spmm(wp64, B64, ALPHA, BETA, C64)  # noqa: E731
+    out, counts = launches_of(counters, run)
+    expect_launches("WCOO SpMM f64", counts,
+                    dict(none, window_reduce=-(-K // kc)))
+    by_variant = variant_launches("WCOO SpMM f64",
+                                  {"window_reduce_f64": -(-K // kc)})
+    kernels["window_reduce[f64]"]["launches"] = counts["window_reduce"]
+    phase("f64", path=f"spmm WcooPlan webbase-1M x K={K} f64",
+          launches=counts, by_variant=by_variant,
+          check=checked("WCOO SpMM f64", out, want),
+          **call_times(run, A.nnz, K))
+    del out
+    f64_line("window_reduce", kernels["window_reduce[f64]"],
+             tol=F64_REL_TOL, deterministic=True, card=card_line())
+    F64_SECONDS["wcoo"] = time.perf_counter() - t0
+
+
+def f64_bell(F, bplan, Bd, Cd, n_blocks, counters, none, kernels) -> None:
+    """[f64] BELL: K4[f64] (mma.sync f64 on the tensor cores) against its
+    plain version at the full band-73 plan at f64 values (the f32
+    BsrPlan's tables, `cast_plan`: `make_plan(F, f64, force="bsr")`'s
+    plan; unforced, the full band-73 takes DIA at f64, its 8-byte BELL
+    bytes past `_BSR_DIA_SPMM_BYTES`) at K=256, 1e-12 normwise, two
+    launches bitwise, beside `torch.addmm` on an f64 CSR; bound by the
+    f64 tensor cores' rate, the CUDA cores' beside it; the DMMA kernels'
+    registers and spills from the build's `-Xptxas -v` report (none may
+    spill).  Then the path: `fem_banded_like(n=80_000)` at f64 through
+    `make_plan(op="spmm")` unforced (a BsrPlan) and `spmm` at K=256, one
+    K4[f64] launch, against the oracle on every third column."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.containers import DenseMatrix
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.ops import BsrPlan, choose_kind, make_plan, spmm
+    from sblas_tpu_torch.ops.bsr_pallas import (bell_spmm, bell_spmm_plain,
+                                                f64_mma_shape)
+    t0 = time.perf_counter()
+    dev, f64, K = Bd.device, torch.float64, Bd.shape[1]
+    report = _kernels.ptxas_report()
+    if report is None:
+        raise AssertionError("the kernel library has no -Xptxas -v report")
+    dmma = _kernels.kernel_resources(report, "bell_spmm_dmma_kernel")
+    if len(dmma) != 2 or any(r["spill_stores"] or r["spill_loads"]
+                             for r in dmma):
+        raise AssertionError(f"K4[f64]'s DMMA kernels: {dmma}")
+    bp64 = cast_plan(bplan, f64)
+    B64, C64 = Bd.double(), Cd.double()
+    args = (bp64.vals, bp64.bcol, B64, C64, ALPHA, BETA)
+    err, rel, ms, plain_ms = compare(
+        "bell_spmm[f64]", lambda: bell_spmm(*args),
+        lambda: bell_spmm_plain(*args), bell_spmm, F64_REL_TOL)
+    F_csr = sparse_csr(F, dev, f64)
+    lib_ms = _device_ms(lambda: torch.addmm(C64, F_csr, B64, beta=BETA,
+                                            alpha=ALPHA))
+    del F_csr
+    k4_bytes = nbytes(bp64.vals, bp64.bcol, B64, C64, C64)
+    k4_flops = 2 * n_blocks * 128 * 128 * K
+    bnd = bound(k4_bytes, k4_flops, rate=FP64_TC_FLOPS)
+    core = bound(k4_bytes, k4_flops, rate=FP64_FLOPS)["bound_ms"]
+    kernels["bell_spmm[f64]"] = dict(
+        kernel_rec("bell_spmm", "f64", "bsr_kernels.cu",
+                   "sblas_tpu/ops/bsr_pallas.py:37", err, ms, plain_ms,
+                   lib_ms, bnd), cuda_core_bound_ms=core)
+    del bp64, args, B64, C64
+
+    G = fem_banded_like(n=80_000, dtype=np.float64)
+    t1 = time.perf_counter()
+    gplan = make_plan(G, dtype=f64, op="spmm", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    if not isinstance(gplan, BsrPlan):
+        raise AssertionError(f"fem_banded_like(n=80_000) f64 SpMM plan "
+                             f"{type(gplan).__name__}, expected BsrPlan")
+    Bg = DenseMatrix.random(G.width, K, dtype=np.float64).values
+    Cg = DenseMatrix.constant(G.height, K, 1.0, dtype=np.float64).values
+    Bgd, Cgd = torch.from_numpy(Bg).to(dev), torch.from_numpy(Cg).to(dev)
+    run = lambda: spmm(gplan, Bgd, ALPHA, BETA, Cgd)  # noqa: E731
+    out, counts = launches_of(counters, run)
+    expect_launches("BELL SpMM f64 K=256", counts, dict(none, bell_spmm=1))
+    by_variant = variant_launches("BELL SpMM f64 K=256",
+                                  {"bell_spmm_f64": 1})
+    bodies = dict(_kernels.BODIES)
+    if bodies != {"bell_spmm_f64.dmma": 1}:
+        raise AssertionError(f"BELL SpMM f64 K=256: bodies {bodies}")
+    kernels["bell_spmm[f64]"]["launches"] = 1
+    # the oracle on every third column (spmm_cpu takes 28 s for all 256
+    # on the card's host): every column tile, both columns of each
+    # accumulator pair, every row
+    cols = np.arange(0, K, 3)
+    t1 = time.perf_counter()
+    want = oracle_spmm(G, np.ascontiguousarray(Bg[:, cols]),
+                       np.ascontiguousarray(Cg[:, cols]))
+    oracle_s = time.perf_counter() - t1
+    phase("f64", path=f"spmm BsrPlan fem_banded_like(n=80_000) x K={K} "
+          f"f64 (unforced; the full band-73 at f64 chooses "
+          f"{choose_kind(F, f64, op='spmm')})",
+          build_s=f"{build_s:.2f}", oracle_s=f"{oracle_s:.2f}",
+          n_brows=gplan.vals.shape[0], slots=gplan.slots, launches=counts,
+          by_variant=by_variant, bodies=bodies, oracle_columns=len(cols),
+          check=checked("BELL SpMM f64 K=256",
+                        out[:, torch.from_numpy(cols).to(dev)], want),
+          **call_times(run, G.nnz, K))
+    del out, want, gplan, Bgd, Cgd
+    f64_line("bell_spmm", kernels["bell_spmm[f64]"], plan="band-73 forced",
+             n_brows=bplan.vals.shape[0], slots=bplan.slots,
+             n_blocks=n_blocks, K=K, mma=f64_mma_shape(),
+             dmma_kernels=[(r["registers"], r["spill_stores"],
+                            r["spill_loads"]) for r in dmma],
+             rel_err=f"{rel:.3e}", tol=F64_REL_TOL, deterministic=True,
+             cuda_core_bound_ms=f"{core:.5f}", card=card_line())
+    F64_SECONDS["bell"] = time.perf_counter() - t0
 
 
 def nccl_world1(dev):
@@ -1788,14 +2077,15 @@ def p1_compare(plan, x_slabs, title) -> dict:
     return rec
 
 
-def k1_k2_at(title, where, plan, ran) -> None:
+def k1_k2_at(title, where, plan, ran) -> dict:
     """K1 on `plan`'s first main-route layer viewed as (route_n / 128, 128)
     and K2 on its tiles, every variant of each against its plain version
     (bitwise) on random values, beside `torch.gather` for K1; bound by
     bytes.  One `title` line a kernel and variant; `ran` is the path's
     launches by variant (`row_bodies`): a variant the path ran gets its
     launches and its body there (the row body, checked), the others
-    null."""
+    null.  Returns each reading as a `kernels` record's numbers, by
+    (kernel, variant)."""
     from sblas_tpu_torch.ops.route import (LANE_SHUFFLE_VARIANTS, LANES,
                                            lane_shuffle, lane_shuffle_plain)
     from sblas_tpu_torch.ops.rspmv import (SLAB, SLAB_GATHER_VARIANTS,
@@ -1824,11 +2114,15 @@ def k1_k2_at(title, where, plan, ran) -> None:
                      lambda args=args: slab_gather(*args),
                      lambda args=args: slab_gather_plain(*args),
                      (*args[:4], out), None))
+    recs = {}
     for kernel, variant, counter, run, plain, moved, lib in runs:
         err, _, ms, plain_ms = compare(f"{kernel}[{variant}] {where}", run,
                                        plain, counter)
         bnd = bound(nbytes(*moved), 0)
         lib_ms = _device_ms(lib) if lib is not None else None
+        recs[counter.__name__, variant] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            **bnd)
         launches = ran.get(f"{counter.__name__}_{variant}")
         phase(title, where=where, kernel=f"{kernel}[{variant}]",
               shape=tuple(moved[2].shape), launches=launches,
@@ -1838,6 +2132,7 @@ def k1_k2_at(title, where, plan, ran) -> None:
                           if lib_ms is not None else None),
               bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
               share=f"{bnd['bound_ms'] / ms:.3f}", card=card)
+    return recs
 
 
 def shard_k1_k2(plan, n, ran) -> None:
@@ -2054,7 +2349,9 @@ def p2_phase(A, Bd, counters, none, kernels) -> None:
     """[p2]: kernel P2, the B-row window gather, on webbase x K against
     its plain version, every gathered row against B, and its yardsticks:
     the flat `index_select` of the same rows in f32 and bf16, and the
-    64-wide row permutation the unfused form would need as a bridge."""
+    64-wide row permutation the unfused form would need as a bridge.
+    Then [f64]: P2[f64] on the same windows of B at f64, the same
+    checks, beside the f64 `index_select`."""
     import torch.nn.functional as F
 
     from sblas_tpu_torch.experiments.wcoo_gather_probe import (
@@ -2102,6 +2399,34 @@ def p2_phase(A, Bd, counters, none, kernels) -> None:
         replaces="experiments/wcoo_gather_probe.py:112",
         launches=counts["window_lane_gather"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, **rec)
+
+    t0 = time.perf_counter()
+    args = (B.double(), *args[1:])
+    del B
+    err, _, ms, plain_ms = compare(
+        "window_lane_gather[f64]", lambda: window_lane_gather(*args),
+        lambda: window_lane_gather_plain(*args), window_lane_gather)
+    out, counts = launches_of(counters, lambda: window_lane_gather(*args))
+    expect_launches("window gather f64", counts,
+                    dict(none, window_lane_gather=1))
+    variant_launches("window gather f64", {"window_lane_gather_f64": 1})
+    picked = out.transpose(1, 2).reshape(T * 128, K)
+    if not torch.equal(picked[torch.from_numpy(slot).to(dev)],
+                       torch.index_select(args[0], 0, cols_d)):
+        raise AssertionError("P2[f64]: a gathered row differs from B's")
+    del out, picked
+    lib_ms = _device_ms(lambda: torch.index_select(args[0], 0, cols_d))
+    kernels["window_lane_gather[f64]"] = dict(
+        kernel_rec("window_lane_gather", "f64", "probe_kernels.cu",
+                   "experiments/wcoo_gather_probe.py:112", err, ms,
+                   plain_ms, lib_ms,
+                   bound(T * K * 128 * 8 + nbytes(*args[1:])
+                         + n_win * 128 * K * 8, 0)),
+        launches=counts["window_lane_gather"])
+    f64_line("window_lane_gather", kernels["window_lane_gather[f64]"],
+             K=K, tiles=T, rows_checked=len(cols), bitwise_equal=True,
+             card=card_line())
+    F64_SECONDS["p2"] = time.perf_counter() - t0
 
 
 def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:

@@ -73,6 +73,11 @@ QUERIES = {
     # the body `sblas_window_reduce_bf16_ragged` runs (an index into
     # `ops.wcoo.RAGGED_BODIES`): B, C, out, ldb, k0, ldo
     "sblas_window_reduce_bf16_ragged_body": [_p] * 3 + [_i64] * 3,
+    # the body `sblas_bell_spmm_f64` runs (an index into
+    # `ops.bsr_pallas.F64_BODIES`): B, C, out, k
+    "sblas_bell_spmm_f64_body": [_p] * 3 + [_i64],
+    # the depth of K4[f64]'s mma.sync shape (`ops.bsr_pallas.f64_mma_shape`)
+    "sblas_bell_spmm_f64_mma": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -82,7 +87,8 @@ _lib: Optional[ctypes.CDLL] = None
 LAUNCHED: Counter = Counter()
 # launches by kernel body, for a kernel with several bodies
 # (`window_reduce_bf16_ragged.masked` / `.ring`, `lane_shuffle.vector` /
-# `.scalar`, `slab_gather.vector` / `.scalar`)
+# `.scalar`, `slab_gather.vector` / `.scalar`, `bell_spmm_f64.dmma` /
+# `.dmma_unpaired`)
 BODIES: Counter = Counter()
 
 
@@ -107,7 +113,9 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels unless a library for these sources exists: one
-    `nvcc -c` per source, run in parallel, then one link."""
+    `nvcc -c` per source, run in parallel, then one link.  Each compile's
+    `-Xptxas -v` report (registers, spills) is kept beside the library
+    (`ptxas_report`)."""
     so = library_path()
     if os.path.exists(so):
         return so
@@ -115,14 +123,17 @@ def build() -> str:
     nvcc = _nvcc()
     tmp = f"{so}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{name}.o" for name in SOURCES]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name),
-                 "-o", obj] for name, obj in zip(SOURCES, objs)]
+    compiles = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 os.path.join(CSRC_DIR, name), "-o", obj]
+                for name, obj in zip(SOURCES, objs)]
     try:
         # every compile runs to its end before any result is looked at
         with ThreadPoolExecutor(len(compiles)) as pool:
             done = list(pool.map(_run, compiles))
         for cmd, proc in zip(compiles, done):
             _check(cmd, proc)
+        with open(so + ".ptxas", "w") as fh:
+            fh.write("".join(proc.stderr for proc in done))
         link = [nvcc, "-shared", "-o", tmp, *objs]
         _check(link, _run(link))
         os.replace(tmp, so)   # atomic: a concurrent build never sees a partial .so
@@ -147,6 +158,40 @@ def build_copy(stem: str, src: str) -> tuple:
     proc = _run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC_DIR,
                  "-shared", cu, "-o", so])
     return (so if proc.returncode == 0 else None), proc.stderr
+
+
+def ptxas_report() -> Optional[str]:
+    """The `-Xptxas -v` report of the library `build` made for the current
+    sources, or None where it was built without one."""
+    path = library_path() + ".ptxas"
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        return fh.read()
+
+
+def kernel_resources(report: str, fragment: str) -> list:
+    """Each kernel of a `-Xptxas -v` report whose (mangled) name holds
+    `fragment`: dicts of its name, registers a thread and spill bytes
+    (stores, loads), in the report's order."""
+    found, name = [], None
+    for line in report.splitlines():
+        text = line.strip()
+        if text.startswith("ptxas info") and "Function properties for" in text:
+            name, spill = text.rsplit(" ", 1)[-1], (0, 0)
+        elif name and "spill stores" in text:
+            words = text.replace(",", "").split()
+            spill = (int(words[words.index("spill") - 2]),
+                     int(words[words.index("loads") - 3]))
+        elif name and text.startswith("ptxas info") and "Used" in text:
+            words = text.replace(",", "").split()
+            regs = int(words[words.index("registers") - 1])
+            if fragment in name:
+                found.append(dict(name=name, registers=regs,
+                                  spill_stores=spill[0],
+                                  spill_loads=spill[1]))
+            name = None
+    return found
 
 
 def _run(cmd) -> subprocess.CompletedProcess:

@@ -44,9 +44,23 @@
 // is not overlapped within a block.  wgmma, with operands from shared
 // memory, would lift the first two.
 //
-// f64: the shared-memory tiled GEMM in true f64 FMAs on the CUDA cores
-// (value block and B tile staged in contraction chunks of 16, an 8 x 4
-// register tile per thread).
+// f64: mma.sync f64 on the f64 tensor cores (DMMA; wgmma has no f64),
+// products and sums in f64, within 1e-12 of the plain version.  What
+// bounds it on the H100: at the band-73 plan with K = 256 the work is
+// 17.8 GFLOP, 0.265 ms at the f64 tensor cores' 67 TFLOP/s (0.531 at the
+// CUDA cores' 33.5), just above the bytes (833.7 MB, 0.249 ms at 3.35
+// TB/s, 44 % of them C and out).  The design (its section below):
+// persistent blocks, two an SM, each 4 warps on 128 x 64 tiles issuing
+// m16n8k4, fed by a two-stage cp.async ring of 32-deep chunks that runs
+// across the block's tiles.  It reaches about 53 % of its bound (0.498
+// to 0.501 ms; the CUDA-core GEMM it replaced took 1.24 to 1.25;
+// PERF.md).  What holds it back: the feed and the products each
+// take about 0.40 ms alone (`tools/k4_f64.py`'s ablations) and overlap
+// only in part.  Only two blocks' accumulators fit an SM's registers, so
+// while one waits on its epilogue's C or its next chunk only the other
+// keeps the tensor cores busy; and a tile 64 wide reads 0.19 bytes of L2
+// a product (one 8-warp block an SM on 128 x 128 tiles reads 0.125 but
+// has nothing to overlap its epilogue with: 0.53 ms).
 //
 // bf16: wgmma on the bf16 tensor cores, fed by TMA (variant `bf16`: K %
 // 8 == 0, operands 16-byte aligned).  bf16 x bf16 products are exact and
@@ -1061,99 +1075,277 @@ int launch_bf16_ragged(const __nv_bfloat16* vals, const int32_t* bcol,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- f64: shared-memory tiled GEMM on the CUDA cores ----
+// ---- f64: mma.sync f64 on the f64 tensor cores, fed by a cp.async ring ----
+//
+// Persistent blocks, two an SM, walk the output tiles t = blockIdx.x,
+// + gridDim.x, ... (tile t: block row t / n_ctiles, column tile
+// t % n_ctiles, 128 x kDTN; a block row's column tiles are neighbours,
+// so they meet its value blocks in L2).  A block's warps own 64 x 32
+// register tiles (64 f64 accumulators a thread, about 220 registers, so
+// two 128-thread blocks fill an SM's register file) and issue
+// mma.sync m16n8k4 f64.  A tile's L slots are walked in depth chunks of
+// kDTK: the value block's 128 x kDTK piece and B's kDTK x kDTN piece
+// come through a kDStages-deep cp.async ring whose step count runs
+// across the block's tiles, so the next chunk (the next tile's first one
+// too) is in flight while a chunk's products and a tile's epilogue run,
+// and the SM's other block runs its products while this one's epilogue
+// waits on C.  Shared rows are padded so each half-warp's 8-byte
+// fragment reads hit distinct banks.  `tools/k4_f64.py` builds and times
+// the other settings (shapes, depths, stages, one 8-warp block an SM,
+// 32 x 32 warp tiles).
 
-constexpr int kCols = 64;             // output columns per thread block
-constexpr int kThreads = 256;         // 16 x 16 threads
-constexpr int kRowsPerThread = kBlock / 16;   // 8
-constexpr int kColsPerThread = kCols / 16;    // 4
-constexpr int kDepth = 16;
+constexpr int kDTK = 32;                    // depth chunk: 32 of 128
+constexpr int kDStages = 2;                 // ring depth
+constexpr int kDMT = 4;                     // 16-row m-tiles a warp
+constexpr int kDWarpsM = kBlock / (16 * kDMT);   // warps along the rows
+constexpr int kDWarpsN = 2;                 // warps along a tile's columns
+constexpr int kDTN = 32 * kDWarpsN;         // a tile's columns
+constexpr int kDThreads = 32 * kDWarpsM * kDWarpsN;
+constexpr int kDBlocksPerSM = 2;
+// the f64 mma.sync shape: m16n8k<kDK> for kDK = 4, 8 or 16 (PTX ISA 7.8,
+// sm_90), or 0 for sm_80's m8n8k4, issued twice for a 16-row tile
+constexpr int kDK = 4;
+constexpr int kDKK = kDK == 0 ? 4 : kDK;    // depth of one product
+// row strides in doubles, 4 past a multiple of 16: the 8-byte fragment
+// reads of each half-warp hit 16 distinct bank pairs
+constexpr int kDAStride = kDTK + 4;
+constexpr int kDBStride = kDTN + 4;
+constexpr int kDAStage = kBlock * kDAStride;
+constexpr int kDBStage = kDTK * kDBStride;
+constexpr int kSmemD =
+    kDStages * (kDAStage + kDBStage) * static_cast<int>(sizeof(double));
+constexpr int kDChunks = kBlock / kDTK;     // depth chunks a slot
 
-// T is the storage type (f64 only), A = Acc<T> the one products and sums
-// are formed in (double)
-template <typename T, typename A = typename sblas::Acc<T>::type>
-__global__ void __launch_bounds__(kThreads)
-bell_spmm_cuda_core_kernel(const T* __restrict__ vals,
-                           const int32_t* __restrict__ bcol,
-                           const T* __restrict__ B, const T* __restrict__ Cin,
-                           T* __restrict__ out, int slots, int64_t m,
-                           int64_t n, int64_t k, A alpha, A beta) {
-  using sblas::narrow;
-  using sblas::widen;
-  __shared__ A As[kDepth][kBlock + 1];   // As[c][r] = block[r][c0 + c]
-  __shared__ A Bs[kDepth][kCols];        // Bs[c][j] = B[brow0+c0+c][n0+j]
+// 8 bytes global -> shared; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
 
-  const int64_t i = blockIdx.x;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * kCols;
-  const int tx = threadIdx.x % 16;       // columns tx + 16 j
-  const int ty = threadIdx.x / 16;       // rows ty + 16 r
-
-  A acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = A(0);
-
-  for (int s = 0; s < slots; ++s) {
-    const T* blk = vals + (i * slots + s) * kBlock * kBlock;
-    const int64_t brow0 = static_cast<int64_t>(bcol[i * slots + s]) * kBlock;
-    for (int c0 = 0; c0 < kBlock; c0 += kDepth) {
-      for (int e = threadIdx.x; e < kBlock * kDepth; e += kThreads) {
-        const int r = e / kDepth, c = e % kDepth;
-        As[c][r] = widen(blk[r * kBlock + c0 + c]);
-      }
-      for (int e = threadIdx.x; e < kDepth * kCols; e += kThreads) {
-        const int c = e / kCols, j = e % kCols;
-        const int64_t row = brow0 + c0 + c, col = n0 + j;
-        Bs[c][j] = (row < n && col < k) ? widen(B[row * k + col]) : A(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kDepth; ++c) {
-        A a[kRowsPerThread], b[kColsPerThread];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) a[r] = As[c][ty + 16 * r];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) b[j] = Bs[c][tx + 16 * j];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j)
-            acc[r][j] = fma(a[r], b[j], acc[r][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int64_t row = i * kBlock + ty + 16 * r;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int64_t col = n0 + tx + 16 * j;
-      if (col < k) {
-        const int64_t o = row * k + col;
-        out[o] = narrow<T>(beta * widen(Cin[o]) + alpha * acc[r][j]);
-      }
-    }
+// c += a @ b on one 16 x 8 tile: a holds kDKK / 2 values (a[i]: row
+// g + 8 (i % 2), k t + 4 (i / 2)), b kDKK / 4 (b[i]: k t + 4 i, column
+// g), c rows g (c[0], c[1]) and g + 8 (c[2], c[3]), columns 2t and
+// 2t + 1, for lane 4g + t (the layouts PTX gives these shapes)
+template <int KD>
+__device__ __forceinline__ void dmma(double (&c)[4], const double* a,
+                                     const double* b) {
+  if constexpr (KD == 0) {
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+        : "+d"(c[0]), "+d"(c[1])
+        : "d"(a[0]), "d"(b[0]));
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+        : "+d"(c[2]), "+d"(c[3])
+        : "d"(a[1]), "d"(b[0]));
+  } else if constexpr (KD == 4) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  } else if constexpr (KD == 8) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+          "d"(b[1]));
+  } else {
+    static_assert(KD == 16, "f64 mma.sync depth: 0 (m8n8k4), 4, 8 or 16");
+    asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
+          "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
+          "d"(b[2]), "d"(b[3]));
   }
 }
 
-template <typename T>
-int launch_cuda_core(const T* vals, const int32_t* bcol, const T* B,
-                     const T* C, T* out, int64_t n_brows, int64_t slots,
-                     int64_t m, int64_t n, int64_t k, double alpha,
-                     double beta, void* stream) {
-  using A = typename sblas::Acc<T>::type;
-  if (n_brows > 0 && k > 0) {
-    dim3 grid(static_cast<unsigned int>(n_brows),
-              static_cast<unsigned int>((k + kCols - 1) / kCols));
-    bell_spmm_cuda_core_kernel<T><<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        vals, bcol, B, C, out, static_cast<int>(slots), m, n, k,
-        static_cast<A>(alpha), static_cast<A>(beta));
+// the body a launch runs: kVec (body 0, `dmma`) where K is even and B, C
+// and out start on 16 bytes, so B's rows go by 16-byte copies and C, out
+// by pairs; else (body 1, `dmma_unpaired`) 8-byte copies and single
+// values.  The value blocks go by 16-byte copies (the wrapper hands them
+// on 16 bytes).
+bool dmma_vec(const void* B, const void* C, const void* out, int64_t k) {
+  return k % 2 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDThreads, kDBlocksPerSM)
+bell_spmm_dmma_kernel(const double* __restrict__ vals,
+                      const int32_t* __restrict__ bcol,
+                      const double* __restrict__ B,
+                      const double* __restrict__ Cin,
+                      double* __restrict__ out, int slots, int64_t m,
+                      int64_t n, int64_t k, int n_tiles, int n_ctiles,
+                      double alpha, double beta) {
+  extern __shared__ __align__(16) double dsmem[];
+  double* As = dsmem;                        // [stage][128][kDAStride]
+  double* Bs = dsmem + kDStages * kDAStage;  // [stage][kDTK][kDBStride]
+
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  // warp tile rows 16 kDMT wm, columns 32 wn
+  const int wm = warp % kDWarpsM, wn = warp / kDWarpsM;
+  const int g = ln / 4, t = ln % 4;
+  const int per_tile = slots * kDChunks;
+  // this block's tiles: blockIdx.x < n_tiles, then every gridDim.x-th
+  const int my_tiles = (n_tiles - 1 - static_cast<int>(blockIdx.x)) /
+                           static_cast<int>(gridDim.x) + 1;
+  const int steps = my_tiles * per_tile;
+
+  // step gs of this block: chunk gs % per_tile of its tile gs / per_tile
+  auto load = [&](int gs) {
+    const int tile = blockIdx.x + (gs / per_tile) * gridDim.x;
+    const int step = gs % per_tile;
+    const int64_t i = tile / n_ctiles;
+    const int64_t n0 = static_cast<int64_t>(tile % n_ctiles) * kDTN;
+    const int s = step / kDChunks, c0 = (step % kDChunks) * kDTK;
+    const double* blk = vals + ((i * slots + s) * kBlock) * kBlock + c0;
+    double* as = As + (gs % kDStages) * kDAStage;
+#pragma unroll
+    for (int p = tid; p < kBlock * kDTK / 2; p += kDThreads) {
+      const int r = p / (kDTK / 2), q = p % (kDTK / 2);
+      cp_async16(smem_addr(as + r * kDAStride + q * 2),
+                 blk + r * kBlock + q * 2, 16);
+    }
+    const int64_t brow0 =
+        static_cast<int64_t>(bcol[i * slots + s]) * kBlock + c0;
+    double* bs = Bs + (gs % kDStages) * kDBStage;
+    if (kVec) {
+#pragma unroll
+      for (int p = tid; p < kDTK * kDTN / 2; p += kDThreads) {
+        const int r = p / (kDTN / 2), q = p % (kDTN / 2);
+        const int64_t row = brow0 + r, col = n0 + q * 2;
+        const bool ok = row < n && col < k;   // k even: col + 1 < k too
+        cp_async16(smem_addr(bs + r * kDBStride + q * 2),
+                   ok ? B + row * k + col : B, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int p = tid; p < kDTK * kDTN; p += kDThreads) {
+        const int r = p / kDTN, q = p % kDTN;
+        const int64_t row = brow0 + r, col = n0 + q;
+        const bool ok = row < n && col < k;
+        cp_async8(smem_addr(bs + r * kDBStride + q),
+                  ok ? B + row * k + col : B, ok ? 8 : 0);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kDStages - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
   }
+  int gs = 0;
+  for (int jt = 0; jt < my_tiles; ++jt) {
+    const int tile = blockIdx.x + jt * gridDim.x;
+    const int64_t i = tile / n_ctiles;
+    const int64_t n0 = static_cast<int64_t>(tile % n_ctiles) * kDTN;
+    double acc[kDMT][4][4];
+#pragma unroll
+    for (int a = 0; a < kDMT; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.0;
+
+    for (int step = 0; step < per_tile; ++step, ++gs) {
+      cp_async_wait<kDStages - 2>();
+      __syncthreads();   // chunk gs landed; chunk gs-1's stage is free
+      if (gs + kDStages - 1 < steps) load(gs + kDStages - 1);
+      cp_async_commit();
+      const double* as =
+          As + (gs % kDStages) * kDAStage + (wm * 16 * kDMT) * kDAStride;
+      const double* bs = Bs + (gs % kDStages) * kDBStage + wn * 32;
+#pragma unroll
+      for (int kk = 0; kk < kDTK; kk += kDKK) {
+        double af[kDMT][kDKK / 2], bf[4][kDKK / 4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < kDKK / 4; ++e)
+            bf[nt][e] = bs[(kk + t + 4 * e) * kDBStride + nt * 8 + g];
+#pragma unroll
+        for (int mt = 0; mt < kDMT; ++mt)
+#pragma unroll
+          for (int e = 0; e < kDKK / 2; ++e)
+            af[mt][e] = as[(mt * 16 + g + 8 * (e % 2)) * kDAStride + kk + t +
+                           4 * (e / 2)];
+#pragma unroll
+        for (int mt = 0; mt < kDMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            dmma<kDK>(acc[mt][nt], af[mt], bf[nt]);
+      }
+    }
+
+    // epilogue: the ring's next chunks stay in flight meanwhile
+#pragma unroll
+    for (int mt = 0; mt < kDMT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row =
+            i * kBlock + wm * 16 * kDMT + mt * 16 + g + 8 * h;
+        if (row >= m) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int64_t col = n0 + wn * 32 + nt * 8 + 2 * t;   // even
+          const int64_t o = row * k + col;
+          const double a0 = acc[mt][nt][2 * h], a1 = acc[mt][nt][2 * h + 1];
+          if (kVec) {
+            if (col < k) {                       // k even: col + 1 < k too
+              const double2 c = *reinterpret_cast<const double2*>(Cin + o);
+              *reinterpret_cast<double2*>(out + o) = make_double2(
+                  beta * c.x + alpha * a0, beta * c.y + alpha * a1);
+            }
+          } else {
+            if (col < k) out[o] = beta * Cin[o] + alpha * a0;
+            if (col + 1 < k) out[o + 1] = beta * Cin[o + 1] + alpha * a1;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+int launch_dmma(const double* vals, const int32_t* bcol, const double* B,
+                const double* C, double* out, int64_t n_brows, int64_t slots,
+                int64_t m, int64_t n, int64_t k, double alpha, double beta,
+                void* stream) {
+  if (n_brows <= 0 || k <= 0 || m <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int64_t n_ctiles = (k + kDTN - 1) / kDTN;
+  // int32 tile and step counts
+  if (n_brows * n_ctiles > INT32_MAX ||
+      n_brows * n_ctiles * slots * kDChunks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = dmma_vec(B, C, out, k) ? bell_spmm_dmma_kernel<true>
+                                       : bell_spmm_dmma_kernel<false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  // above 48 KB of dynamic shared memory only on request
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemD));
+  if (rc == 0)
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kDThreads, kSmemD));
+  if (rc != 0) return rc;
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int n_tiles = static_cast<int>(n_brows * n_ctiles);
+  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  kernel<<<grid, kDThreads, kSmemD, static_cast<cudaStream_t>(stream)>>>(
+      vals, bcol, B, C, out, static_cast<int>(slots), m, n, k, n_tiles,
+      static_cast<int>(n_ctiles), alpha, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1191,9 +1383,21 @@ int sblas_bell_spmm_f64(const double* vals, const int32_t* bcol,
                         const double* B, const double* C, double* out,
                         int64_t n_brows, int64_t slots, int64_t m, int64_t n,
                         int64_t k, double alpha, double beta, void* stream) {
-  return launch_cuda_core(vals, bcol, B, C, out, n_brows, slots, m, n, k,
-                          alpha, beta, stream);
+  return launch_dmma(vals, bcol, B, C, out, n_brows, slots, m, n, k, alpha,
+                     beta, stream);
 }
+
+// the body sblas_bell_spmm_f64 runs on these operands (B, C, out and K):
+// 0 `dmma` (16-byte copies of B, C and out by pairs), 1 `dmma_unpaired`
+// (8-byte copies and single values); both are mma.sync f64
+int sblas_bell_spmm_f64_body(const void* B, const void* C, const void* out,
+                             int64_t k) {
+  return dmma_vec(B, C, out, k) ? 0 : 1;
+}
+
+// the depth of the f64 mma.sync shape it issues: 4, 8 or 16 (m16n8k4,
+// m16n8k8, m16n8k16), or 0 (m8n8k4)
+int sblas_bell_spmm_f64_mma() { return kDK; }
 
 int sblas_bell_spmm_bf16(const __nv_bfloat16* vals, const int32_t* bcol,
                          const __nv_bfloat16* B, const __nv_bfloat16* C,

@@ -8,14 +8,16 @@ one launch: one CUDA thread block per (block-row, column tile) loops
 over the slots itself and writes beta*C + alpha*acc once.  In f32 it runs
 3xTF32 on the tensor cores (each operand split into two TF32 parts, three
 products kept), about f32's accuracy whatever torch's TF32 flag says; in
-f64 it runs f64 FMAs; in bf16 it runs on the bf16 tensor cores (exact
-products summed in f32), with alpha and beta folded in f32 and each
-output element rounded to bf16 once (the JAX kernel accumulated the
-slots in its bf16 output block).  `bf16_variant` picks between the two
-bf16 kernels, both `wgmma` in persistent blocks fed by TMA: B's rows in
-64 x 64 boxes where K and the operands allow it, else (`bf16_ragged`) in
-8-row groups that the consumers shift into place, on the column tiles
-`ragged_column_tiles` names.
+f64 it runs `mma.sync` f64 on the f64 tensor cores (products and sums in
+f64; `f64_body` names which of its two feeds a launch takes); in bf16 it
+runs on the bf16 tensor cores (exact products summed in f32), with alpha
+and beta folded in f32 and each output element rounded to bf16 once (the
+JAX kernel accumulated the slots in its bf16 output block).
+`bf16_variant` picks between the two bf16 kernels, both `wgmma` in
+persistent blocks fed by TMA: B's rows in 64 x 64 boxes where K and the
+operands allow it, else (`bf16_ragged`) in 8-row groups that the
+consumers shift into place, on the column tiles `ragged_column_tiles`
+names.
 
 `make_plan`'s dispatcher takes this path for K >= 256 on CUDA
 (`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.
@@ -32,12 +34,15 @@ from .plans import _round_up
 
 BLOCK = 128   # K4's block edge: R = C = 128
 RAGGED_MAX_TILE = 192   # K4[bf16_ragged]'s widest column tile: n128 + n64
+# K4[f64]'s bodies, by the index its launcher's query returns
+F64_BODIES = ("dmma", "dmma_unpaired")
 
 
-def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
+def bell_spmm_plain(vals, bcol, B, C, alpha, beta, out=None) -> torch.Tensor:
     """Plain PyTorch K4: beta*C + alpha*(A @ B) with A in BELL layout
-    (vals (n_brows, L, R, Cb), bcol (n_brows, L)), B (n, K), C (m, K).
-    bf16 is summed and scaled in f32 and rounded once."""
+    (vals (n_brows, L, R, Cb), bcol (n_brows, L)), B (n, K), C (m, K),
+    into `out` when given.  bf16 is summed and scaled in f32 and rounded
+    once."""
     out_dtype = vals.dtype
     if out_dtype == torch.bfloat16:
         vals, B, C = vals.float(), B.float(), C.float()
@@ -47,8 +52,9 @@ def bell_spmm_plain(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     blocks = F.pad(B, (0, 0, 0, _round_up(n, Cb) - n)).reshape(-1, Cb, k)
     tiles = blocks[bcol]                              # (n_brows, L, Cb, K)
     acc = torch.einsum("ilrc,ilck->irk", vals, tiles)
-    out = beta * C + alpha * acc.reshape(n_brows * R, k)[: C.shape[0]]
-    return out.to(out_dtype)
+    res = (beta * C + alpha * acc.reshape(n_brows * R, k)[: C.shape[0]]
+           ).to(out_dtype)
+    return res if out is None else out.copy_(res)
 
 
 def ragged_column_tiles(k: int) -> list:
@@ -77,15 +83,33 @@ def bf16_variant(vals, B, C, out) -> str:
     return "bf16" if tma else "bf16_ragged"
 
 
-def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
+def f64_body(B, C, out) -> str:
+    """The body K4[f64]'s launcher runs on these operands, as the launcher
+    itself decides it; both issue `mma.sync` f64 on the tensor cores:
+    `dmma` (B's rows by 16-byte copies, C and out by pairs) where K is
+    even and B, C and out start on 16 bytes, else `dmma_unpaired` (8-byte
+    copies and single values: an odd K, an operand at an odd element
+    offset)."""
+    return F64_BODIES[_kernels.library().sblas_bell_spmm_f64_body(
+        B.data_ptr(), C.data_ptr(), out.data_ptr(), B.shape[1])]
+
+
+def f64_mma_shape() -> str:
+    """The f64 `mma.sync` shape K4[f64] issues, e.g. `m16n8k4`."""
+    kd = _kernels.library().sblas_bell_spmm_f64_mma()
+    return f"m16n8k{kd}" if kd else "m8n8k4"
+
+
+def bell_spmm(vals, bcol, B, C, alpha, beta, out=None) -> torch.Tensor:
     """beta*C + alpha*(A @ B) for A in BELL layout with 128 x 128 blocks
-    (see `bell_spmm_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch kernel K4 or raise.  Any alignment is taken; a bf16
-    `vals` that does not start on 16 bytes (no plan makes one: plan
-    values are fresh allocations) is first copied to fresh storage, since
-    both bf16 kernels read the value blocks by TMA."""
+    (see `bell_spmm_plain`), into `out` (m, K) when given.  CPU tensors
+    take the plain version; CUDA tensors launch kernel K4 or raise.  Any
+    alignment of B, C and out is taken; a `vals` that does not start on
+    16 bytes (no plan makes one: plan values are fresh allocations) is
+    first copied to fresh storage, since every K4 body reads the value
+    blocks by 16-byte copies or TMA."""
     if vals.device.type == "cpu":
-        return bell_spmm_plain(vals, bcol, B, C, alpha, beta)
+        return bell_spmm_plain(vals, bcol, B, C, alpha, beta, out)
     from ..utils.errors import KernelError, require
     dev = vals.device
     require(dev.type == "cuda", KernelError,
@@ -102,14 +126,19 @@ def bell_spmm(vals, bcol, B, C, alpha, beta) -> torch.Tensor:
     _kernels.check_operand(bcol, "bcol", torch.int32, (n_brows, L), dev)
     _kernels.check_operand(B, "B", vals.dtype, (n, k), dev)
     _kernels.check_operand(C, "C", vals.dtype, (m, k), dev)
-    out = torch.empty((m, k), dtype=vals.dtype, device=dev)
+    if out is None:
+        out = torch.empty((m, k), dtype=vals.dtype, device=dev)
+    _kernels.check_operand(out, "out", vals.dtype, (m, k), dev)
+    if vals.data_ptr() % 16:
+        vals = vals.clone()
     if variant == "bf16":
-        if vals.data_ptr() % 16:
-            vals = vals.clone()
         variant = bf16_variant(vals, B, C, out)
+    body = f64_body(B, C, out) if variant == "f64" else None
     _kernels.launch(_kernels.launcher("bell_spmm", variant), dev, vals, bcol,
                     B, C, out, n_brows, L, m, n, k, float(alpha),
                     float(beta))
+    if body is not None:
+        _kernels.BODIES[f"bell_spmm_f64.{body}"] += 1
     bell_spmm.launches += 1
     return out
 

@@ -245,31 +245,100 @@ def test_window_reduce_kernel_matches_plain(dev, dtype, case, k0, width):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,half_band,k", [(700, 9, 17), (3000, 36, 128),
-                                           (3000, 36, 256),
-                                           (20_000, 36, 300)])
-def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k):
+# K4's cases: (dtype, n, half_band, K, case).  Every dtype at the plain
+# shapes; f64 also at odd K (an 8K-byte row stride off 16 bytes), B, C and
+# out as views one element into their storage, a plan without slots,
+# alpha = 0 and beta = 0, and values and B spread over 2^-40 .. 2^40
+_K4_SHAPES = [(700, 9, 17), (3000, 36, 128), (3000, 36, 256),
+              (20_000, 36, 300)]
+_K4_CASES = ([(dt, *shape, "plain") for dt in DTYPES for shape in _K4_SHAPES]
+             + [(torch.float64, n, hb, k, case) for n, hb, k, case in (
+                 (700, 9, 1, "plain"), (700, 9, 7, "plain"),
+                 (3000, 36, 63, "plain"), (3000, 36, 256, "offset"),
+                 (3000, 36, 63, "offset"), (3000, 36, 256, "no_slots"),
+                 (700, 9, 7, "no_slots"), (3000, 36, 256, "alpha0"),
+                 (3000, 36, 256, "beta0"), (3000, 36, 256, "mixed"),
+                 (3000, 36, 63, "mixed"))])
+
+
+def _offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a view one element into its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype,n,half_band,k,case", _K4_CASES)
+def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k, case):
+    from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.io.generate import fem_banded_like
     from sblas_tpu_torch.ops import bsr_pallas as tb
     from sblas_tpu_torch.ops.bsr import BsrPlan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     A = fem_banded_like(n=n, half_band=half_band)
+    rng = np.random.RandomState(n + k)
+    if case == "mixed":
+        A.values[:] = (rng.uniform(-1, 1, A.nnz)
+                       * np.exp2(rng.uniform(-40, 40, A.nnz)))
     plan = BsrPlan.from_csr(A, dtype=dtype, device=dev)
+    vals, bcol = plan.vals, plan.bcol
+    if case == "no_slots":
+        vals, bcol = vals[:, :0].contiguous(), bcol[:, :0].contiguous()
     g = torch.Generator(device=dev).manual_seed(n)
     B = torch.rand((n, k), generator=g, device=dev, dtype=dtype)
     C = torch.rand((n, k), generator=g, device=dev, dtype=dtype)
-    args = (plan.vals, plan.bcol, B, C, 3.0, 4.0)
+    if case == "mixed":
+        B = torch.from_numpy(rng.uniform(-1, 1, (n, k))
+                             * np.exp2(rng.uniform(-40, 40, (n, k)))
+                             ).to(dev, dtype)
+    out = None
+    if case == "offset":
+        B, C, out = _offset_copy(B), _offset_copy(C), _offset_copy(C)
+    alpha, beta = {"alpha0": (0.0, 4.0), "beta0": (3.0, 0.0)}.get(
+        case, (3.0, 4.0))
+    args = (vals, bcol, B, C, alpha, beta)
     before = tb.bell_spmm.launches
-    got = tb.bell_spmm(*args)
+    _kernels.LAUNCHED.clear()
+    _kernels.BODIES.clear()
+    got = tb.bell_spmm(*args, out=out)
     again = tb.bell_spmm(*args)
     torch.cuda.synchronize()
     assert tb.bell_spmm.launches == before + 2
     assert torch.equal(got, again)
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr()
+    want = tb.bell_spmm_plain(*args)
+    if dtype == torch.float64:
+        # both launches went through K4[f64]'s mma.sync f64 body: paired
+        # 16-byte feeds where K is even and B, C, out start on 16 bytes
+        assert dict(_kernels.LAUNCHED) == {"sblas_bell_spmm_f64": 2}
+        body = ("dmma" if k % 2 == 0 and case != "offset"
+                else "dmma_unpaired")
+        assert dict(_kernels.BODIES) == {f"bell_spmm_f64.{body}": 2}
+        assert tb.f64_mma_shape() in ("m8n8k4", "m16n8k4", "m16n8k8",
+                                      "m16n8k16")
+    if case == "mixed":
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        assert rel <= 1e-13, rel
+        return
+    if case == "alpha0":
+        torch.testing.assert_close(got, beta * C, rtol=0, atol=0)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    torch.testing.assert_close(got, tb.bell_spmm_plain(*args), rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_bell_spmm_f64_has_no_spill(dev):
+    """The build's `-Xptxas -v` report: both K4[f64] bodies (the DMMA
+    kernel at each feed) use no local memory for spills."""
+    from sblas_tpu_torch import _kernels
+    _kernels.library()
+    report = _kernels.ptxas_report()
+    assert report is not None
+    found = _kernels.kernel_resources(report, "bell_spmm_dmma_kernel")
+    assert len(found) == 2, found
+    for r in found:
+        assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
+        assert r["registers"] <= 255, r
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
