@@ -3194,8 +3194,9 @@ def profiling_phase(dev) -> None:
             with open(p) as fh:
                 events = json.load(fh)["traceEvents"]
             names = {e.get("name", "") for e in events}
-            want = {name, "band 0 compute"} | (
-                {"band 0 copy"} if name.endswith("0") else set())
+            want = {f"sblas.profile run={name}",
+                    "sblas.um.compute band=0"} | (
+                {"sblas.um.copy band=0"} if name.endswith("0") else set())
             k3 = sum("unit_reduce_kernel" in n for n in names)
             if not want <= names or (name.endswith("wcoo_tuning0")
                                      and not k3):
@@ -3203,7 +3204,7 @@ def profiling_phase(dev) -> None:
                                      f"{sorted(want - names)} or K3")
             phase("profiling", trace=name, events=len(events),
                   kb=f"{os.path.getsize(p) / 1024:.0f}",
-                  band_ranges=sum(n.startswith("band ") for n in names),
+                  band_ranges=sum(n.startswith("sblas.um.") for n in names),
                   k3_kernel_names=k3,
                   gpu_events=sum(e.get("cat") == "kernel" for e in events))
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from .utils import trace
 from .utils.errors import KernelError, ShapeError, require
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -208,7 +209,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        built = not os.path.exists(library_path())
+        with trace.span("sblas.kernels.load", built=built):
+            lib = ctypes.CDLL(build())
+        if built:
+            trace.count("library_builds")
         for name, (types, variants) in LAUNCHERS.items():
             for sfx in variants:
                 fn = getattr(lib, f"sblas_{name}_{sfx}")
@@ -259,7 +264,8 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call launcher `fn_name` (see `launcher`) with tensor pointers / ints
     on the current stream of `device`; raise on a refused launch."""
     lib = library()
-    with torch.cuda.device(device):
+    with trace.span("sblas.launch", launcher=fn_name), \
+            torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args]

@@ -8,6 +8,11 @@ colouring, fused route level and bucketed scatter (native/route.cpp).
 Callers fall back to numpy when it is unavailable; the routed plan at 1M
 rows needs it to finish in seconds (`available()` says whether it
 loaded).  Parity contract: byte-identical results to the numpy paths.
+
+Recorded (`utils/trace.py`): the first load as span `sblas.native.load`
+(attributes `built`, whether `make` ran, and `available`), each `make`
+as counter `library_builds`, and each fallback to numpy that the
+library's absence caused as counter `native_unavailable`.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import time
 from typing import Optional
 
 import numpy as np
+
+from ..utils import trace
 
 # repo checkouts find native/ two levels up; installed wheels run the
 # numpy fallbacks unless SBLAS_NATIVE_DIR points at a native/ checkout
@@ -77,13 +84,23 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    if _stale() and os.environ.get("SBLAS_NO_NATIVE_BUILD") != "1":
-        try:
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR),
-                            "-B"],
-                           capture_output=True, timeout=120, check=True)
-        except (OSError, subprocess.SubprocessError):
-            pass  # fall through: an existing (possibly stale) lib still loads
+    built = _stale() and os.environ.get("SBLAS_NO_NATIVE_BUILD") != "1"
+    with trace.span("sblas.native.load", built=built) as sp:
+        if built:
+            trace.count("library_builds")
+            try:
+                subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR),
+                                "-B"],
+                               capture_output=True, timeout=120, check=True)
+            except (OSError, subprocess.SubprocessError):
+                pass  # an existing (possibly stale) lib still loads
+        _lib = _open()
+        sp.set(available=_lib is not None)
+    return _lib
+
+
+def _open() -> Optional[ctypes.CDLL]:
+    """The library loaded, its functions typed; None when absent."""
     lib = None
     for attempt in range(3):
         if not os.path.exists(_LIB_PATH):
@@ -133,8 +150,7 @@ def _load() -> Optional[ctypes.CDLL]:
             fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
                            ctypes.POINTER(ctypes.c_int32),
                            ctypes.POINTER(ct), ctypes.POINTER(ct)]
-    _lib = lib
-    return _lib
+    return lib
 
 
 _SCATTER_SUFFIX = {np.dtype(np.int8): "i8", np.dtype(np.bool_): "i8",
@@ -155,6 +171,8 @@ def scatter(out: np.ndarray, addr: np.ndarray, vals) -> np.ndarray:
     lib = _load() if (suffix is not None
                       and os.environ.get("SBLAS_NO_NATIVE") != "1") else None
     fn = getattr(lib, f"sblas_scatter_{suffix}", None) if lib else None
+    if suffix is not None and lib is None:
+        trace.count("native_unavailable")
     addr = np.asarray(addr)
     if (fn is None or not out.flags.c_contiguous or out.ndim != 1
             or addr.dtype.kind != "i" or len(addr) == 0):
@@ -244,7 +262,12 @@ def route_level(p: np.ndarray, bs: int, mix_max: int):
 
 
 def available() -> bool:
-    return (os.environ.get("SBLAS_NO_NATIVE") != "1") and _load() is not None
+    """Whether the library loaded (and SBLAS_NO_NATIVE is not 1); a False
+    answer counts as a fallback (`native_unavailable`)."""
+    ok = (os.environ.get("SBLAS_NO_NATIVE") != "1") and _load() is not None
+    if not ok:
+        trace.count("native_unavailable")
+    return ok
 
 
 def parse_coordinate(path: str, offset: int, nnz: int, field: str):

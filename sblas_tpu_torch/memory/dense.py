@@ -31,6 +31,7 @@ import torch
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..ops.plans import fold, host_value_dtype, sum_dtype, value_itemsize
+from ..utils import trace
 from ..utils.errors import ShapeError, require
 from . import host
 from .host import (_band_matmul, _choose_band_kind, build_band_plan,
@@ -278,7 +279,7 @@ def spmm_um_hostdense(grid: HostResidentGrid, B: HostDense, alpha, beta,
     # the kernels read no padding rows
     if grid.tuned:
         for idx, key in enumerate(keys):
-            with host.trace_scope(f"cell {key} compute", dev):
+            with trace.span("sblas.um.compute", cell=key):
                 on_cell(idx, grid._device_cells[key], B.chunk(*b_rows(idx)))
     else:
         names = tensor_fields(grid.cells[keys[0]])

@@ -59,7 +59,7 @@ from ..ops.spmm import spmm_coo, spmm_ell
 from ..ops.spmv import spmv_coo, spmv_ell
 from ..ops.wcoo import WcooPlan, spmm_wcoo, spmv_wcoo
 from ..utils.errors import PartitionError, ShapeError, require
-from ..utils.timing import trace_scope
+from ..utils import trace
 
 # Bands on the device at once while streaming: band i computes while the
 # next ones copy in.
@@ -412,7 +412,7 @@ def _stream(items: Sequence[Sequence[torch.Tensor]], device: torch.device,
     def issue_copy(i: int) -> None:
         nonlocal resident, peak, nbytes
         s = i % depth
-        with trace_scope(f"band {i} copy", device):
+        with trace.span("sblas.um.copy", band=i):
             if cuda:
                 with torch.cuda.stream(copy_stream):
                     if freed[s] is not None:
@@ -432,7 +432,7 @@ def _stream(items: Sequence[Sequence[torch.Tensor]], device: torch.device,
     for i in range(depth):
         issue_copy(i)
     for i in range(n):
-        with trace_scope(f"band {i} compute", device):
+        with trace.span("sblas.um.compute", band=i):
             if cuda:
                 compute_stream.wait_event(copied[i])
             compute(i, views[i])
@@ -468,7 +468,7 @@ def each_band(hplan: HostResidentPlan,
     copies when tuned, streamed otherwise (recorded in `last_stream`)."""
     if hplan.tuned:
         for i, band in enumerate(hplan._device_bands):
-            with trace_scope(f"band {i} compute", hplan.device):
+            with trace.span("sblas.um.compute", band=i):
                 compute(i, band)
         return
     side = hplan.copy_stream() if hplan.device.type == "cuda" else None

@@ -35,6 +35,7 @@ from .spmv import spmv_coo, spmv_ell
 from .wcoo import WcooPlan, spmm_wcoo, spmv_wcoo, wcoo_fill_ratio
 
 from ..config import DEFAULT
+from ..utils import trace
 
 # The JAX package's chooser constants (sblas_tpu/ops/__init__.py:27-63),
 # kept equal so both packages choose alike; their rationale there is
@@ -105,15 +106,20 @@ def make_plan(A, dtype=None, config=DEFAULT, force=None, op=None, *,
     "spmm"} biases the choice toward that kernel.  `dtype` is
     torch.float32 (the default), torch.float64 or torch.bfloat16."""
     dtype = dtype or torch.float32
-    kind = force if force is not None else choose_kind(A, dtype, config, op)
-    kw = dict(dtype=dtype, config=config, device=device)
-    if kind == "bsr":
-        return BsrPlan.from_csr(A, block=config.bsr_block, **kw)
-    cls = {"dia": DiaPlan, "routed": RoutedPlan, "ell": EllPlan,
-           "wcoo": WcooPlan, "coo": CooPlan}.get(kind)
-    if cls is None:
-        raise ValueError(f"unknown plan kind {kind!r}")
-    return cls.from_csr(A, **kw)
+    with trace.span("sblas.plan", op=op, dtype=dtype) as sp:
+        kind = force
+        if kind is None:
+            with trace.span("sblas.plan.choose"):
+                kind = choose_kind(A, dtype, config, op)
+        sp.set(kind=kind)
+        kw = dict(dtype=dtype, config=config, device=device)
+        if kind == "bsr":
+            return BsrPlan.from_csr(A, block=config.bsr_block, **kw)
+        cls = {"dia": DiaPlan, "routed": RoutedPlan, "ell": EllPlan,
+               "wcoo": WcooPlan, "coo": CooPlan}.get(kind)
+        if cls is None:
+            raise ValueError(f"unknown plan kind {kind!r}")
+        return cls.from_csr(A, **kw)
 
 
 def make_plan_fast(A, dtype=None, config=DEFAULT, *, device):
@@ -134,10 +140,12 @@ def spmv(plan, x, alpha=1.0, beta=1.0, y=None):
     fn = _SPMV.get(type(plan))
     if fn is None:
         raise TypeError(f"unsupported plan type {type(plan).__name__}")
-    if y is None:
-        y = torch.zeros(plan.shape[0], dtype=plan.dtype, device=plan.device)
-        beta = 0.0
-    return fn(plan, x, alpha, beta, y)
+    with trace.span("sblas.spmv", plan=type(plan).__name__):
+        if y is None:
+            y = torch.zeros(plan.shape[0], dtype=plan.dtype,
+                            device=plan.device)
+            beta = 0.0
+        return fn(plan, x, alpha, beta, y)
 
 
 def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
@@ -148,16 +156,17 @@ def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
             "RoutedPlan is SpMV-only (its contribution routing has no "
             "K-wide analog); build an SpMM plan with make_plan(A) or "
             "make_plan(A, op='spmm')")
-    if C is None:
-        C = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
-                        device=plan.device)
-        beta = 0.0
-    if isinstance(plan, DiaPlan):
-        return spmm_dia(plan, B, alpha, beta, C)
-    if isinstance(plan, BsrPlan):
-        if takes_k4(plan, B.shape[1], B.is_cuda):
-            return spmm_bsr_pallas(plan, B, alpha, beta, C)
-        return spmm_bsr(plan, B, alpha, beta, C)
-    if isinstance(plan, WcooPlan):
-        return spmm_wcoo(plan, B, alpha, beta, C)
-    return _spmm_tier0(plan, B, alpha, beta, C)
+    with trace.span("sblas.spmm", plan=type(plan).__name__):
+        if C is None:
+            C = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
+                            device=plan.device)
+            beta = 0.0
+        if isinstance(plan, DiaPlan):
+            return spmm_dia(plan, B, alpha, beta, C)
+        if isinstance(plan, BsrPlan):
+            if takes_k4(plan, B.shape[1], B.is_cuda):
+                return spmm_bsr_pallas(plan, B, alpha, beta, C)
+            return spmm_bsr(plan, B, alpha, beta, C)
+        if isinstance(plan, WcooPlan):
+            return spmm_wcoo(plan, B, alpha, beta, C)
+        return _spmm_tier0(plan, B, alpha, beta, C)

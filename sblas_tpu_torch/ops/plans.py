@@ -29,6 +29,7 @@ import torch
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from ..utils import trace
 from ..utils.errors import PlanError, require
 
 # value dtype -> the host layout's: bf16 plans are laid out in f32
@@ -123,7 +124,8 @@ class Plan:
                 t = t.to(dtype)
             return t
 
-        data = {k: tensor(v) for k, v in fields.items()}
+        with trace.span("sblas.plan.place", device=device):
+            data = {k: tensor(v) for k, v in fields.items()}
         require(data["vals"].dtype in HOST_VALUE, PlanError,
                 f"plans hold float32, float64 or bfloat16 values, got "
                 f"{data['vals'].dtype}")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..utils import trace
 
 LANES = 128
 
@@ -205,7 +206,13 @@ def build_route(perm: np.ndarray) -> RouteProgram:
     """Layer program computing out[i] = in[perm[i]] for i < len(perm).
 
     `perm` must be a bijection on [0, len(perm)); it is extended to the
-    padded routable size with identity on the pad slots."""
+    padded routable size with identity on the pad slots.  Recorded as
+    span `sblas.plan.route`, its edge colouring included."""
+    with trace.span("sblas.plan.route", n=len(perm)):
+        return _build_route(perm)
+
+
+def _build_route(perm: np.ndarray) -> RouteProgram:
     from ..utils.errors import PlanError, require
     n = len(perm)
     N = routable_size(n)

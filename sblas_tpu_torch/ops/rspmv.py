@@ -62,6 +62,7 @@ from .. import _kernels
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..io import native
+from ..utils import trace
 from .plans import HOST_VALUE, host_value_dtype
 from .route import LANES, apply_route, build_route, routable_size
 
@@ -481,9 +482,11 @@ class RoutedPlan:
 
         if any(k not in fields for k in cls.PORT_FIELDS):
             fields = dict(cls.port_fields(fields, meta), **fields)
-        data = {name: (tuple(tensor(t) for t in fields[name])
-                       if name in _TABLE_FIELDS else tensor(fields[name]))
-                for name in DATA_FIELDS + cls.PORT_FIELDS}
+        with trace.span("sblas.plan.place", device=device):
+            data = {name: (tuple(tensor(t) for t in fields[name])
+                           if name in _TABLE_FIELDS
+                           else tensor(fields[name]))
+                    for name in DATA_FIELDS + cls.PORT_FIELDS}
         if dtype is not None:
             for name in ("gvals", "pvals"):
                 data[name] = data[name].to(dtype)

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..containers import SharePolicy
+from ..utils import trace
 from ..utils.errors import PartitionError, require
 
 
@@ -79,9 +80,19 @@ def _group_of(mesh: Mesh):
     return mesh.group
 
 
+def _count_bytes(t: torch.Tensor) -> int:
+    """Add the bytes of `t`, a collective's input, to counter
+    `collective_bytes`; returns them."""
+    n = t.numel() * t.element_size()
+    trace.count("collective_bytes", n)
+    return n
+
+
 def all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum of `t` over the mesh, in place (lax.psum)."""
-    dist.all_reduce(t, group=_group_of(mesh))
+    group = _group_of(mesh)
+    with trace.span("sblas.dist.all_reduce", bytes=_count_bytes(t)):
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -95,7 +106,9 @@ def reduce_scatter(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     out = t.new_empty((t.shape[0] // mesh.size, *t.shape[1:]))
     # reduce_scatter_tensor exists in every torch the port runs on; newer
     # ones name reduce_scatter_single instead and warn (FutureWarning)
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), \
+            trace.span("sblas.dist.reduce_scatter",
+                       bytes=_count_bytes(t)):
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out

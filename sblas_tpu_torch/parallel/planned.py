@@ -42,6 +42,7 @@ from ..ops.plans import EllPlan, ell_arrays, fold, host_value_dtype
 from ..ops.spmm import spmm_coo, spmm_ell
 from ..ops.spmv import spmv_coo, spmv_ell
 from ..partition import partition_row_blocks
+from ..utils import trace
 from ..utils.errors import PartitionError, ShapeError, require
 from .mesh import Mesh, all_reduce, reduce_scatter, ring_exchange
 from .modes import own_rows, row_block
@@ -53,8 +54,9 @@ def _round_up(x: int, m: int) -> int:
 
 def _placed(plans, device, rank: Optional[int]):
     """The shard plans on `device`, or only shard `rank` (None elsewhere)."""
-    return tuple(p.to(device) if rank is None or s == rank else None
-                 for s, p in enumerate(plans))
+    with trace.span("sblas.plan.place", device=device):
+        return tuple(p.to(device) if rank is None or s == rank else None
+                     for s, p in enumerate(plans))
 
 
 def _local(plans, rank: int):
@@ -227,20 +229,25 @@ def partition_row_plans(A: CsrMatrix, n_shards: int, dtype=torch.float32,
     common dims need them all); `rank` places only that shard on
     `device`, None places every shard there."""
     require(n_shards >= 1, PartitionError, f"bad n_shards {n_shards}")
-    bounds = _row_boundaries(A, n_shards)
-    band_rows = _round_up(int(np.max(bounds[1:] - bounds[:-1])) or 1, 128)
-
-    if kind is None:
-        kind = pick_shard_kind(A, op, config)
-    locals_ = [_local_csr(A, int(bounds[s]), int(bounds[s + 1]), band_rows)
-               for s in range(n_shards)]
-    plans, kind = build_stacked_plans(locals_, kind, band_rows, A.shape[1],
-                                      A.nnz, dtype, config)
-    return RowPlanShards(
-        plans=_placed(plans, device, rank),
-        row_offsets=tuple(int(b) for b in bounds[:-1]),
-        shape=A.shape, nnz=A.nnz, n_shards=n_shards,
-        band_rows=band_rows, kind=kind)
+    with trace.span("sblas.plan", op=op, dtype=dtype,
+                    shards=n_shards) as sp:
+        bounds = _row_boundaries(A, n_shards)
+        band_rows = _round_up(int(np.max(bounds[1:] - bounds[:-1])) or 1,
+                              128)
+        if kind is None:
+            with trace.span("sblas.plan.choose"):
+                kind = pick_shard_kind(A, op, config)
+        locals_ = [_local_csr(A, int(bounds[s]), int(bounds[s + 1]),
+                              band_rows)
+                   for s in range(n_shards)]
+        plans, kind = build_stacked_plans(locals_, kind, band_rows,
+                                          A.shape[1], A.nnz, dtype, config)
+        sp.set(kind=kind)
+        return RowPlanShards(
+            plans=_placed(plans, device, rank),
+            row_offsets=tuple(int(b) for b in bounds[:-1]),
+            shape=A.shape, nnz=A.nnz, n_shards=n_shards,
+            band_rows=band_rows, kind=kind)
 
 
 def _local_spmm(kind, plan, B):
@@ -274,13 +281,16 @@ def full_height(local, offset: int, m_full: int) -> torch.Tensor:
 def _planned_finish(shards, local, alpha, beta, Y, mesh, reduce):
     m = shards.shape[0]
     m_full = _round_up(m + shards.band_rows, mesh.size * 128)
-    partial = full_height(local, shards.row_offsets[mesh.rank], m_full)
+    with trace.span("sblas.mode2.partial"):
+        partial = full_height(local, shards.row_offsets[mesh.rank], m_full)
     if reduce == "psum":
-        return fold(alpha, all_reduce(partial, mesh)[:m], beta, Y,
-                    local.dtype)
+        summed = all_reduce(partial, mesh)[:m]
+        with trace.span("sblas.mode2.fold"):
+            return fold(alpha, summed, beta, Y, local.dtype)
     mine = reduce_scatter(partial, mesh)
-    return own_rows(fold(alpha, mine, beta, row_block(Y, mesh, m_full),
-                         local.dtype), mesh, m)
+    with trace.span("sblas.mode2.fold"):
+        return own_rows(fold(alpha, mine, beta, row_block(Y, mesh, m_full),
+                             local.dtype), mesh, m)
 
 
 def _check_planned(shards, mesh, reduce, width, what):
@@ -301,16 +311,20 @@ def spmm_mode2_planned(shards: RowPlanShards, B, alpha, beta, C, mesh: Mesh,
             " build SpMM shards with partition_row_plans(kind=...) in "
             "{'bsr','ell','dia','coo'}")
     _check_planned(shards, mesh, reduce, B.shape[0], "B height")
-    local = spmm_mode2_planned_nocomm(shards, B, mesh)
-    return _planned_finish(shards, local, alpha, beta, C, mesh, reduce)
+    with trace.span("sblas.mode2", op="spmm", reduce=reduce):
+        with trace.span("sblas.mode2.local"):
+            local = spmm_mode2_planned_nocomm(shards, B, mesh)
+        return _planned_finish(shards, local, alpha, beta, C, mesh, reduce)
 
 
 def spmv_dist_planned(shards: RowPlanShards, x, alpha, beta, y, mesh: Mesh,
                       reduce: str = "psum") -> torch.Tensor:
     """Distributed SpMV (partition sparse A) with per-shard fast plans."""
     _check_planned(shards, mesh, reduce, x.shape[0], "x length")
-    local = spmv_dist_planned_nocomm(shards, x, mesh)
-    return _planned_finish(shards, local, alpha, beta, y, mesh, reduce)
+    with trace.span("sblas.mode2", op="spmv", reduce=reduce):
+        with trace.span("sblas.mode2.local"):
+            local = spmv_dist_planned_nocomm(shards, x, mesh)
+        return _planned_finish(shards, local, alpha, beta, y, mesh, reduce)
 
 
 def spmm_mode2_planned_nocomm(shards: RowPlanShards, B, mesh: Mesh

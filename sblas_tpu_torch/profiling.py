@@ -9,14 +9,15 @@ Port of the root `profiling.py`.  The reference runs `nsys profile
 `spmm_um_tuning{0,1}` on the s3dkq4m2 shell proxy (32 MiB budget) and
 `spmv_um_tuning{0,1}` on the webbase-1M proxy (16 MiB), is one
 `torch.profiler` window written as a Chrome trace, `outdir/<run>.json`
-(open in ui.perfetto.dev or chrome://tracing).  The streaming executor
-names a range per band copy and per band compute (`trace_scope`:
-profiler ranges, and NVTX ranges on a CUDA device, so `nsys
---trace=cuda,nvtx` shows the same ranges), and the host-to-device copies
-of an untuned run are the trace's memcpy rows where the reference counts
-page faults.  `--small` cuts both matrices (a 7,649-row shell, a
-50,000-row web graph).  `--device` defaults to cuda and exits non-zero
-without a GPU.
+(open in ui.perfetto.dev or chrome://tracing).  The window records the
+package's spans (`utils/trace.py`) as ranges: `sblas.profile run=<run>`
+around the call, `sblas.um.copy band=<i>` for each band's copy and
+`sblas.um.compute band=<i>` for its compute (NVTX ranges of the same
+names on a CUDA device, so `nsys --trace=cuda,nvtx` shows them too), and
+the host-to-device copies of an untuned run are the trace's memcpy rows
+where the reference counts page faults.  `--small` cuts both matrices
+(a 7,649-row shell, a 50,000-row web graph).  `--device` defaults to
+cuda and exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def trace(name: str, plan, fn, outdir: str, device) -> str:
     """One warm call, then `fn` once inside a profiler window named
     `name`, written to `outdir/<name>.json`; the plan starts untuned both
     times, so a tuned run's trace holds its copy to the device."""
-    from .utils.timing import trace_scope
+    from .utils import trace as tr
     device = torch.device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -85,8 +86,9 @@ def trace(name: str, plan, fn, outdir: str, device) -> str:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     path = os.path.join(outdir, f"{name}.json")
-    with torch.profiler.profile(activities=activities) as prof:
-        with trace_scope(name, device):
+    with torch.profiler.profile(activities=activities) as prof, \
+            tr.recording(ranges=True):
+        with tr.span("sblas.profile", run=name):
             fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import weakref
 from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils import trace
 from .utils.errors import KernelError, PartitionError, require
 
 # Captured solver chunks, keyed by (solver, matvec form, shapes, dtype,
@@ -210,15 +212,20 @@ class _Program:
         """Replay the chunk (captured on first use) from `st` until its
         flag drops."""
         if self.graph is None:
-            self._capture(step, cond, chunk, st, c)
-        for k, v in st.items():
-            self.state[k].copy_(v)
-        for k, v in c.items():
-            self.consts[k].copy_(v)
+            with trace.span("sblas.solve.capture"):
+                self._capture(step, cond, chunk, st, c)
+            trace.count("graph_captures")
+        with trace.span("sblas.solve.copy_in"):
+            for k, v in st.items():
+                self.state[k].copy_(v)
+            for k, v in c.items():
+                self.consts[k].copy_(v)
         while True:
-            self.graph.replay()
-            if not bool(self.flag):
-                return {k: v.clone() for k, v in self.state.items()}
+            with trace.span("sblas.solve.replay"):
+                self.graph.replay()
+            if not _flag(self.flag):
+                with trace.span("sblas.solve.copy_out"):
+                    return {k: v.clone() for k, v in self.state.items()}
 
 
 def captures() -> int:
@@ -284,16 +291,25 @@ def recording():
         _RECORD = prev
 
 
+def _flag(flag, name: str = "sblas.solve.flag") -> bool:
+    """A device flag read on the host: one blocking read (`host_syncs`)."""
+    trace.count("host_syncs")
+    with trace.span(name):
+        return bool(flag)
+
+
 def _solve(key, owners, step, cond, chunk: int, st: dict, c: dict,
            graph: bool) -> dict:
     """Run `step` under `cond` from `st` until `cond` drops, one chunk per
     host flag read: replayed from a captured graph, or eagerly."""
-    if not bool(cond(st, c)):
+    trace.current().set(graph=graph)
+    if not _flag(cond(st, c), "sblas.solve.check"):
         return st
     if not graph:
         while True:
-            st = _run_chunk(step, cond, chunk, st, c)
-            if not bool(cond(st, c)):
+            with trace.span("sblas.solve.chunk"):
+                st = _run_chunk(step, cond, chunk, st, c)
+            if not _flag(cond(st, c)):
                 return st
     prog = _graph_program(key, owners)
     if _RECORD is not None:
@@ -335,9 +351,34 @@ def jacobi_inv_diag(A, dtype=None, *, device) -> torch.Tensor:
     return torch.as_tensor(inv, dtype=dtype or torch.float32, device=device)
 
 
-def _rel(form: _Form, r, b2) -> float:
+def _rel(form: _Form, r, b2) -> torch.Tensor:
     tiny = torch.finfo(r.dtype).tiny
-    return float(torch.sqrt(form.dot(r, r) / torch.clamp(b2, min=tiny)))
+    return torch.sqrt(form.dot(r, r) / torch.clamp(b2, min=tiny))
+
+
+def _result(residual, it) -> tuple:
+    """The solve's residual and iteration count read on the host: two
+    blocking reads (`host_syncs`)."""
+    trace.count("host_syncs", 2)
+    with trace.span("sblas.solve.result"):
+        return float(residual), int(it)
+
+
+def _traced(solver: str):
+    """Run the solver inside span `sblas.solve` (attributes `solver`,
+    `graph`, `iterations`)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with trace.span("sblas.solve", solver=solver) as sp:
+                res = fn(*args, **kwargs)
+                sp.set(iterations=res.iterations)
+                return res
+        return run
+    return wrap
+
+
+@_traced("cg")
 
 
 def cg(A, b, *, x0=None, tol: float = 1e-6, maxiter: int = 500, M=None,
@@ -391,11 +432,12 @@ def cg(A, b, *, x0=None, tol: float = 1e-6, maxiter: int = 500, M=None,
     st = dict(x=x, r=r, p=p, rz=dot(r, z),
               it=torch.zeros((), dtype=torch.int64, device=b.device))
     st = _solve(key, owners, step, cond, chunk, st, consts, use_graph)
-    rel = _rel(form, st["r"], b2)
-    return SolveResult(x=st["x"], iterations=int(st["it"]), residual=rel,
+    rel, its = _result(_rel(form, st["r"], b2), st["it"])
+    return SolveResult(x=st["x"], iterations=its, residual=rel,
                        converged=rel <= tol * 1.0000001)
 
 
+@_traced("bicgstab")
 def bicgstab(A, b, *, x0=None, tol: float = 1e-6, maxiter: int = 500,
              mesh=None, chunk: int = 16, graph: Optional[bool] = None
              ) -> SolveResult:
@@ -448,11 +490,12 @@ def bicgstab(A, b, *, x0=None, tol: float = 1e-6, maxiter: int = 500,
               alive=torch.ones((), dtype=torch.bool, device=b.device))
     st = _solve(key, (form.owner,), step, cond, chunk, st, consts,
                 use_graph)
-    rel = _rel(form, st["r"], b2)
-    return SolveResult(x=st["x"], iterations=int(st["it"]), residual=rel,
+    rel, its = _result(_rel(form, st["r"], b2), st["it"])
+    return SolveResult(x=st["x"], iterations=its, residual=rel,
                        converged=rel <= tol * 1.0000001)
 
 
+@_traced("pagerank")
 def pagerank(PT, n: int, *, dangling=None, damping: float = 0.85,
              tol: float = 1e-8, maxiter: int = 200, r0=None, mesh=None,
              chunk: int = 16, graph: Optional[bool] = None) -> SolveResult:
@@ -498,6 +541,6 @@ def pagerank(PT, n: int, *, dangling=None, damping: float = 0.85,
               it=torch.zeros((), dtype=torch.int64, device=dev))
     st = _solve(key, (form.owner,), step, cond, chunk, st, dict(dang=dang),
                 use_graph)
-    delta = float(st["delta"])
-    return SolveResult(x=st["r"], iterations=int(st["it"]), residual=delta,
+    delta, its = _result(st["delta"], st["it"])
+    return SolveResult(x=st["r"], iterations=its, residual=delta,
                        converged=delta <= tol)

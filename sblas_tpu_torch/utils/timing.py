@@ -16,9 +16,7 @@ waits for the device before it stops.  Two clocks for a device op:
 
 Both take the median of repeated runs after a warm-up.  1 - device/wall
 is the device's idle share.  A time from the CPU is taken by
-`host_time_ms` and never reported under a device name.  `trace_scope`
-names a range for `torch.profiler` and, on a CUDA device, for NVTX
-(`nsys --trace=cuda,nvtx`).
+`host_time_ms` and never reported under a device name.
 """
 
 from __future__ import annotations
@@ -48,19 +46,6 @@ def timed(name: str, results: Optional[Dict[str, float]] = None,
         _sync(device)
         if results is not None:
             results[name] = (time.perf_counter() - t0) * 1e3
-
-
-@contextlib.contextmanager
-def trace_scope(name: str, device=None):
-    """A named range (`jax.profiler.TraceAnnotation` in the JAX package):
-    a `torch.profiler.record_function` range, and an NVTX range too when
-    `device` is a CUDA device."""
-    with torch.profiler.record_function(name):
-        if device is not None and torch.device(device).type == "cuda":
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
 
 
 def device_time_ms(fn: Callable[[], object], *, warmup: int = 3,

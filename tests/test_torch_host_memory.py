@@ -310,8 +310,9 @@ def test_profiling_traces_small(tmp_path):
                 "spmv_um_tuning1"):
         names = {e.get("name") for e in json.loads(
             (tmp_path / f"{run}.json").read_text())["traceEvents"]}
-        assert run in names and "band 0 compute" in names
-        assert ("band 0 copy" in names) == run.endswith("0")
+        assert f"sblas.profile run={run}" in names
+        assert "sblas.um.compute band=0" in names
+        assert ("sblas.um.copy band=0" in names) == run.endswith("0")
 
 
 def test_profiling_refuses_a_missing_card(tmp_path, monkeypatch):

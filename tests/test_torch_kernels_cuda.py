@@ -781,21 +781,21 @@ def _slowed(monkeypatch, hp, dev, delay: str, cycles: int = 2_000_000):
     for about a millisecond first, so a missing event wait or an early
     slot refill shows as a wrong result."""
     import contextlib
-    from sblas_tpu_torch.memory import host as thost
-    real = thost.trace_scope
+    from sblas_tpu_torch.utils import trace
+    real = trace.span
     side = hp.copy_stream() if hp is not None else None
 
     @contextlib.contextmanager
-    def slow(name, device=None):
-        if name.endswith(delay):
+    def slow(name, **attrs):
+        if name == "sblas.um." + delay:
             stream = (side if delay == "copy"
                       else torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 torch.cuda._sleep(cycles)
-        with real(name, device):
+        with real(name, **attrs):
             yield
 
-    monkeypatch.setattr(thost, "trace_scope", slow)
+    monkeypatch.setattr(trace, "span", slow)
 
 
 @pytest.mark.parametrize("kind", ["wcoo", "ell"])
@@ -2040,3 +2040,26 @@ def test_slab_gather_after_a_device_cast_of_gvals(dev, variant):
             for _ in range(8)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
+
+
+def test_span_holds_its_kernel_on_the_device_clock(dev):
+    """A span of the recorder (`utils/trace.py`) around a
+    `torch.cuda._sleep` kernel and a synchronise contains the kernel's
+    device interval as `torch.profiler` stamps it: spans and device
+    events lie on one clock, which labelling idle gaps by span needs."""
+    from sblas_tpu_torch.utils import trace
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
+            with trace.span("sblas.test"):
+                torch.cuda._sleep(20_000_000)   # about 10 ms
+                torch.cuda.synchronize(dev)
+    (_, start, end, _, _), = rec.spans
+    long = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() != torch.autograd.DeviceType.CPU
+            and e.duration_ns() > 5_000_000]
+    assert len(long) == 1
+    kernel = long[0]
+    assert start <= kernel.start_ns()
+    assert kernel.start_ns() + kernel.duration_ns() <= end
