@@ -19,8 +19,11 @@ then runs every main path at full size, counting kernel launches on each:
     webbase_like() x K=64 -> make_plan(op="spmm") -> WcooPlan -> spmm (K3,
         writing beta*C + alpha*A@B itself; K3 timed in that fused form
         and in its grid form, each with its bound)
-    fem_shell_like() x K=64 -> make_plan(op="spmm") -> DiaPlan -> spmm,
-        and the tier-0 COO SpMM beside it
+    fem_shell_like() x K=64 -> make_plan(op="spmm") -> DiaPlan -> spmm
+        (K5, once; `[K5 dia_spmm]`: K5 beside the plain `addcmul_` loop,
+        its bound counted as DIA bytes and as the CSR `harness/work.py`
+        counts, `torch.addmm` and `torch.sparse.mm` on CSR), and the
+        tier-0 COO SpMM beside it
     fem_banded_like() x K=256 -> BsrPlan -> spmm (K4); x K=64 -> spmm
         (batched matmuls, no K4)
     SpMV over DiaPlan (shell) and BsrPlan (band-73), after each SpMM
@@ -546,6 +549,7 @@ def main() -> int:
                                      make_plan, spmm, spmv)
     from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
     from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    from sblas_tpu_torch.ops.dia import dia_spmm
     from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
                                            lane_shuffle_plain)
     from sblas_tpu_torch.ops.rspmv import (SLAB, RoutedPlan, slab_gather,
@@ -558,7 +562,7 @@ def main() -> int:
 
     counters = {"lane_shuffle": lane_shuffle, "slab_gather": slab_gather,
                 "tile_gather": tile_gather, "window_reduce": window_reduce,
-                "bell_spmm": bell_spmm,
+                "bell_spmm": bell_spmm, "dia_spmm": dia_spmm,
                 "stage_fuse_gather": stage_fuse_gather,
                 "window_lane_gather": window_lane_gather}
     none = {name: 0 for name in counters}
@@ -728,9 +732,12 @@ def main() -> int:
     Cs = DenseMatrix.constant(S.height, K, 1.0, dtype=np.float32).values
     Bd, Cd = torch.from_numpy(Bs).to(dev), torch.from_numpy(Cs).to(dev)
     want = oracle_spmm(S, Bs, Cs)
+    kernels["dia_spmm"] = k5_row(S, splan, Bd, Cd)
     out, counts = launches_of(counters,
                               lambda: spmm(splan, Bd, ALPHA, BETA, Cd))
-    expect_launches("DIA SpMM", counts, none)
+    expect_launches("DIA SpMM", counts, dict(none, dia_spmm=1))
+    variant_launches("DIA SpMM", {"dia_spmm_f32": 1})
+    kernels["dia_spmm"]["launches"] = counts["dia_spmm"]
     phase("spmm headline", plan="DiaPlan", shape=S.shape, nnz=S.nnz, K=K,
           n_diags=len(splan.offsets), launches=counts,
           check=checked("DIA SpMM", out, want),
@@ -739,6 +746,7 @@ def main() -> int:
     phase("tier0 coo spmm", check=checked(
         "COO SpMM", spmm(coo, Bd, ALPHA, BETA, Cd), want),
           **call_times(lambda: spmm(coo, Bd, ALPHA, BETA, Cd), S.nnz, K))
+    f64_dia(S, splan, Bd, Cd, want, counters, none, kernels)
     bf16_shell_phases(S, Bd, Cd, want, counters, none)
     bf16_shell_k4_record(S, Bd, Cd, want, counters, none)
     spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none)
@@ -914,7 +922,10 @@ def main() -> int:
              "body",
              # K4[f64]'s bound on the f64 CUDA cores beside its
              # tensor-core one
-             "cuda_core_bound_ms")
+             "cuda_core_bound_ms",
+             # K5's bound as the benchmark counts A (CSR), beside its own
+             # (DIA values), and torch.sparse.mm beside torch.addmm
+             "csr_bound_ms")
     for rec in kernels.values():
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         missing = [k for k in keys if k not in rec]
@@ -929,6 +940,84 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k5_record(S, plan, Bd, Cd, rel_tol) -> dict:
+    """K5 against the plain `addcmul_` loop on `plan` x (Bd, Cd) (normwise
+    `rel_tol`, two launches bitwise), `torch.addmm` and `torch.sparse.mm`
+    on a CSR copy of S in B's dtype as yardsticks, and K5's bound by its
+    own bytes (the DIA values, B, C and C' once) and by the SpMM's bytes
+    as `benchmark/harness/work.py` counts them (A as CSR: values, 32-bit
+    column indices and row pointers), 2 nnz K operations at the f32 (f64)
+    CUDA-core rate: its `kernels` record, `launches` to fill in."""
+    from sblas_tpu_torch.ops.dia import dia_spmm, spmm_dia_plain
+    variant = "f64" if Bd.dtype == torch.float64 else "f32"
+    err, _, ms, plain_ms = compare(
+        f"dia_spmm[{variant}]", lambda: dia_spmm(plan, Bd, Cd, ALPHA, BETA),
+        lambda: spmm_dia_plain(plan, Bd, ALPHA, BETA, Cd), dia_spmm,
+        rel_tol)
+    S_csr = sparse_csr(S, Bd.device, Bd.dtype)
+    lib_ms = _device_ms(lambda: torch.addmm(Cd, S_csr, Bd, beta=BETA,
+                                            alpha=ALPHA))
+    mm_ms = _device_ms(lambda: torch.sparse.mm(S_csr, Bd))
+    del S_csr
+    (m, n), k, vb = plan.shape, Bd.shape[1], Bd.element_size()
+    rate = FP64_FLOPS if variant == "f64" else FP32_FLOPS
+    flops, dense = 2 * S.nnz * k, (n * k + 2 * m * k) * vb
+    csr = S.nnz * (vb + 4) + (m + 1) * 4
+    return dict(name="dia_spmm" + ("[f64]" if variant == "f64" else ""),
+                route="cuda", source="sblas_tpu_torch/csrc/dia_kernels.cu",
+                replaces="none (sblas_tpu/ops/dia.py leaves DIA to XLA)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                sparse_mm_ms=mm_ms,
+                csr_bound_ms=bound(csr + dense, flops, rate)["bound_ms"],
+                **bound(plan.vals.numel() * vb + dense, flops, rate))
+
+
+def k5_row(S, splan, Bd, Cd) -> dict:
+    """[K5 dia_spmm]: `k5_record` at the shell x K in f32, with K5's
+    registers and spills from the build's `-Xptxas -v` report."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops.dia import dia_runs
+    rec = k5_record(S, splan, Bd, Cd, F32_REL_TOL)
+    res = _kernels.kernel_resources(_kernels.ptxas_report() or "",
+                                    "dia_spmm_kernel")
+    phase("K5 dia_spmm", shape=S.shape, nnz=S.nnz, K=Bd.shape[1],
+          n_diags=len(splan.offsets), runs=len(dia_runs(splan.offsets)),
+          max_abs_err=f"{rec['max_abs_err']:.3e}", deterministic=True,
+          ms=f"{rec['ms']:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
+          bound_by=rec["bound_by"],
+          share_of_bound=f"{rec['bound_ms'] / rec['ms']:.3f}",
+          csr_bound_ms=f"{rec['csr_bound_ms']:.5f}",
+          csr_share=f"{rec['csr_bound_ms'] / rec['ms']:.3f}",
+          plain_ms=f"{rec['plain_ms']:.5f}",
+          library_ms=f"{rec['library_ms']:.5f}",
+          sparse_mm_ms=f"{rec['sparse_mm_ms']:.5f}",
+          resources=[(r["registers"], r["spill_stores"], r["spill_loads"])
+                     for r in res])
+    return rec
+
+
+def f64_dia(S, splan, Bd, Cd, want, counters, none, kernels) -> None:
+    """[f64] K5[f64]: `k5_record` on the shell's plan cast to f64
+    (`cast_plan`; 1e-12 normwise); then `spmm` on that plan: one K5 f64
+    launch, against the oracle."""
+    from sblas_tpu_torch.ops import spmm
+    t0 = time.perf_counter()
+    sp64 = cast_plan(splan, torch.float64)
+    B64, C64 = Bd.double(), Cd.double()
+    rec = kernels["dia_spmm[f64]"] = k5_record(S, sp64, B64, C64,
+                                                F64_REL_TOL)
+    out, counts = launches_of(counters,
+                              lambda: spmm(sp64, B64, ALPHA, BETA, C64))
+    expect_launches("DIA SpMM f64", counts, dict(none, dia_spmm=1))
+    variant_launches("DIA SpMM f64", {"dia_spmm_f64": 1})
+    rec["launches"] = counts["dia_spmm"]
+    f64_line("dia_spmm", rec, plan="shell DIA cast to f64", K=Bd.shape[1],
+             csr_bound_ms=f"{rec['csr_bound_ms']:.5f}",
+             sparse_mm_ms=f"{rec['sparse_mm_ms']:.5f}",
+             check=checked("DIA SpMM f64", out, want))
+    F64_SECONDS["dia"] = time.perf_counter() - t0
 
 
 def f64_routed(A, plan, xd, yd, want, k1k2, counters, none,
@@ -2465,7 +2554,8 @@ def spmm_dist_webbase(A, wplan, Bd, Cd, want, mesh, counters, none) -> None:
 
 def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
     """[spmm-dist] on the shell x K, world 1: mode 2 over DIA shards and
-    over COO segments, the halo SpMM and the 1x1 hier mode."""
+    over COO segments, the halo SpMM and the 1x1 hier mode (one K5
+    launch each over DIA shards)."""
     from sblas_tpu_torch.parallel import (partition_halo_dia,
                                           partition_row_plans,
                                           spmm_halo_planned, spmm_mode2,
@@ -2488,7 +2578,8 @@ def spmm_dist_shell(S, Bd, Cd, want, mesh, mesh2, counters, none) -> None:
     }
     for path, run in runs.items():
         out, counts = launches_of(counters, run)
-        expect_launches(path, counts, none)
+        expect_launches(path, counts,
+                        none if "COO" in path else dict(none, dia_spmm=1))
         phase("spmm-dist", path=path, K=K, launches=counts,
               check=checked(path, out, want),
               **recorded(path, call_times(run, S.nnz, K)))

@@ -1,10 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
-`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, the
-probes' P1 and P2 `probe_kernels.cu`, and the shared headers
-`value_types.cuh` and `row_io.cuh`) each expose
-plain `extern "C"` launchers that return `cudaGetLastError()`, one per
+`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, K5
+`dia_kernels.cu`, the probes' P1 and P2 `probe_kernels.cu`, and the
+shared headers `value_types.cuh` and `row_io.cuh`) each expose plain
+`extern "C"` launchers that return `cudaGetLastError()`, one per
 variant: `sblas_<kernel>_<variant>`, the variant naming the value type
 (`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
 `bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K3's and
@@ -44,7 +44,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("route_kernels.cu", "rspmv_kernels.cu", "wcoo_kernels.cu",
-           "bsr_kernels.cu", "probe_kernels.cu")
+           "bsr_kernels.cu", "dia_kernels.cu", "probe_kernels.cu")
 HEADERS = ("value_types.cuh", "row_io.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -64,6 +64,7 @@ LAUNCHERS = {
                       ("f32", "f64", "bf16", "bf16_ragged")),
     "bell_spmm": ([_p] * 5 + [_i64] * 5 + [_f64, _f64],
                   ("f32", "f64", "bf16", "bf16_ragged")),
+    "dia_spmm": ([_p] * 5 + [_i64] * 8 + [_f64, _f64], ("f32", "f64")),
     "stage_fuse_gather": ([_p] * 6 + [_i64], ("f32", "f64")),
     "window_lane_gather": ([_p] * 4 + [_i64, _i64], ("f32", "f64")),
 }

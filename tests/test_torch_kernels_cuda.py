@@ -476,6 +476,102 @@ def test_spmm_paths_on_card_match_cpu(dev, dtype, np_dtype):
         assert float((got - want).abs().max()) <= tol * scale, kind
 
 
+# ---- K5 (dia_spmm) ----
+
+def _dia_operands(plan, k, dev, seed=0):
+    """B (n, k) and C (m, k) in [-1, 1) in the plan's dtype on `dev`."""
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(seed + k)
+    B, C = (torch.rand(shape, generator=g, device=dev, dtype=torch.float64)
+            .mul(2).sub(1).to(plan.dtype) for shape in ((n, k), (m, k)))
+    return B, C
+
+
+def _dia_checked(plan, B, C, alpha, beta):
+    """K5 twice through `spmm_dia` and the plain loop on the same card
+    tensors: one launch a call, the two calls bitwise equal, and K5
+    normwise within 1e-5 (f32) / 1e-12 (f64) of the loop, which forms the
+    same products in the same order but rounds each product before its
+    add where K5 fuses the two.  Returns (K5's result, the loop's)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import dia as tdia
+    name = f"sblas_dia_spmm_{_kernels.SUFFIX[plan.dtype]}"
+    _kernels.LAUNCHED.clear()
+    got = tdia.spmm_dia(plan, B, alpha, beta, C)
+    assert dict(_kernels.LAUNCHED) == {name: 1}
+    again = tdia.spmm_dia(plan, B, alpha, beta, C)
+    assert dict(_kernels.LAUNCHED) == {name: 2}
+    want = tdia.spmm_dia_plain(plan, B, alpha, beta, C)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, again, rtol=0, atol=0, equal_nan=True)
+    tol = 1e-12 if plan.dtype == torch.float64 else 1e-5
+    fin = want.isfinite()
+    scale = max(1.0, float(want[fin].abs().max()))
+    assert float((got[fin] - want[fin]).abs().max()) <= tol * scale
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["shell", "gaps", "wide", "shard", "halo"])
+@pytest.mark.parametrize("k,alpha,beta", [
+    (1, 3.0, 4.0), (63, 3.0, 4.0), (64, 3.0, 4.0), (64, -2.5, 0.0),
+    (100, 3.0, 4.0)])
+def test_dia_spmm_kernel_matches_plain(dev, dtype, name, k, alpha, beta):
+    """K5 against the plain loop on the plans it serves
+    (tests/test_torch_dia.py::_plan_case): a small FEM shell, runs with
+    gaps between, a run wider than the cap, a rectangular mode 2 shard
+    and a halo shard's extended window; K past one column slice with a
+    masked edge; beta = 0 and alpha != 1."""
+    from test_torch_dia import _plan_case
+    plan = _plan_case(name, dtype).to(dev)
+    B, C = _dia_operands(plan, k, dev)
+    _dia_checked(plan, B, C, alpha, beta)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b_cols,c_cols", [
+    pytest.param((32, 96), (0, 64), id="aligned-views"),
+    pytest.param((1, 65), (3, 67), id="unaligned-views")])
+def test_dia_spmm_kernel_takes_views_and_non_finite(dev, dtype, b_cols,
+                                                    c_cols):
+    """Column blocks of wider B and C (mode 1's operands), on and off 16
+    bytes, are read in place through their row strides; an Inf in B and a
+    NaN in C at beta = 0 reach the same outputs as in the loop."""
+    from test_torch_dia import _plan_case
+    plan = _plan_case("shell", dtype).to(dev)
+    Bw, Cw = _dia_operands(plan, 100, dev, seed=1)
+    B, C = Bw[:, slice(*b_cols)], Cw[:, slice(*c_cols)]
+    _dia_checked(plan, B, C, 3.0, 4.0)
+    B[plan.shape[1] // 2, 5] = float("inf")
+    C[7, 9] = float("nan")
+    got, _ = _dia_checked(plan, B, C, 3.0, 0.0)
+    assert bool(got[7, 9].isnan()) and not bool(got.isfinite().all())
+
+
+def test_spmm_dia_is_k5_alone(dev):
+    """The DIA SpMM on the card is one K5 launch: nothing but the result's
+    allocation is dispatched beside it (no pad of B, no accumulator fill,
+    no epilogue ops), and no copy to the device once the run table is
+    made."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.io.generate import fem_shell_like
+    from sblas_tpu_torch.ops import spmm
+    S = fem_shell_like(nx=40, ny=20, n_target=4800, dtype=np.float32)
+    plan = make_plan(S, dtype=torch.float32, force="dia", device=dev)
+    B, C = _dia_operands(plan, 64, dev)
+    spmm(plan, B, 1.0, 1.0, C)
+    _kernels.LAUNCHED.clear()
+    got, ops = _aten_ops(lambda: spmm(plan, B, 1.0, 1.0, C))
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_dia_spmm_f32": 1}
+    assert set(ops) <= {"empty"}, ops
+    want = spmm(plan.to("cpu"), B.cpu(), 1.0, 1.0, C.cpu())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
 # ---- P1 (stage_fuse_gather), P2 (window_lane_gather) and xfoot ----
 
 @pytest.mark.parametrize("dtype", DTYPES)
