@@ -23,7 +23,15 @@ import time
 
 def build_spd(n: int, dtype):
     """Shell-proxy pattern, symmetric values, diagonally dominant: d_i =
-    1 + sum_j |a_ij| added to the diagonal."""
+    1 + sum_j |a_ij| added to the diagonal.
+
+    `n` is rounded to the mesh: nx x ny nodes of 6 unknowns, nx near the
+    shell's 201:75 aspect (89,244 rows at `n=90_449`).  Diagonal
+    dominance keeps the spectrum narrow, so Jacobi-CG reaches 1e-6 in
+    about 10 iterations, inside one 16-iteration solver chunk; the
+    benchmark's CG cell solves a weighted Laplacian on the shell's
+    pattern instead (`benchmark/harness/pcg.py::spd_values`, about 300
+    iterations), as a stiffness matrix's widening spectrum asks."""
     import numpy as np
 
     from ..containers import CooMatrix

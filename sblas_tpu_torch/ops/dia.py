@@ -113,6 +113,10 @@ def _x_padded(plan: DiaPlan, x: torch.Tensor):
 
 def spmv_dia(plan: DiaPlan, x: torch.Tensor, alpha, beta,
              y: torch.Tensor) -> torch.Tensor:
+    """y' = beta*y + alpha*A@x, one `addcmul_` per diagonal, counted as
+    `dia_spmv_loop_calls` on every device (under a CUDA graph: its
+    capture, not each replay)."""
+    trace.count("dia_spmv_loop_calls")
     m = plan.shape[0]
     x_pad, lead = _x_padded(plan, x)
     acc = torch.zeros(m, dtype=plan.dtype, device=x.device)

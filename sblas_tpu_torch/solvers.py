@@ -49,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import inspect
 import weakref
 from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
@@ -364,15 +365,29 @@ def _result(residual, it) -> tuple:
         return float(residual), int(it)
 
 
+def _precond(M) -> Optional[str]:
+    """What `M` is, as the solve span names it."""
+    if M is None:
+        return None
+    return "callable" if callable(M) else "jacobi"
+
+
 def _traced(solver: str):
     """Run the solver inside span `sblas.solve` (attributes `solver`,
-    `graph`, `iterations`)."""
+    `graph`, `iterations`; `precond`, the preconditioner's kind or None;
+    `executed`, the iterations run on the device: whole chunks, the
+    masked tail of the last included)."""
     def wrap(fn):
+        chunk0 = inspect.signature(fn).parameters["chunk"].default
+
         @functools.wraps(fn)
         def run(*args, **kwargs):
             with trace.span("sblas.solve", solver=solver) as sp:
                 res = fn(*args, **kwargs)
-                sp.set(iterations=res.iterations)
+                chunk = kwargs.get("chunk", chunk0)
+                sp.set(iterations=res.iterations,
+                       precond=_precond(kwargs.get("M")),
+                       executed=-(-res.iterations // chunk) * chunk)
                 return res
         return run
     return wrap

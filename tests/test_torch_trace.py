@@ -103,7 +103,9 @@ def test_on_spans_nest_with_names_and_attrs(monkeypatch):
     solve = names.index("sblas.solve")
     assert spans[solve][3] == -1
     assert spans[solve][4] == {"solver": "pagerank", "graph": False,
-                               "iterations": res.iterations}
+                               "iterations": res.iterations,
+                               "precond": None,
+                               "executed": -(-res.iterations // 16) * 16}
     kids = {s[0] for s in spans if s[3] == solve}
     assert kids == {"sblas.solve.check", "sblas.solve.chunk",
                     "sblas.solve.flag", "sblas.solve.result"}
