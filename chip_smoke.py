@@ -26,7 +26,10 @@ then runs every main path at full size, counting kernel launches on each:
         tier-0 COO SpMM beside it
     fem_banded_like() x K=256 -> BsrPlan -> spmm (K4); x K=64 -> spmm
         (batched matmuls, no K4)
-    SpMV over DiaPlan (shell) and BsrPlan (band-73), after each SpMM
+    SpMV over DiaPlan (shell: K6, once; `[K6 dia_spmv]`: K6 beside the
+        plain `addcmul_` loop, its bound counted as DIA bytes and as CSR,
+        `torch.mv` and `torch.sparse.mm` on CSR; `[f64]` K6[f64] the
+        same) and BsrPlan (band-73), after each SpMM
 
 and the distribution layer in a world-1 NCCL group:
 
@@ -549,7 +552,7 @@ def main() -> int:
                                      make_plan, spmm, spmv)
     from sblas_tpu_torch.ops.bsr_pallas import bell_spmm, bell_spmm_plain
     from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
-    from sblas_tpu_torch.ops.dia import dia_spmm
+    from sblas_tpu_torch.ops.dia import dia_spmm, dia_spmv
     from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
                                            lane_shuffle_plain)
     from sblas_tpu_torch.ops.rspmv import (SLAB, RoutedPlan, slab_gather,
@@ -563,6 +566,7 @@ def main() -> int:
     counters = {"lane_shuffle": lane_shuffle, "slab_gather": slab_gather,
                 "tile_gather": tile_gather, "window_reduce": window_reduce,
                 "bell_spmm": bell_spmm, "dia_spmm": dia_spmm,
+                "dia_spmv": dia_spmv,
                 "stage_fuse_gather": stage_fuse_gather,
                 "window_lane_gather": window_lane_gather}
     none = {name: 0 for name in counters}
@@ -755,10 +759,9 @@ def main() -> int:
     dist.destroy_process_group()   # the CLIs below make their own groups
     del coo, Bd, Cd, out, want
 
-    # ---- SpMV over the DIA plan (shell) ----
-    sv = make_plan(S, dtype=torch.float32, op="spmv", device=dev)
-    _spmv_phase("dia spmv", S, sv, DiaPlan, counters, none)
-    del splan, sv, S
+    # ---- SpMV over the DIA plan (shell): K6 ----
+    k6_phases(S, counters, none, kernels)
+    del splan, S
 
     # ---- K4 and BELL SpMM: band-73 x K=256 -> BsrPlan -> K4 ----
     F = fem_banded_like(dtype=np.float32)
@@ -996,6 +999,97 @@ def k5_row(S, splan, Bd, Cd) -> dict:
           resources=[(r["registers"], r["spill_stores"], r["spill_loads"])
                      for r in res])
     return rec
+
+
+def k6_record(S, plan, xd, yd, rel_tol) -> dict:
+    """K6 against the plain `addcmul_` loop on `plan` x (xd, yd) (normwise
+    `rel_tol`, two launches bitwise), `torch.mv` and `torch.sparse.mm` on
+    a CSR copy of S in x's dtype as yardsticks (the port calls neither),
+    and K6's bound by its own bytes (the DIA values, x, y and y' once)
+    and by the SpMV's bytes with A as CSR (values, 32-bit column indices
+    and row pointers), 2 nnz operations at the f32 (f64) CUDA-core rate:
+    its `kernels` record, `launches` to fill in."""
+    from sblas_tpu_torch.ops.dia import dia_spmv, spmv_dia_plain
+    variant = "f64" if xd.dtype == torch.float64 else "f32"
+    err, _, ms, plain_ms = compare(
+        f"dia_spmv[{variant}]", lambda: dia_spmv(plan, xd, yd, ALPHA, BETA),
+        lambda: spmv_dia_plain(plan, xd, ALPHA, BETA, yd), dia_spmv,
+        rel_tol)
+    S_csr = sparse_csr(S, xd.device, xd.dtype)
+    lib_ms = _device_ms(lambda: torch.mv(S_csr, xd))
+    mm_ms = _device_ms(lambda: torch.sparse.mm(S_csr, xd[:, None]))
+    del S_csr
+    (m, n), vb = plan.shape, xd.element_size()
+    rate = FP64_FLOPS if variant == "f64" else FP32_FLOPS
+    flops, dense = 2 * S.nnz, (n + 2 * m) * vb
+    csr = S.nnz * (vb + 4) + (m + 1) * 4
+    return dict(name="dia_spmv" + ("[f64]" if variant == "f64" else ""),
+                route="cuda", source="sblas_tpu_torch/csrc/dia_kernels.cu",
+                replaces="none (sblas_tpu/ops/dia.py leaves DIA to XLA)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                sparse_mm_ms=mm_ms,
+                csr_bound_ms=bound(csr + dense, flops, rate)["bound_ms"],
+                **bound(plan.vals.numel() * vb + dense, flops, rate))
+
+
+def k6_phases(S, counters, none, kernels) -> None:
+    """[K6 dia_spmv] and the DIA SpMV: `k6_record` on the shell's SpMV
+    plan (`make_plan(op="spmv")`, DIA) in f32 with K6's registers and
+    spills from the build's `-Xptxas -v` report, then `spmv` on that plan
+    (one K6 launch, against the oracle, timed); then `[f64]` K6[f64], the
+    same on the plan cast to f64 (`cast_plan`; 1e-12 normwise)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.containers import DenseVector
+    from sblas_tpu_torch.ops import DiaPlan, make_plan, spmv
+    from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
+    dev = torch.device("cuda", 0)
+    sv = make_plan(S, dtype=torch.float32, op="spmv", device=dev)
+    if not isinstance(sv, DiaPlan):
+        raise AssertionError(f"shell SpMV plan {type(sv).__name__}, "
+                             f"expected DiaPlan")
+    x = DenseVector.random(S.width, dtype=np.float32)
+    y = DenseVector.constant(S.height, 1.0, dtype=np.float32)
+    xd = torch.from_numpy(x.values).to(dev)
+    yd = torch.from_numpy(y.values).to(dev)
+    want = spmv_cpu(S, x, ALPHA, BETA, y)
+    rec = kernels["dia_spmv"] = k6_record(S, sv, xd, yd, F32_REL_TOL)
+    res = _kernels.kernel_resources(_kernels.ptxas_report() or "",
+                                    "dia_spmv_kernel")
+    out, counts = launches_of(counters,
+                              lambda: spmv(sv, xd, ALPHA, BETA, yd))
+    expect_launches("DIA SpMV", counts, dict(none, dia_spmv=1))
+    variant_launches("DIA SpMV", {"dia_spmv_f32": 1})
+    rec["launches"] = counts["dia_spmv"]
+    phase("K6 dia_spmv", shape=S.shape, nnz=S.nnz,
+          n_diags=len(sv.offsets), max_abs_err=f"{rec['max_abs_err']:.3e}",
+          deterministic=True, ms=f"{rec['ms']:.5f}",
+          bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+          share_of_bound=f"{rec['bound_ms'] / rec['ms']:.3f}",
+          csr_bound_ms=f"{rec['csr_bound_ms']:.5f}",
+          csr_share=f"{rec['csr_bound_ms'] / rec['ms']:.3f}",
+          plain_ms=f"{rec['plain_ms']:.5f}",
+          library_ms=f"{rec['library_ms']:.5f}",
+          sparse_mm_ms=f"{rec['sparse_mm_ms']:.5f}",
+          resources=[(r["registers"], r["spill_stores"], r["spill_loads"])
+                     for r in res])
+    phase("dia spmv", plan="DiaPlan", shape=S.shape, nnz=S.nnz,
+          launches=counts, check=checked("DIA SpMV", out, want),
+          **call_times(lambda: spmv(sv, xd, ALPHA, BETA, yd), S.nnz))
+    t0 = time.perf_counter()
+    sv64 = cast_plan(sv, torch.float64)
+    x64, y64 = xd.double(), yd.double()
+    rec = kernels["dia_spmv[f64]"] = k6_record(S, sv64, x64, y64,
+                                                F64_REL_TOL)
+    out, counts = launches_of(counters,
+                              lambda: spmv(sv64, x64, ALPHA, BETA, y64))
+    expect_launches("DIA SpMV f64", counts, dict(none, dia_spmv=1))
+    variant_launches("DIA SpMV f64", {"dia_spmv_f64": 1})
+    rec["launches"] = counts["dia_spmv"]
+    f64_line("dia_spmv", rec, plan="shell SpMV DIA cast to f64",
+             csr_bound_ms=f"{rec['csr_bound_ms']:.5f}",
+             sparse_mm_ms=f"{rec['sparse_mm_ms']:.5f}",
+             check=checked("DIA SpMV f64", out, want))
+    F64_SECONDS["dia_spmv"] = time.perf_counter() - t0
 
 
 def f64_dia(S, splan, Bd, Cd, want, counters, none, kernels) -> None:
@@ -2682,7 +2776,7 @@ def solve_phases(A, mesh, counters, none) -> None:
     from sblas_tpu_torch.containers import CooMatrix
     from sblas_tpu_torch.examples.cg import build_spd, scipy_csr
     from sblas_tpu_torch.examples.pagerank import pagerank_numpy, transition
-    from sblas_tpu_torch.ops import make_plan
+    from sblas_tpu_torch.ops import DiaPlan, make_plan
     from sblas_tpu_torch.ops.rspmv import RoutedPlan
     from sblas_tpu_torch.parallel import partition_row_plans, partition_xfoot
     dev, f32, tol, chunk = mesh.device, torch.float32, 1e-6, 16
@@ -2713,13 +2807,17 @@ def solve_phases(A, mesh, counters, none) -> None:
     inv_d = solvers.jacobi_inv_diag(S, f32, device=dev)
     phase("solve", system="shell SPD", shape=S.shape, nnz=S.nnz,
           plan=type(splan).__name__, build_s=f"{build_s:.2f}")
+    # over a DIA plan, K6 once a matvec: the eager initial residual, the
+    # capture's warm-up step and the chunk's captured iterations
+    cg_expect = (dict(none, dia_spmv=2 + chunk)
+                 if isinstance(splan, DiaPlan) else none)
     cg_res = {}
     for label, M in (("cg", None), ("cg+jacobi", inv_d)):
         cg_res[label] = solve_pair(
             f"{label} shell SPD ({type(splan).__name__})",
             lambda graph, M=M: solvers.cg(splan, bd, tol=tol, maxiter=1000,
                                           M=M, chunk=chunk, graph=graph),
-            residual_check(Ssp, b, 10 * tol), counters, none)
+            residual_check(Ssp, b, 10 * tol), counters, cg_expect)
     del splan
 
     # ---- PageRank on the webbase-1M P^T (routed) ----

@@ -1,15 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under `csrc/` (K1 `route_kernels.cu`, K2 and K2'
-`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, K5
-`dia_kernels.cu`, the probes' P1 and P2 `probe_kernels.cu`, and the
+`rspmv_kernels.cu`, K3 `wcoo_kernels.cu`, K4 `bsr_kernels.cu`, K5 and
+K6 `dia_kernels.cu`, the probes' P1 and P2 `probe_kernels.cu`, and the
 shared headers `value_types.cuh` and `row_io.cuh`) each expose plain
 `extern "C"` launchers that return `cudaGetLastError()`, one per
 variant: `sblas_<kernel>_<variant>`, the variant naming the value type
 (`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
 `bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K3's and
 K4's `bf16_ragged` is their bf16 kernel for any stride and alignment,
-where `bf16` needs 16-byte rows and bases.  K1 and K2 are launched
+where `bf16` needs 16-byte rows and bases.  K1, K2 and K6 are launched
 with programmatic dependent launch (`row_io.cuh`).  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
@@ -65,6 +65,7 @@ LAUNCHERS = {
     "bell_spmm": ([_p] * 5 + [_i64] * 5 + [_f64, _f64],
                   ("f32", "f64", "bf16", "bf16_ragged")),
     "dia_spmm": ([_p] * 5 + [_i64] * 8 + [_f64, _f64], ("f32", "f64")),
+    "dia_spmv": ([_p] * 5 + [_i64] * 4 + [_f64, _f64], ("f32", "f64")),
     "stage_fuse_gather": ([_p] * 6 + [_i64], ("f32", "f64")),
     "window_lane_gather": ([_p] * 4 + [_i64, _i64], ("f32", "f64")),
 }

@@ -1,5 +1,7 @@
 // K5: DIA SpMM with its epilogue, C' = beta*C + alpha*A@B from a DIA
-// plan's value matrix, in one launch.
+// plan's value matrix, in one launch.  K6, the DIA SpMV, follows it
+// below; the two share this file, the plan's layout, the run table and
+// the copy helpers, and nothing of their schedules.
 //
 // Replaces no TPU kernel: sblas_tpu/ops/dia.py::spmm_dia leaves its
 // shift-and-FMA sum to XLA, which fuses it into one pass.  Eager PyTorch
@@ -66,6 +68,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "row_io.cuh"
 
 namespace {
 
@@ -428,6 +432,220 @@ int launch(const T* vals, const int32_t* runs, const T* B, const T* C,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// K6: DIA SpMV with its epilogue, y' = beta*y + alpha*A@x from a DIA
+// plan's value matrix, in one launch.
+//
+// Replaces no TPU kernel: sblas_tpu/ops/dia.py::spmv_dia leaves its sum
+// to XLA, which fuses it into one pass.  Eager PyTorch runs that sum as
+// one `addcmul_` per diagonal (ops/dia.py::spmv_dia_plain): 91 launches
+// at the FEM shell proxy, each reading a column of the row-major value
+// matrix at a stride of n_diags values, so every 4-byte value pulls in
+// a 32-byte sector of its own (about 263 MB a product), and each
+// read-modify-writing the accumulator; then three launches of epilogue,
+// a fill and a padded copy of x.  K5 does not serve K = 1: its B windows
+// and 8-lane row groups are built for 256-byte rows of B.
+//
+// What bounds it on the H100: device-memory bytes.  The values once, x,
+// y and y' once: 34.0 MB at the shell in f32, 10.15 us at 3.35 TB/s,
+// against 8.2 M multiply-adds.  So the design reads each value once, in
+// whole 16-byte copies, and keeps the sums off global memory (measured,
+// PERF.md: about 80 % of that bound in f32, 63 % in f64):
+// - A block owns a tile of consecutive rows, at most 128, one thread a
+//   row.  The tile's values are one contiguous stretch of the row-major
+//   matrix; the block brings it into shared memory by 16-byte cp.async
+//   copies, coalesced, each starting on 16 bytes (a tile starts on a
+//   multiple of 4 rows).  Where n_diags is even or the values do not
+//   start on 16 bytes, each copy is one value, into rows padded to an
+//   odd stride.
+// - Beside them, by the same cp.async, one window of x for each run of
+//   consecutive offsets (`dia_runs`, the table K5 reads; 5 at the shell):
+//   the tile's rows plus the run's width - 1, entries outside [0, n)
+//   zero-filled by the copy itself, as the plain version's padded x
+//   holds them, so x is never padded and plans with m != n (row and halo
+//   shards) need nothing more.  Summing from global x instead left a
+//   thread waiting on L2 for each cluster of diagonals: a third of the
+//   kernel's time (PERF.md, K6).
+// - The thread of row q sums vals[q, j] * x[q + off_j] over the plan's
+//   diagonals in order, the plain version's order for each output
+//   element, by fused multiply-adds, every operand in shared memory: row
+//   q's value j at element q * s + j (s odd: a warp's reads of one
+//   diagonal meet no bank twice), and diagonal d of a run at element q +
+//   d of the run's window (consecutive across the warp).
+// - Several blocks an SM keep later tiles' copies in flight while a
+//   block sums.  The launch is programmatic (PDL, row_io.cuh), so the
+//   blocks are scheduled while the grid before drains (inside a solver's
+//   graph, a small vector kernel); each waits before its first load, as
+//   any operand may be that grid's output, and lets the next grid in once
+//   its copies have landed.
+// - The epilogue writes beta*y + alpha*acc as three rounded operations,
+//   y read also at beta = 0, as the plain version's `beta * y + alpha *
+//   acc` does; without y (the wrapper's path for a y of another type) it
+//   writes alpha*acc.
+// - Where the run table and 4 rows do not fit in shared memory (above
+//   about 11,000 diagonals in f32), the threads read values and x from
+//   global memory, in the same order.
+//
+// Variants f32 and f64, one template over the value type, which is also
+// the summing type.  bf16 plans keep the plain loop.
+
+constexpr int kSpmvThreads = 128;   // a block's threads, a row each
+
+// bytes of a staged block's run table, ahead of its values
+__host__ __device__ __forceinline__ int spmv_table_bytes(int n_runs) {
+  return (n_runs * 12 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ float scale(float alpha, float acc) {
+  return __fmul_rn(alpha, acc);
+}
+__device__ __forceinline__ double scale(double alpha, double acc) {
+  return __dmul_rn(alpha, acc);
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kSpmvThreads)
+dia_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ runs,
+                int n_runs, int nd, int stride, int tile_rows,
+                const T* __restrict__ x, const T* __restrict__ y,
+                T* __restrict__ out, int64_t m, int64_t n, T alpha, T beta,
+                bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
+  const int rows =
+      m - r0 < tile_rows ? static_cast<int>(m - r0) : tile_rows;
+  int* table = reinterpret_cast<int*>(smem);
+  T* sv = reinterpret_cast<T*>(smem + spmv_table_bytes(n_runs));
+  T* sx = sv + tile_rows * stride;   // the runs' x windows
+  sblas::pdl_wait();
+  if constexpr (kStaged) {
+    // rows r0 .. r0 + rows - 1 of vals: rows * nd consecutive values
+    const T* tile = vals + r0 * nd;
+    const int count = rows * nd;
+    if (vec) {
+      const int bytes = count * static_cast<int>(sizeof(T));
+      const auto* src = reinterpret_cast<const unsigned char*>(tile);
+      const uint32_t dst = smem_addr(sv);
+      for (int b = tid * 16; b < bytes; b += kSpmvThreads * 16)
+        cp_async<16>(dst + b, src + b, bytes - b < 16 ? bytes - b : 16);
+    } else {
+      // value e = q nd + d to element q stride + d, stepped
+      const int dq = kSpmvThreads / nd, dd = kSpmvThreads % nd;
+      int q = tid / nd, d = tid % nd;
+      for (int e = tid; e < count; e += kSpmvThreads) {
+        cp_async<sizeof(T)>(smem_addr(sv + q * stride + d), tile + e,
+                            sizeof(T));
+        q += dq;
+        d += dd;
+        if (d >= nd) {
+          d -= nd;
+          ++q;
+        }
+      }
+    }
+    // run r's window: x[r0 + lo .. r0 + lo + rows + w - 2], outside [0, n)
+    // as zeros
+    int base = 0;
+    for (int r = 0; r < n_runs; ++r) {
+      const int lo = __ldg(runs + 3 * r), w = __ldg(runs + 3 * r + 2);
+      const int len = rows + w - 1;
+      const int64_t c0 = r0 + lo;
+      for (int e = tid; e < len; e += kSpmvThreads) {
+        const int64_t c = c0 + e;
+        const bool in = static_cast<uint64_t>(c) < static_cast<uint64_t>(n);
+        cp_async<sizeof(T)>(smem_addr(sx + base + e), in ? x + c : x,
+                            in ? static_cast<int>(sizeof(T)) : 0);
+      }
+      base += len;
+    }
+    cp_async_commit();
+    for (int e = tid; e < 3 * n_runs; e += kSpmvThreads) table[e] = runs[e];
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  sblas::pdl_trigger();
+  if (tid >= rows) return;
+  const int64_t i = r0 + tid;
+  T acc = T(0);
+  if constexpr (kStaged) {
+    const T* v = sv + tid * stride;
+    const T* xw = sx + tid;
+    for (int r = 0; r < n_runs; ++r) {
+      const int j0 = table[3 * r + 1], w = table[3 * r + 2];
+#pragma unroll 4
+      for (int d = 0; d < w; ++d) acc = madd(v[j0 + d], xw[d], acc);
+      xw += rows + w - 1;
+    }
+  } else {
+    const T* v = vals + i * nd;
+    for (int r = 0; r < n_runs; ++r) {
+      const int lo = __ldg(runs + 3 * r), j0 = __ldg(runs + 3 * r + 1);
+      const int w = __ldg(runs + 3 * r + 2);
+      for (int d = 0; d < w; ++d) {
+        const int64_t c = i + lo + d;
+        const T xv = static_cast<uint64_t>(c) < static_cast<uint64_t>(n)
+                         ? __ldg(x + c) : T(0);
+        acc = madd(__ldg(v + j0 + d), xv, acc);
+      }
+    }
+  }
+  out[i] = y ? epilogue(alpha, acc, beta, __ldg(y + i)) : scale(alpha, acc);
+}
+
+template <typename T>
+int launch_spmv(const T* vals, const int32_t* runs, const T* x, const T* y,
+                T* out, int64_t n_runs, int64_t nd, int64_t m, int64_t n,
+                double alpha, double beta, void* stream) {
+  if (nd < 1 || nd > INT32_MAX / 8 || n_runs < 1 || n_runs > nd || m < 0 ||
+      n < 0 || m / 4 >= INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return static_cast<int>(cudaGetLastError());
+  int dev = 0, cap = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  if (rc != 0) return rc;
+  // a tile's rows: kSpmvThreads, or as many as fit, a multiple of 4; a
+  // row takes its values (padded to an odd stride) and one element of
+  // each run's window, the windows (w - 1) more each
+  const int64_t stride = nd | 1;
+  const int64_t head = spmv_table_bytes(static_cast<int>(n_runs)) +
+                       (nd - n_runs) * static_cast<int64_t>(sizeof(T));
+  const int64_t row_bytes = (stride + n_runs) * sizeof(T);
+  int64_t rows = kSpmvThreads;
+  if (head + rows * row_bytes > cap)
+    rows = head < cap ? (cap - head) / row_bytes / 4 * 4 : 0;
+  cudaError_t err;
+  if (rows >= 4) {
+    const int smem = static_cast<int>(head + rows * row_bytes);
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        dia_spmv_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem));
+    if (rc != 0) return rc;
+    const bool vec =
+        stride == nd && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+    err = sblas::launch_pdl_smem(
+        dia_spmv_kernel<T, true>,
+        dim3(static_cast<unsigned int>((m + rows - 1) / rows)),
+        dim3(kSpmvThreads), smem, stream, vals, runs,
+        static_cast<int>(n_runs), static_cast<int>(nd),
+        static_cast<int>(stride), static_cast<int>(rows), x, y, out, m, n,
+        static_cast<T>(alpha), static_cast<T>(beta), vec);
+  } else {
+    err = sblas::launch_pdl_smem(
+        dia_spmv_kernel<T, false>,
+        dim3(static_cast<unsigned int>((m + kSpmvThreads - 1) /
+                                       kSpmvThreads)),
+        dim3(kSpmvThreads), 0, stream, vals, runs, static_cast<int>(n_runs),
+        static_cast<int>(nd), static_cast<int>(stride), kSpmvThreads, x, y,
+        out, m, n, static_cast<T>(alpha), static_cast<T>(beta), false);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -451,6 +669,24 @@ int sblas_dia_spmm_f64(const double* vals, const int32_t* runs,
                        double alpha, double beta, void* stream) {
   return launch(vals, runs, B, C, out, n_runs, nd, wmax, m, n, k, ldb, ldc,
                 alpha, beta, stream);
+}
+
+// out (m) = beta*y + alpha*A@x; runs: (n_runs, 3) int32 (lo, j0, width),
+// K5's table; x (n) and y (m) contiguous; y null: out = alpha*A@x
+int sblas_dia_spmv_f32(const float* vals, const int32_t* runs, const float* x,
+                       const float* y, float* out, int64_t n_runs, int64_t nd,
+                       int64_t m, int64_t n, double alpha, double beta,
+                       void* stream) {
+  return launch_spmv(vals, runs, x, y, out, n_runs, nd, m, n, alpha, beta,
+                     stream);
+}
+
+int sblas_dia_spmv_f64(const double* vals, const int32_t* runs,
+                       const double* x, const double* y, double* out,
+                       int64_t n_runs, int64_t nd, int64_t m, int64_t n,
+                       double alpha, double beta, void* stream) {
+  return launch_spmv(vals, runs, x, y, out, n_runs, nd, m, n, alpha, beta,
+                     stream);
 }
 
 }  // extern "C"

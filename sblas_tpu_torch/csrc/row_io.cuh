@@ -1,7 +1,7 @@
 // What K1, K2 and P1 share: a warp on a whole 128-lane row, its lanes
 // loaded and stored as vectors (`Pack`, `store_vec`; `RowShare` for K1
-// and K2), and K1's and K2's launch with Hopper's programmatic dependent
-// launch (PDL).
+// and K2), and K1's, K2's and K6's launch with Hopper's programmatic
+// dependent launch (PDL).
 //
 // PDL: `launch_pdl` launches a grid with programmatic stream
 // serialization, so its blocks may be scheduled while the grid before it
@@ -81,22 +81,30 @@ __device__ __forceinline__ void pdl_trigger() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-// `kernel<<<grid, block, 0, stream>>>(args...)` with programmatic stream
-// serialization; returns the launch's error.
+// `kernel<<<grid, block, smem, stream>>>(args...)` with programmatic
+// stream serialization; returns the launch's error.
 template <typename... Params, typename... Args>
-cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
-                       void* stream, Args... args) {
+cudaError_t launch_pdl_smem(void (*kernel)(Params...), dim3 grid,
+                            dim3 block, size_t smem, void* stream,
+                            Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// the same without dynamic shared memory
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+                       void* stream, Args... args) {
+  return launch_pdl_smem(kernel, grid, block, 0, stream, args...);
 }
 
 }  // namespace sblas

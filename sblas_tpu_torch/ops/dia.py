@@ -8,11 +8,14 @@ diagonal, and
 Every term is a static-offset slice of (zero-padded) x or B, so there is
 no gather and no scatter.  The JAX package leaves the loop to XLA, which
 fuses it into one pass.  Eager torch runs it as one in-place `addcmul_`
-per diagonal (91 on the shell proxy): `spmv_dia`, and `spmm_dia_plain`,
-the SpMM's plain version.  On the card an f32 or f64 SpMM is one launch
-of kernel K5 (`dia_spmm`, csrc/dia_kernels.cu), which reads B once per
-run of consecutive offsets (`dia_runs`) and writes `beta*C + alpha*A@B`
-in its epilogue; bf16 SpMMs and every SpMV keep the loop.
+per diagonal (91 on the shell proxy): `spmv_dia_plain` and
+`spmm_dia_plain`, the plain versions.  On the card an f32 or f64 SpMM is
+one launch of kernel K5 (`dia_spmm`, csrc/dia_kernels.cu), which reads B
+once per run of consecutive offsets (`dia_runs`) and writes
+`beta*C + alpha*A@B` in its epilogue; an f32 or f64 SpMV is one launch of
+kernel K6 (`dia_spmv`, the same file), which stages a tile of rows'
+values and one window of x a run in shared memory and writes
+`beta*y + alpha*A@x`.  CPU plans and bf16 plans keep the loop.
 """
 
 from __future__ import annotations
@@ -30,11 +33,12 @@ from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..utils import trace
 from ..utils.errors import KernelError, ShapeError, require
-from .plans import Plan, host_value_dtype
+from .plans import Plan, fold, host_value_dtype
 
 # the widest run of consecutive offsets K5 takes in one B window; a
 # longer one is split (`kRunCap` in csrc/dia_kernels.cu: at 28 three of
-# the kernel's blocks fit an SM's shared memory)
+# the kernel's blocks fit an SM's shared memory).  K6 stages one window
+# of x a run of the same table.
 RUN_CAP = 28
 
 
@@ -111,8 +115,8 @@ def _x_padded(plan: DiaPlan, x: torch.Tensor):
     return F.pad(x, pad), lead
 
 
-def spmv_dia(plan: DiaPlan, x: torch.Tensor, alpha, beta,
-             y: torch.Tensor) -> torch.Tensor:
+def spmv_dia_plain(plan: DiaPlan, x: torch.Tensor, alpha, beta,
+                   y: torch.Tensor) -> torch.Tensor:
     """y' = beta*y + alpha*A@x, one `addcmul_` per diagonal, counted as
     `dia_spmv_loop_calls` on every device (under a CUDA graph: its
     capture, not each replay)."""
@@ -153,11 +157,12 @@ def dia_runs(offsets: Tuple[int, ...]) -> tuple:
     return tuple(runs)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _run_table(offsets: Tuple[int, ...], device: torch.device) -> tuple:
-    """(K5's run table on `device`, an (n_runs, 3) int32 tensor of
-    `dia_runs(offsets)`, and the widest run): made once per offsets and
-    device, so a call copies nothing to the device."""
+    """(K5's and K6's run table on `device`, an (n_runs, 3) int32 tensor
+    of `dia_runs(offsets)`, and the widest run): made once per offsets
+    and device, so a call copies nothing to the device.  Never evicted: a
+    captured CUDA graph (a solver's chunk) keeps reading it."""
     runs = dia_runs(offsets)
     table = torch.tensor(runs, dtype=torch.int32).reshape(len(runs), 3)
     return table.to(device), max((w for _, _, w in runs), default=0)
@@ -194,6 +199,60 @@ def dia_spmm(plan: DiaPlan, B: torch.Tensor, C: torch.Tensor, alpha,
 
 
 dia_spmm.launches = 0   # K5 launches since the last reset
+
+
+def dia_spmv(plan: DiaPlan, x: torch.Tensor, y, alpha,
+             beta) -> torch.Tensor:
+    """Kernel K6: beta*y + alpha*A@x in one launch, into a new (m,)
+    tensor; y=None gives alpha*A@x without reading y.  x (n,) and y (m,)
+    in the plan's dtype on its device, with unit stride; raises
+    otherwise."""
+    dev, dt = plan.vals.device, plan.dtype
+    variant = _kernels.value_suffix(dt)
+    m, n = plan.shape
+    nd = len(plan.offsets)
+    _kernels.check_operand(plan.vals, "vals", dt, (m, nd), dev)
+    for t, name, rows in ((x, "x", n), (y, "y", m)):
+        # as check_operand: the messages are formatted only on a failure
+        if t is None or (t.device == dev and t.dtype == dt
+                         and t.shape == (rows,)
+                         and (t.stride(0) == 1 or rows <= 1)):
+            continue
+        require(t.device == dev and t.dtype == dt, KernelError,
+                f"{name} is {t.dtype} on {t.device}, expected {dt} on {dev}")
+        require(tuple(t.shape) == (rows,), ShapeError,
+                f"{name} has shape {tuple(t.shape)}, expected {(rows,)}")
+        require(t.stride(0) == 1 or rows <= 1, KernelError,
+                f"{name} has stride {t.stride(0)}, expected 1")
+    table, _ = _run_table(plan.offsets, dev)
+    out = torch.empty(m, dtype=dt, device=dev)
+    _kernels.launch(_kernels.launcher("dia_spmv", variant), dev, plan.vals,
+                    table, x, y, out, table.shape[0], nd, m, n,
+                    float(alpha), float(beta))
+    dia_spmv.launches += 1
+    return out
+
+
+dia_spmv.launches = 0   # K6 launches since the last reset
+
+
+def spmv_dia(plan: DiaPlan, x: torch.Tensor, alpha, beta,
+             y: torch.Tensor) -> torch.Tensor:
+    """y' = beta*y + alpha*A@x.  CPU plans, and bf16 plans elsewhere (their
+    bf16 running sum is the JAX package's), take the plain loop
+    (`spmv_dia_plain`).  Elsewhere f32 and f64 plans launch K6 once,
+    counted as `dia_spmv_kernel_calls`, with x taken in the plan's dtype.
+    Where y is of another dtype, K6 forms A@x alone and the epilogue runs
+    in the result's dtype (`plans.fold`), so y is never rounded to the
+    plan's."""
+    if plan.vals.device.type == "cpu" or plan.dtype == torch.bfloat16:
+        return spmv_dia_plain(plan, x, alpha, beta, y)
+    trace.count("dia_spmv_kernel_calls")
+    dt = plan.dtype
+    x = x.to(dt).contiguous()
+    if y.dtype == dt:
+        return dia_spmv(plan, x, y.contiguous(), alpha, beta)
+    return fold(alpha, dia_spmv(plan, x, None, 1.0, 0.0), beta, y, dt)
 
 
 def _unit_columns(t: torch.Tensor) -> torch.Tensor:

@@ -1,32 +1,40 @@
-"""The DIA SpMM's kernel K5 (`ops/dia.py::dia_spmm`,
-csrc/dia_kernels.cu) on the CPU: its run table, its schedule run here in
-torch against the plain loop, and the dispatch of `spmm_dia`.
+"""The DIA kernels K5 (the SpMM, `ops/dia.py::dia_spmm`) and K6 (the
+SpMV, `ops/dia.py::dia_spmv`; both csrc/dia_kernels.cu) on the CPU: K5's
+run table, each kernel's schedule run here in torch against the plain
+loop, and the dispatch of `spmm_dia` and `spmv_dia`.
 
-K5 itself runs only on the card (tests/test_torch_kernels_cuda.py).  Here
-`dia_runs` is checked on hand-made and shard offsets, K5's decomposition
-(a tile of rows, a 256-byte column slice, one zero-filled B window a
-run, the epilogue on C's tile) is replayed in torch at the plans the
-kernel serves, and `spmm_dia` is driven on a device off the CPU (`meta`:
-shapes without storage) with the launcher replaced, to see what it would
-launch."""
+The kernels themselves run only on the card
+(tests/test_torch_kernels_cuda.py).  Here `dia_runs` is checked on
+hand-made and shard offsets, K5's decomposition (a tile of rows, a
+256-byte column slice, one zero-filled B window a run, the epilogue on
+C's tile) and K6's (a tile of rows staged whole, one row a thread, x
+read as zero outside [0, n), the epilogue with or without y) are
+replayed in torch at the plans the kernels serve, and `spmm_dia` and
+`spmv_dia` are driven on a device off the CPU (`meta`: shapes without
+storage) with the launcher replaced, to see what they would launch."""
 
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sblas_tpu.containers import CsrMatrix as JCsrMatrix
+from sblas_tpu.ops import dia as jdia
 from sblas_tpu_torch import _kernels
 from sblas_tpu_torch.containers import CsrMatrix
 from sblas_tpu_torch.io.generate import fem_banded_like, fem_shell_like
-from sblas_tpu_torch.ops import make_plan, spmm
+from sblas_tpu_torch.ops import make_plan, spmm, spmv
 from sblas_tpu_torch.ops import dia as tdia
+from sblas_tpu_torch.ops.plans import fold
 from sblas_tpu_torch.parallel import partition_halo_dia, partition_row_plans
 from sblas_tpu_torch.utils import trace
 from sblas_tpu_torch.utils.errors import KernelError, ShapeError
 
 SOURCE = Path(tdia.__file__).parents[1] / "csrc" / "dia_kernels.cu"
+ALPHA, BETA = 3.0, 4.0
 
 
 def _offsets_matrix(n: int, offsets, seed: int = 3, m: int = None):
@@ -148,11 +156,27 @@ def _plan_case(name: str, dtype):
     if name == "wide":   # a run of 61 diagonals: three runs at the cap
         A = fem_banded_like(n=300, half_band=30, dtype=np.float64)
         return make_plan(A, dtype=dtype, force="dia", device="cpu")
+    if name == "edges":   # offsets past both edges; values everywhere
+        return _random_plan(50, 70, (-53, -2, 0, 5, 71), dtype)
+    if name == "many":    # 1001 diagonals: K6 stages fewer than 128 rows
+        return _random_plan(300, 1300, tuple(range(-500, 501)), dtype)
+    if name == "huge":    # 12001: K6 reads the values in place
+        return _random_plan(40, 12040, tuple(range(-6000, 6001)), dtype)
     A = fem_shell_like(nx=16, ny=8, n_target=768, dtype=np.float64)
     if name == "shard":
         return partition_row_plans(A, 3, dtype=dtype, kind="dia",
                                    device="cpu").plans[1]
     return partition_halo_dia(A, 3, dtype=dtype, device="cpu").plans[2]
+
+
+def _random_plan(m: int, n: int, offsets, dtype, seed: int = 5):
+    """An m x n DiaPlan of `offsets` whose every stored value is uniform in
+    [-1, 1), those of positions outside the matrix included: only a
+    product with x read as zero there leaves them out of the sum."""
+    vals = np.random.default_rng(seed).uniform(-1, 1, (m, len(offsets)))
+    return tdia.DiaPlan.from_numpy(
+        dict(vals=vals), dict(offsets=tuple(offsets), shape=(m, n),
+                              nnz=vals.size), "cpu", dtype=dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -264,3 +288,284 @@ def test_dia_spmm_refuses_what_k5_does_not_take(monkeypatch):
                      ((B, torch.empty((m, 8))), KernelError)):
         with pytest.raises(err):
             tdia.dia_spmm(plan, *bad, 1.0, 1.0)
+
+
+# ---- K6 (dia_spmv) ----
+
+K6_THREADS = 128
+K6_SMEM = 232448   # the H100's shared memory a block may opt into
+
+
+def _k6_tile_rows(offsets, itemsize: int) -> int:
+    """A K6 tile's rows, as the launcher picks them: 128, or as many as
+    fit beside the run table (a row: its values padded to an odd stride
+    and one element of each run's x window; the windows w - 1 more each),
+    a multiple of 4; 0 where 4 do not fit and the values are read in
+    place."""
+    nd, n_runs = len(offsets), len(tdia.dia_runs(tuple(offsets)))
+    head = (n_runs * 12 + 15) // 16 * 16 + (nd - n_runs) * itemsize
+    row = ((nd | 1) + n_runs) * itemsize
+    if head + K6_THREADS * row <= K6_SMEM:
+        return K6_THREADS
+    return (K6_SMEM - head) // row // 4 * 4 if head < K6_SMEM else 0
+
+
+def _k6_schedule(plan, x, y, alpha, beta, tr: int):
+    """K6's decomposition in torch: tiles of `tr` rows, each tile's values
+    the contiguous stretch vals[r0 * nd:(r0 + rows) * nd]; for each run
+    (lo, j0, w) of `dia_runs` one window of x, x[r0 + lo + e] for e <
+    rows + w - 1, zero outside [0, n); row q adds vals[q, j0 + d] *
+    window[q + d] for the runs and d in order; then beta*y + alpha*acc,
+    or alpha*acc where y is None."""
+    m, n = plan.shape
+    nd = len(plan.offsets)
+    flat = plan.vals.reshape(-1)
+    out = torch.empty(m, dtype=plan.dtype)
+    for r0 in range(0, m, tr):
+        rows = min(tr, m - r0)
+        tile = flat[r0 * nd:(r0 + rows) * nd].view(rows, nd)
+        acc = torch.zeros(rows, dtype=plan.dtype)
+        for lo, j0, w in tdia.dia_runs(plan.offsets):
+            c = torch.arange(r0 + lo, r0 + lo + rows + w - 1)
+            ok = (c >= 0) & (c < n)
+            win = torch.zeros(rows + w - 1, dtype=plan.dtype)
+            win[ok] = x[c[ok]]
+            for d in range(w):
+                acc.addcmul_(tile[:, j0 + d], win[d:d + rows])
+        out[r0:r0 + rows] = (alpha * acc if y is None else
+                             beta * y[r0:r0 + rows] + alpha * acc)
+    return out
+
+
+def test_k6_threads_are_the_kernels():
+    """The schedule's tile rows are the kernel's (`kSpmvThreads`), and
+    the launcher takes the arguments `_kernels.LAUNCHERS` declares."""
+    src = SOURCE.read_text()
+    threads = re.search(r"constexpr int kSpmvThreads = (\d+);", src)
+    assert threads and int(threads.group(1)) == K6_THREADS
+    types, variants = _kernels.LAUNCHERS["dia_spmv"]
+    assert variants == ("f32", "f64")
+    for v in variants:
+        sig = re.search(rf"int sblas_dia_spmv_{v}\(([^)]*)\)", src)
+        assert sig and sig.group(1).count(",") + 1 == len(types) + 1
+
+
+@pytest.mark.parametrize("name,rows", [
+    ("shell", (128, 128)), ("gaps", (128, 128)), ("many", (52, 24)),
+    ("huge", (0, 0))])
+def test_k6_tile_rows(name, rows):
+    """128 rows a tile while they fit; fewer, a multiple of 4, at 1001
+    diagonals; none at 12001 (the values read in place)."""
+    plan = _plan_case(name, torch.float32)
+    assert (_k6_tile_rows(plan.offsets, 4),
+            _k6_tile_rows(plan.offsets, 8)) == rows
+
+
+K6_NAMES = ["shell", "gaps", "wide", "shard", "halo", "edges", "many"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", K6_NAMES)
+@pytest.mark.parametrize("alpha,beta,with_y,tr", [
+    (3.0, 4.0, True, None), (-2.5, 0.0, True, 36), (1.0, 0.0, False, None)])
+def test_k6_schedule_matches_plain(dtype, name, alpha, beta, with_y, tr):
+    """The schedule forms the plain loop's products in its order, so it
+    agrees with `spmv_dia_plain` to rounding: normwise 1e-12 in f64,
+    1e-6 in f32, at the kernel's tile rows and at 36 (a ragged last
+    tile), on plans with m != n and offsets past both edges.  An Inf in x
+    gives Inf and NaN in the same places, and a NaN in y at beta = 0
+    reaches its row."""
+    plan = _plan_case(name, dtype)
+    m, n = plan.shape
+    tr = tr or _k6_tile_rows(plan.offsets, plan.vals.element_size())
+    g = torch.Generator().manual_seed(m + n)
+    x = torch.rand(n, generator=g, dtype=torch.float64).to(dtype)
+    y = torch.rand(m, generator=g, dtype=torch.float64).to(dtype)
+    want = tdia.spmv_dia_plain(plan, x, alpha, beta,
+                               y if with_y else torch.zeros_like(y))
+    got = _k6_schedule(plan, x, y if with_y else None, alpha, beta, tr)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol * scale
+    x[n // 2] = float("inf")
+    y[m // 3] = float("nan")
+    want = tdia.spmv_dia_plain(plan, x, alpha, beta,
+                               y if with_y else torch.zeros_like(y))
+    got = _k6_schedule(plan, x, y if with_y else None, alpha, beta, tr)
+    assert torch.equal(want.isnan(), got.isnan())
+    assert torch.equal(want.isinf(), got.isinf())
+    assert bool(got[m // 3].isnan()) == with_y
+
+
+def test_k6_schedule_reads_huge_plans_in_place():
+    """12001 diagonals: no 4 rows fit in shared memory, so K6 reads the
+    values and x in place, one row a thread, run by run; the same sums."""
+    plan = _plan_case("huge", torch.float32)
+    m, n = plan.shape
+    g = torch.Generator().manual_seed(1)
+    x, y = torch.rand(n, generator=g), torch.rand(m, generator=g)
+    want = tdia.spmv_dia_plain(plan, x, 3.0, 4.0, y)
+    got = _k6_schedule(plan, x, y, 3.0, 4.0, K6_THREADS)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_spmv_dia_on_cpu_is_the_plain_loop(monkeypatch):
+    monkeypatch.setattr(_kernels, "launch", _no_launch)
+    plan = _plan_case("shell", torch.float32)
+    m, n = plan.shape
+    x, y = torch.rand(n), torch.rand(m)
+    with trace.recording() as rec:
+        got = spmv(plan, x, 3.0, 4.0, y)
+    assert torch.equal(got, tdia.spmv_dia_plain(plan, x, 3.0, 4.0, y))
+    assert rec.counters == {"dia_spmv_loop_calls": 1}
+
+
+def test_spmv_dia_bf16_off_the_cpu_takes_the_loop(monkeypatch):
+    """A bf16 plan off the CPU runs the loop (its bf16 running sum),
+    counted as `dia_spmv_loop_calls`; K6 is not launched."""
+    monkeypatch.setattr(_kernels, "launch", _no_launch)
+    plan = _plan_case("shell", torch.bfloat16).to("meta")
+    m, n = plan.shape
+    x = torch.empty(n, dtype=torch.bfloat16, device="meta")
+    y = torch.empty(m, dtype=torch.bfloat16, device="meta")
+    with trace.recording() as rec:
+        out = spmv(plan, x, 3.0, 4.0, y)
+        spmv(plan, x, 3.0, 4.0, y)
+    assert rec.counters == {"dia_spmv_loop_calls": 2}
+    assert out.shape == (m,) and out.dtype == torch.bfloat16
+
+
+def _dispatched(fn) -> tuple:
+    """fn()'s result and the ATen ops it dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return out, ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["shell", "shard", "halo", "many"])
+def test_spmv_dia_off_the_cpu_launches_k6_once(monkeypatch, dtype, name):
+    """f32 and f64 plans off the CPU: one K6 launch a call with the
+    offsets' table, x, y and an `empty` result, counted as
+    `dia_spmv_kernel_calls`; no pad of x, no accumulator fill, no
+    epilogue op is dispatched beside it."""
+    calls = _recorded_launches(monkeypatch)
+    plan = _plan_case(name, dtype).to("meta")
+    (m, n), nd = plan.shape, len(plan.offsets)
+    x = torch.empty(n, dtype=dtype, device="meta")
+    y = torch.empty(m, dtype=dtype, device="meta")
+    tdia.dia_spmv.launches = 0
+    table = tdia._run_table(plan.offsets, plan.vals.device)[0]
+    with trace.recording() as rec:
+        out, ops = _dispatched(lambda: spmv(plan, x, -2.5, 0.0, y))
+    assert len(calls) == 1 and tdia.dia_spmv.launches == 1
+    assert set(ops) == {"empty"}, ops
+    name_, args = calls[0]
+    assert name_ == f"sblas_dia_spmv_{_kernels.SUFFIX[dtype]}"
+    assert all(a is b for a, b in zip(args[:5], (plan.vals, table, x, y,
+                                                  out)))
+    n_runs = len(tdia.dia_runs(plan.offsets))
+    assert tuple(table.shape) == (n_runs, 3)
+    assert args[5:] == (n_runs, nd, m, n, -2.5, 0.0)
+    assert out.shape == (m,) and out.dtype == dtype
+    assert rec.counters == {"dia_spmv_kernel_calls": 1}
+
+
+def test_run_table_is_kept_for_captured_graphs():
+    """The run table K5 and K6 read is made once per offsets and device
+    and never evicted (a captured graph keeps its address)."""
+    plan = _plan_case("edges", torch.float32)
+    table, wmax = tdia._run_table(plan.offsets, plan.vals.device)
+    assert table.tolist() == [[-53, 0, 1], [-2, 1, 1], [0, 2, 1],
+                              [5, 3, 1], [71, 4, 1]] and wmax == 1
+    assert tdia._run_table.cache_info().maxsize is None
+    assert tdia._run_table(plan.offsets, plan.vals.device)[0] is table
+
+
+def test_dia_spmv_refuses_what_k6_does_not_take(monkeypatch):
+    monkeypatch.setattr(_kernels, "launch", _no_launch)
+    plan = _plan_case("shell", torch.float32).to("meta")
+    m, n = plan.shape
+    x = torch.empty(n, device="meta")
+    y = torch.empty(m, device="meta")
+    for bad, err in (((x.double(), y), KernelError),
+                     ((x, y[:-1]), ShapeError),
+                     ((x[:-1], y), ShapeError),
+                     ((torch.empty(2 * n, device="meta")[::2], y),
+                      KernelError),
+                     ((x, torch.empty(m)), KernelError),
+                     ((x, y.double()), KernelError)):
+        with pytest.raises(err):
+            tdia.dia_spmv(plan, *bad, 1.0, 1.0)
+    bf = _plan_case("shell", torch.bfloat16).to("meta")
+    with pytest.raises(KernelError):
+        tdia.dia_spmv(bf, x.bfloat16(), y.bfloat16(), 1.0, 1.0)
+
+
+def test_spmv_dia_takes_x_in_the_plans_dtype(monkeypatch):
+    """An x of another dtype or stride is taken in the plan's dtype with
+    unit stride, and K6 launched once."""
+    calls = _recorded_launches(monkeypatch)
+    plan = _plan_case("shell", torch.float32).to("meta")
+    m, n = plan.shape
+    x = torch.empty(2 * n, dtype=torch.float64, device="meta")[::2]
+    y = torch.empty(m, device="meta")
+    out = spmv(plan, x, 3.0, 4.0, y)
+    assert len(calls) == 1 and out.dtype == torch.float32
+    xa = calls[0][1][2]
+    assert xa.dtype == torch.float32 and xa.stride() == (1,)
+
+
+@pytest.mark.parametrize("plan_dtype,y_dtype,jax_dtypes,bar", [
+    (torch.float32, torch.float64, (jnp.float32, jnp.float64), 1e-5),
+    (torch.float64, torch.float32, (jnp.float64, jnp.float32), 1e-6)])
+def test_spmv_dia_keeps_a_wider_y(monkeypatch, plan_dtype, y_dtype,
+                                  jax_dtypes, bar):
+    """y of another dtype than the plan: the result has the dtype
+    `beta*y + alpha*(A@x)` has, and a wider y is never rounded to the
+    plan's dtype.  On the CPU that is the plain loop, which meets the JAX
+    package's spmv_dia (which keeps y in its dtype) at the plan dtype's
+    error.  Off the CPU K6 forms A@x alone (no y, alpha 1, beta 0) and the
+    epilogue runs in the result's dtype (`plans.fold`): K6's schedule
+    folded so equals the plain loop to the result dtype's rounding."""
+    A = _offsets_matrix(200, [*range(-40, -34), *range(-3, 4), 17,
+                              *range(50, 54)])
+    rng = np.random.RandomState(0)
+    x = rng.rand(A.width)
+    y = rng.rand(A.height) * 1000 + 1
+    plan = make_plan(A, dtype=plan_dtype, force="dia", device="cpu")
+    yt = torch.from_numpy(y).to(y_dtype)
+    xt = torch.from_numpy(x).to(plan_dtype)
+    got = spmv(plan, xt, ALPHA, BETA, yt)
+    res = torch.promote_types(plan_dtype, y_dtype)
+    assert got.dtype == res
+    if res == y_dtype:
+        assert not torch.equal(got, got.to(plan_dtype).to(y_dtype))
+    folded = fold(ALPHA, _k6_schedule(plan, xt, None, 1.0, 0.0, 128), BETA,
+                  yt, plan_dtype)
+    assert folded.dtype == res
+    tol = 1e-12 if plan_dtype == torch.float64 else 1e-6
+    assert float((folded - got).abs().max()) <= tol * float(got.abs().max())
+    jp = jdia.DiaPlan.from_csr(
+        JCsrMatrix(A.row_ptr, A.col_idx, A.values, A.shape),
+        dtype=jax_dtypes[0])
+    want = np.asarray(jdia.spmv_dia(jp, jnp.asarray(x, jax_dtypes[0]),
+                                    ALPHA, BETA,
+                                    jnp.asarray(y, jax_dtypes[1])))
+    assert want.dtype == got.numpy().dtype
+    rel = np.abs(got.numpy() - want) / np.abs(want)
+    assert rel.max() <= bar, rel.max()
+    calls = _recorded_launches(monkeypatch)
+    mp = plan.to("meta")
+    out = spmv(mp, xt.to("meta"), ALPHA, BETA, yt.to("meta"))
+    assert out.dtype == res and len(calls) == 1
+    args = calls[0][1]
+    assert args[3] is None and args[-2:] == (1.0, 0.0)

@@ -572,6 +572,180 @@ def test_spmm_dia_is_k5_alone(dev):
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
 
 
+# ---- K6 (dia_spmv) ----
+
+def _dia_vectors(plan, dev, seed=0):
+    """x (n,) and y (m,) in [-1, 1) in the plan's dtype on `dev`."""
+    m, n = plan.shape
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    x, y = (torch.rand(k, generator=g, device=dev, dtype=torch.float64)
+            .mul(2).sub(1).to(plan.dtype) for k in (n, m))
+    return x, y
+
+
+def _spmv_checked(plan, x, y, alpha, beta):
+    """K6 twice through `spmv_dia` and the plain loop on the same card
+    tensors: one launch a call, the two calls bitwise equal, and K6
+    normwise within 1e-5 (f32) / 1e-12 (f64) of the loop (the same
+    products in the same order; K6 fuses each multiply-add), with NaN and
+    Inf in the same places.  Returns (K6's result, the loop's)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.ops import dia as tdia
+    name = f"sblas_dia_spmv_{_kernels.SUFFIX[plan.dtype]}"
+    _kernels.LAUNCHED.clear()
+    got = tdia.spmv_dia(plan, x, alpha, beta, y)
+    assert dict(_kernels.LAUNCHED) == {name: 1}
+    again = tdia.spmv_dia(plan, x, alpha, beta, y)
+    assert dict(_kernels.LAUNCHED) == {name: 2}
+    want = tdia.spmv_dia_plain(plan, x, alpha, beta, y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, again, rtol=0, atol=0, equal_nan=True)
+    tol = 1e-12 if plan.dtype == torch.float64 else 1e-5
+    fin = want.isfinite()
+    scale = max(1.0, float(want[fin].abs().max()))
+    assert float((got[fin] - want[fin]).abs().max()) <= tol * scale
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["shell", "gaps", "wide", "shard", "halo",
+                                  "edges", "many", "huge"])
+@pytest.mark.parametrize("alpha,beta", [(3.0, 4.0), (-2.5, 0.0),
+                                        (1.0, 1.0)])
+def test_dia_spmv_kernel_matches_plain(dev, dtype, name, alpha, beta):
+    """K6 against the plain loop on the plans it serves
+    (tests/test_torch_dia.py::_plan_case): a small FEM shell, an even
+    count of diagonals (`gaps`: one value a copy, rows padded), a
+    rectangular mode 2 shard and a halo shard's extended window (m !=
+    n), offsets past both edges with values stored there, 1001 diagonals
+    (fewer rows a tile) and 12001 (values read in place); beta = 0 and
+    beta != 0."""
+    from test_torch_dia import _plan_case
+    plan = _plan_case(name, dtype).to(dev)
+    x, y = _dia_vectors(plan, dev)
+    _spmv_checked(plan, x, y, alpha, beta)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_spmv_kernel_at_the_shell(dev, dtype):
+    """The full shell's SpMV plan (90,449 rows, 91 diagonals: 16-byte
+    copies) and its values at an offset of one element (one value a
+    copy)."""
+    from sblas_tpu_torch.io.generate import fem_shell_like
+    S = fem_shell_like(dtype=np.float64)
+    plan = make_plan(S, dtype=dtype, force="dia", device=dev)
+    assert len(plan.offsets) == 91
+    x, y = _dia_vectors(plan, dev)
+    got, _ = _spmv_checked(plan, x, y, 3.0, 4.0)
+    buf = torch.empty(plan.vals.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = plan.vals.reshape(-1)
+    moved = dataclasses.replace(plan, vals=buf[1:].view(plan.vals.shape))
+    again, _ = _spmv_checked(moved, x, y, 3.0, 4.0)
+    assert torch.equal(got, again)
+
+
+def test_dia_spmv_kernel_non_finite(dev):
+    """An Inf in x and a NaN in y at beta = 0 reach the outputs they
+    reach in the loop."""
+    from test_torch_dia import _plan_case
+    plan = _plan_case("shell", torch.float32).to(dev)
+    x, y = _dia_vectors(plan, dev, seed=1)
+    x[plan.shape[1] // 2] = float("inf")
+    y[7] = float("nan")
+    got, _ = _spmv_checked(plan, x, y, 3.0, 0.0)
+    assert bool(got[7].isnan()) and not bool(got.isfinite().all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spmv_dia_is_k6_alone(dev, dtype):
+    """The DIA SpMV on the card is one K6 launch: nothing but the
+    result's allocation is dispatched beside it (no pad of x, no
+    accumulator fill, no epilogue ops); a y of another dtype adds the
+    epilogue in the result's dtype and keeps it unrounded."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.io.generate import fem_shell_like
+    from sblas_tpu_torch.ops import spmv
+    S = fem_shell_like(nx=40, ny=20, n_target=4800, dtype=np.float64)
+    plan = make_plan(S, dtype=dtype, force="dia", device=dev)
+    x, y = _dia_vectors(plan, dev)
+    spmv(plan, x, 1.0, 1.0, y)
+    _kernels.LAUNCHED.clear()
+    got, ops = _aten_ops(lambda: spmv(plan, x, 1.0, 1.0, y))
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {
+        f"sblas_dia_spmv_{_kernels.SUFFIX[dtype]}": 1}
+    assert set(ops) <= {"empty"}, ops
+    cpu = plan.to("cpu")
+    want = spmv(cpu, x.cpu(), 1.0, 1.0, y.cpu())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= tol * scale
+    other = torch.float32 if dtype == torch.float64 else torch.float64
+    y2 = y.to(other) * 1000
+    got = spmv(plan, x, 3.0, 4.0, y2)
+    want = spmv(cpu, x.cpu(), 3.0, 4.0, y2.cpu())
+    assert got.dtype == want.dtype == torch.float64
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_spmv_kernel_replays_in_a_graph(dev, dtype):
+    """K6 captured in a CUDA graph and replayed on new x and y equals its
+    eager launch on them, bitwise."""
+    from test_torch_dia import _plan_case
+    from sblas_tpu_torch.ops import spmv
+    plan = _plan_case("shell", dtype).to(dev)
+    x, y = _dia_vectors(plan, dev)
+    spmv(plan, x, 3.0, 4.0, y)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spmv(plan, x, 3.0, 4.0, y)
+    x2, y2 = _dia_vectors(plan, dev, seed=5)
+    x.copy_(x2)
+    y.copy_(y2)
+    graph.replay()
+    want = spmv(plan, x2, 3.0, 4.0, y2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_cg_on_the_shell_through_k6_meets_the_reference(dev, strict_capture):
+    """Jacobi-CG in f32 on a small SPD shell (the `s3dkq4m2.cg` values,
+    tests/reference_pcg.py) through its graph: K6 once per matvec (the
+    eager initial residual, the capture's warm-up step, the 16 captured
+    iterations), no loop; the solution within the cell's limits of the
+    float64 reference: relative residual and error under 5e-4."""
+    import reference_pcg as ref
+    from test_torch_cg_shell import _rhs, _shell
+    from sblas_tpu_torch.ops import DiaPlan
+    from sblas_tpu_torch.ops import dia as tdia
+    from sblas_tpu_torch.utils import trace
+    solvers = strict_capture
+    A = _shell(7)
+    b = _rhs(A.shape[0], 7)
+    plan = make_plan(A, torch.float32, op="spmv", device=dev)
+    assert isinstance(plan, DiaPlan)
+    M = solvers.jacobi_inv_diag(A, torch.float32, device=dev)
+    tdia.dia_spmv.launches = 0
+    with trace.recording() as rec:
+        res = solvers.cg(plan, b.to(dev, torch.float32), tol=1e-6,
+                         maxiter=2000, M=M, chunk=16, graph=True)
+    assert res.converged and res.iterations > 16
+    assert tdia.dia_spmv.launches == 2 + 16
+    assert rec.counters["dia_spmv_kernel_calls"] == 2 + 16
+    assert "dia_spmv_loop_calls" not in rec.counters
+    K = ref.csr_tensor(A.row_ptr, A.col_idx, A.values)
+    star, _, _ = ref.pcg(K, b, ref.inv_diag(A.row_ptr, A.col_idx, A.values),
+                         1e-12, 4000)
+    x = res.x.cpu().to(torch.float64)
+    assert float((b - K @ x).norm() / b.norm()) <= 5e-4
+    assert float((x - star).norm() / star.norm()) <= 5e-4
+
+
 # ---- P1 (stage_fuse_gather), P2 (window_lane_gather) and xfoot ----
 
 @pytest.mark.parametrize("dtype", DTYPES)
