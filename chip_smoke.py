@@ -130,7 +130,7 @@ and the distribution layer in a world-1 NCCL group:
         at K=256 and K=263 (K4, each variant once)
     [bf16-dist] the distributed modes over containers with bf16 values,
         world 1: mode 1 over the bf16 WcooPlan (K3 `bf16`) and over
-        band-73's bf16 BsrPlan at K=256 (`spmm_bsr`, no K4), mode 2 and
+        band-73's bf16 BsrPlan at K=256 (K4 `bf16` once), mode 2 and
         the distributed SpMV over bf16 COO segments (f32 partials), the
         planned and xfoot SpMVs over bf16 routed shards (K1, K2' `bf16`),
         mode 2 over bf16 WCOO shards (K3 `bf16`), the halo SpMM on the
@@ -370,23 +370,22 @@ def variant_launches(title, expect: dict) -> dict:
     return got
 
 
-def row_bodies(title, launches: dict) -> dict:
-    """The last `launches_of` run's K1 and K2 launches by body
-    (`_kernels.BODIES`): every one must be the row body (`vector`), the
-    port's own paths giving them only operands on its vectors.  Returns
-    the run's K1 and K2 launches by variant (launcher name without its
-    `sblas_` prefix).  Both bodies are launched with programmatic
-    dependent launch (`csrc/row_io.cuh`'s `launch_pdl`); no query reads
-    the launch mode back, so none is printed."""
+def k1_k2_launches(title, launches: dict) -> dict:
+    """The last `launches_of` run's K1 and K2 launches by variant
+    (launcher name without its `sblas_` prefix), whose sums by kernel
+    must be `launches`.  Each kernel has one body, launched with
+    programmatic dependent launch (`csrc/row_io.cuh`'s `launch_pdl`); no
+    query reads the launch mode back, so none is printed."""
     from sblas_tpu_torch import _kernels
-    got = {k: v for k, v in _kernels.BODIES.items()
-           if k.split(".")[0] in ("lane_shuffle", "slab_gather")}
-    want = {f"{k}.vector": n for k, n in launches.items() if n}
-    if got != want:
-        raise AssertionError(f"{title}: K1/K2 launches by body {got}, "
-                             f"expected {want}")
-    return {k[len("sblas_"):]: v for k, v in _kernels.LAUNCHED.items()
-            if k.startswith(("sblas_lane_shuffle_", "sblas_slab_gather_"))}
+    got = {k[len("sblas_"):]: v for k, v in _kernels.LAUNCHED.items()
+           if k.startswith(("sblas_lane_shuffle_", "sblas_slab_gather_"))}
+    summed = {name: sum(v for k, v in got.items()
+                        if k.startswith(name + "_"))
+              for name in launches}
+    if summed != launches:
+        raise AssertionError(f"{title}: K1/K2 launches by variant {got}, "
+                             f"expected {launches} by kernel")
+    return got
 
 
 def checked_bf16(title, got, want, bar=None):
@@ -660,10 +659,10 @@ def main() -> int:
                               lambda: spmv(plan, xd, ALPHA, BETA, yd))
     expect_launches("routed SpMV", counts, dict(
         none, lane_shuffle=plan.n_route_gathers, slab_gather=1))
-    ran = row_bodies("routed SpMV", dict(
+    ran = k1_k2_launches("routed SpMV", dict(
         lane_shuffle=plan.n_route_gathers, slab_gather=1))
     for name in ("lane_shuffle", "slab_gather"):
-        kernels[name].update(launches=counts[name], body="vector")
+        kernels[name]["launches"] = counts[name]
     phase("main path", plan="RoutedPlan", launches=counts,
           check=checked("routed SpMV", out, want),
           **call_times(lambda: spmv(plan, xd, ALPHA, BETA, yd), A.nnz))
@@ -921,8 +920,6 @@ def main() -> int:
              # P1 at the n=16 xfoot shard beside its full-plan reading
              "shard16_n_gtiles", "shard16_ms", "shard16_plain_ms",
              "shard16_bound_ms", "shard16_max_abs_err",
-             # the body K1 and K2 ran on their main path
-             "body",
              # K4[f64]'s bound on the f64 CUDA cores beside its
              # tensor-core one
              "cuda_core_bound_ms",
@@ -1171,9 +1168,10 @@ def f64_routed(A, plan, xd, yd, want, k1k2, counters, none,
                     dict(none, lane_shuffle=n_k1, slab_gather=1))
     by_variant = variant_launches("routed SpMV f64", {
         "lane_shuffle_f64": n_k1, "slab_gather_f64": 1})
-    row_bodies("routed SpMV f64", dict(lane_shuffle=n_k1, slab_gather=1))
-    kernels["lane_shuffle[f64]"].update(launches=n_k1, body="vector")
-    kernels["slab_gather[f64]"].update(launches=1, body="vector")
+    k1_k2_launches("routed SpMV f64",
+                   dict(lane_shuffle=n_k1, slab_gather=1))
+    kernels["lane_shuffle[f64]"]["launches"] = n_k1
+    kernels["slab_gather[f64]"]["launches"] = 1
     phase("f64", path="spmv RoutedPlan webbase-1M f64", launches=counts,
           by_variant=by_variant, check=checked("routed SpMV f64", out, want),
           **call_times(lambda: spmv(p64, x64, ALPHA, BETA, y64), A.nnz))
@@ -1591,11 +1589,11 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
     by_variant = variant_launches("routed SpMV bf16 transport", {
         "lane_shuffle_bf16_i16": main_gathers,
         "lane_shuffle_f32": other_gathers, "slab_gather_f32_bf16": 1})
-    row_bodies("routed SpMV bf16 transport", dict(
+    k1_k2_launches("routed SpMV bf16 transport", dict(
         lane_shuffle=plan16.n_route_gathers, slab_gather=1))
-    kernels["lane_shuffle[bf16_i16]"].update(
-        launches=by_variant["lane_shuffle_bf16_i16"], body="vector")
-    kernels["slab_gather[f32_bf16]"].update(launches=1, body="vector")
+    kernels["lane_shuffle[bf16_i16]"]["launches"] = by_variant[
+        "lane_shuffle_bf16_i16"]
+    kernels["slab_gather[f32_bf16]"]["launches"] = 1
     check = checked_bf16("routed SpMV bf16 transport", out, want,
                          bar=BF16_TRANSPORT_BAR)
     times = {}
@@ -1631,11 +1629,10 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
             "lane_shuffle_bf16": pv.n_route_gathers, f"{kname}_bf16": 1})
         kernels[f"{kname}[bf16]"]["launches"] = 1
         if not pregather:
-            row_bodies("routed SpMV bf16 values", dict(
+            k1_k2_launches("routed SpMV bf16 values", dict(
                 lane_shuffle=pv.n_route_gathers, slab_gather=1))
-            kernels["lane_shuffle[bf16]"].update(
-                launches=by_variant["lane_shuffle_bf16"], body="vector")
-            kernels["slab_gather[bf16]"]["body"] = "vector"
+            kernels["lane_shuffle[bf16]"]["launches"] = by_variant[
+                "lane_shuffle_bf16"]
         phase("bf16-plans", path=f"spmv_routed bf16 values webbase-1M"
               f"{' pregather (K2prime)' if pregather else ''}",
               build_s=f"{build_s:.2f}", launches=counts,
@@ -2084,17 +2081,19 @@ def bf16_bell_phases(F, Bd, Cd, want, counters, none, kernels) -> None:
 
 
 def bf16_bell_mode1(F, bplan, bp, Bd, Cd, want, counters, none) -> None:
-    """[bf16-dist] mode 1 over the band-73 BELL plan in bf16 at K=256:
-    `spmm_bsr`'s matmuls, as the JAX package's distributed BELL path runs,
-    so no K4 launch; beside the f32 plan's mode 1.  Mode 1 makes no
-    collective, so a mesh without a group serves."""
+    """[bf16-dist] mode 1 over the band-73 BELL plan in bf16 at K=256: its
+    one column block through `ops.spmm`, so K4[bf16] once (the JAX
+    package's distributed BELL path runs its matmuls instead); beside the
+    f32 plan's mode 1.  Mode 1 makes no collective, so a mesh without a
+    group serves."""
     from sblas_tpu_torch.parallel import Mesh, spmm_mode1
     mesh = Mesh(None, 0, 1, Bd.device)
     B16, C16 = Bd.to(BF16), Cd.to(BF16)
     f32_ms = _device_ms(lambda: spmm_mode1(bplan, Bd, ALPHA, BETA, Cd, mesh))
     bf16_dist_run(f"spmm_mode1 band-73 K={Bd.shape[1]} (BsrPlan bf16)",
                   lambda: spmm_mode1(bp, B16, ALPHA, BETA, C16, mesh), want,
-                  counters, none, {}, {}, f32_ms, F.nnz, Bd.shape[1])
+                  counters, none, dict(bell_spmm=1), {"bell_spmm_bf16": 1},
+                  f32_ms, F.nnz, Bd.shape[1])
 
 
 def bf16_ragged_phases(F, bp, F_csr, B16, C16, want, counters, none,
@@ -2265,9 +2264,8 @@ def k1_k2_at(title, where, plan, ran) -> dict:
     and K2 on its tiles, every variant of each against its plain version
     (bitwise) on random values, beside `torch.gather` for K1; bound by
     bytes.  One `title` line a kernel and variant; `ran` is the path's
-    launches by variant (`row_bodies`): a variant the path ran gets its
-    launches and its body there (the row body, checked), the others
-    null.  Returns each reading as a `kernels` record's numbers, by
+    launches by variant (`k1_k2_launches`): a variant the path ran gets
+    its launches there, the others null.  Returns each reading as a `kernels` record's numbers, by
     (kernel, variant)."""
     from sblas_tpu_torch.ops.route import (LANE_SHUFFLE_VARIANTS, LANES,
                                            lane_shuffle, lane_shuffle_plain)
@@ -2309,7 +2307,7 @@ def k1_k2_at(title, where, plan, ran) -> dict:
         launches = ran.get(f"{counter.__name__}_{variant}")
         phase(title, where=where, kernel=f"{kernel}[{variant}]",
               shape=tuple(moved[2].shape), launches=launches,
-              body="vector" if launches else None, bitwise_equal=True,
+              bitwise_equal=True,
               max_abs_err=err, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
               library_ms=(f"{lib_ms:.5f} (torch.gather)"
                           if lib_ms is not None else None),
@@ -2470,7 +2468,7 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
             expect_launches(f"xfoot-shard {name} n={n}", launched[name],
                             expect[name])
             if name == "stock":
-                ran = row_bodies(f"xfoot-shard stock n={n}", dict(
+                ran = k1_k2_launches(f"xfoot-shard stock n={n}", dict(
                     lane_shuffle=plan.n_route_gathers, slab_gather=1))
             checks[name] = checked(f"xfoot-shard {name} n={n}", out, want_l)
         if not torch.equal(stage_fuse_gather(*pass1_operands(plan, xl)),

@@ -54,11 +54,8 @@ SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # kernel -> (argument types before the stream, its variants)
 LAUNCHERS = {
-    # the last argument of K1 and K2: 1 for the row body (`row_vectors`)
-    "lane_shuffle": ([_p, _p, _p, _i64, _i64],
-                     ("f32", "f64", "bf16", "bf16_i16")),
-    "slab_gather": ([_p] * 5 + [_i64, _i64],
-                    ("f32", "f64", "bf16", "f32_bf16")),
+    "lane_shuffle": ([_p, _p, _p, _i64], ("f32", "f64", "bf16", "bf16_i16")),
+    "slab_gather": ([_p] * 5 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "tile_gather": ([_p] * 4 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "window_reduce": ([_p] * 11 + [_i64] * 7 + [_f64, _f64],
                       ("f32", "f64", "bf16", "bf16_ragged")),
@@ -89,8 +86,7 @@ _lib: Optional[ctypes.CDLL] = None
 # each wrapper's own `launches` counts all of its variants)
 LAUNCHED: Counter = Counter()
 # launches by kernel body, for a kernel with several bodies
-# (`window_reduce_bf16_ragged.masked` / `.ring`, `lane_shuffle.vector` /
-# `.scalar`, `slab_gather.vector` / `.scalar`, `bell_spmm_f64.dmma` /
+# (`window_reduce_bf16_ragged.masked` / `.ring`, `bell_spmm_f64.dmma` /
 # `.dmma_unpaired`)
 BODIES: Counter = Counter()
 
@@ -276,12 +272,3 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         raise KernelError(f"{fn_name} launch failed: cudaError {rc}")
     LAUNCHED[fn_name] += 1
 
-
-def row_vectors(*operands) -> bool:
-    """Whether every operand, a (pointer, element bytes) pair, starts on
-    the vector of K1's and K2's row bodies: 4 values, at most 16 bytes
-    (`row_io.cuh`'s `Pack`)."""
-    for at, width in operands:
-        if at % (16 if width >= 4 else 4 * width):
-            return False
-    return True

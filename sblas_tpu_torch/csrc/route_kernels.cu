@@ -41,12 +41,10 @@
 // the stage-fuse probe, long before), but loading it ahead of the wait
 // gained nothing measurable, so nothing is read before the wait.
 //
-// The element body (`lane_shuffle_elems`), this kernel's second body:
-// one thread an element, for an x, idx or out whose base is not a
-// multiple of the row body's vector (16 B; 8 for 16-bit values and int16
-// indices), which the port's own paths never give it.  The wrapper
-// checks the bases, passes its choice to the launcher (`vector`) and
-// counts the launch by body.
+// The row body is the kernel's one body: it reads x and idx and writes
+// out as vectors, so each must start on the vector (16 B; 8 for 16-bit
+// values and int16 indices).  The port's own paths give it nothing else;
+// the wrapper copies an operand off 16 bytes to fresh storage first.
 //
 // 16-bit lanes: the bf16 route transport (config.routed_transport="bf16")
 // moves the main route's contributions as bf16 with int16 tables, 6 B an
@@ -63,8 +61,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // the element body's block
-// the row body: warps a block, one row a warp: 4 KB of values a block
+// warps a block, one row a warp: 4 KB of values a block
 // (4 rows of f64, 8 of f32, 16 of bf16)
 template <typename T>
 constexpr int kWarps = 32 / static_cast<int>(sizeof(T));
@@ -115,36 +112,13 @@ lane_shuffle_rows(const T* __restrict__ x, const I* __restrict__ idx,
 }
 
 template <typename T, typename I>
-__global__ void lane_shuffle_elems(const T* __restrict__ x,
-                                   const I* __restrict__ idx,
-                                   T* __restrict__ out, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  pdl_wait();
-  if (i < n) {
-    const int64_t lane = static_cast<int64_t>(idx[i] & 127);
-    out[i] = x[(i & ~static_cast<int64_t>(127)) | lane];
-  }
-}
-
-// vector: the row body, whose x, idx and out the caller has checked start
-// on its vectors (16 B; 8 for 16-bit values and int16 indices); else the
-// element body
-template <typename T, typename I>
-int launch(const T* x, const I* idx, T* out, int64_t n, int64_t vector,
-           void* stream) {
+int launch(const T* x, const I* idx, T* out, int64_t n, void* stream) {
   if (n > 0) {
-    if (vector) {
-      const int64_t rows = n / kLanes;
-      sblas::launch_pdl(lane_shuffle_rows<T, I>,
-                        dim3(static_cast<unsigned int>(
-                            (rows + kWarps<T> - 1) / kWarps<T>)),
-                        dim3(kWarps<T> * 32), stream, x, idx, out, rows);
-    } else {
-      sblas::launch_pdl(lane_shuffle_elems<T, I>,
-                        dim3(static_cast<unsigned int>(
-                            (n + kThreads - 1) / kThreads)),
-                        dim3(kThreads), stream, x, idx, out, n);
-    }
+    const int64_t rows = n / kLanes;
+    sblas::launch_pdl(lane_shuffle_rows<T, I>,
+                      dim3(static_cast<unsigned int>(
+                          (rows + kWarps<T> - 1) / kWarps<T>)),
+                      dim3(kWarps<T> * 32), stream, x, idx, out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -153,31 +127,28 @@ int launch(const T* x, const I* idx, T* out, int64_t n, int64_t vector,
 
 extern "C" {
 
-// n = R * 128 elements; x, idx, out contiguous on the device of `stream`;
-// vector: 1 for the row body (every base on its vector: the wrapper
-// checks), 0 for the element body.
+// n = R * 128 elements; x, idx, out contiguous on the device of `stream`,
+// each starting on the row body's vector (the wrapper sees to it).
 int sblas_lane_shuffle_f32(const float* x, const int32_t* idx, float* out,
-                           int64_t n, int64_t vector, void* stream) {
-  return launch<float, int32_t>(x, idx, out, n, vector, stream);
+                           int64_t n, void* stream) {
+  return launch<float, int32_t>(x, idx, out, n, stream);
 }
 
 int sblas_lane_shuffle_f64(const double* x, const int32_t* idx, double* out,
-                           int64_t n, int64_t vector, void* stream) {
-  return launch<double, int32_t>(x, idx, out, n, vector, stream);
+                           int64_t n, void* stream) {
+  return launch<double, int32_t>(x, idx, out, n, stream);
 }
 
 // bf16 values (their bit patterns) with int32 indices: a bf16-valued plan
 int sblas_lane_shuffle_bf16(const uint16_t* x, const int32_t* idx,
-                            uint16_t* out, int64_t n, int64_t vector,
-                            void* stream) {
-  return launch<uint16_t, int32_t>(x, idx, out, n, vector, stream);
+                            uint16_t* out, int64_t n, void* stream) {
+  return launch<uint16_t, int32_t>(x, idx, out, n, stream);
 }
 
 // bf16 values with int16 indices: the main route under bf16 transport
 int sblas_lane_shuffle_bf16_i16(const uint16_t* x, const int16_t* idx,
-                                uint16_t* out, int64_t n, int64_t vector,
-                            void* stream) {
-  return launch<uint16_t, int16_t>(x, idx, out, n, vector, stream);
+                                uint16_t* out, int64_t n, void* stream) {
+  return launch<uint16_t, int16_t>(x, idx, out, n, stream);
 }
 
 }  // extern "C"

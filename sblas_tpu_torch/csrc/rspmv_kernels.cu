@@ -29,9 +29,9 @@
 // 2^31.  Tried and lost (tools/k1k2_variants.py): one row a warp at
 // 32-bit values (1-4 % slower at the full plan), 2 rows a warp at f64,
 // other warps a block, the slab row loaded as vectors and exchanged in
-// shared memory (as it also lost for P1) or by warp shuffles; and the slot
-// body below under the same launch, within 2 % at the full plan but up
-// to 8 % slower at the shards.
+// shared memory (as it also lost for P1) or by warp shuffles; and one
+// thread a slot (as K2' runs) under the same launch, within 2 % at the
+// full plan but up to 8 % slower at the shards.
 //
 // The launch: programmatic dependent launch (row_io.cuh), so K2 is
 // scheduled while the kernel before it (the relabel route's last K1, x's
@@ -43,12 +43,10 @@
 // copies on every path, but loading them ahead of the wait gained
 // nothing measurable, so nothing is read before the wait.
 //
-// The slot body (`slab_gather_slots`), this kernel's second body: one
-// thread a slot, T_g x kChunks blocks of 256 threads, for a gidx, gvals
-// or out whose base is not a multiple of the row body's vector (16 B; 8
-// for a bf16 gvals or out), which the port's own paths never give it.
-// The wrapper checks the bases, passes its choice to the launcher
-// (`vector`) and counts the launch by body.
+// The row body is K2's one body: it reads gidx and gvals and writes out
+// as vectors, so each must start on the vector (16 B; 8 for a bf16 gvals
+// or out).  The port's own paths give it nothing else; the wrapper
+// copies an operand off 16 bytes to fresh storage first.
 //
 // K2' replaces sblas_tpu/ops/rspmv.py::_tile_gather_kernel, the variant the
 // JAX package runs inside shard_map (the distributed per-shard SpMV):
@@ -59,8 +57,8 @@
 // slab per tile.  It too is bound by device-memory bytes, but it streams
 // its own tile copy instead of re-reading a shared slab through L1/L2, so
 // it moves 16 B per f32 slot (x tile, gidx, gvals in, out) against K2's
-// 12.  Its design is K2's slot body, launched plainly: T_g x kChunks
-// blocks of 256 threads, coalesced streams, 64-bit offsets.
+// 12.  One thread a slot, launched plainly: T_g x kChunks blocks of 256
+// threads, coalesced streams, 64-bit offsets.
 //
 // 16-bit output (both kernels): under the bf16 route transport the JAX
 // kernels cast on store, so the contributions leave as bf16 and the first
@@ -153,26 +151,6 @@ slab_gather_rows(const int32_t* __restrict__ gslab,
 }
 
 template <typename T, typename O>
-__global__ void slab_gather_slots(const int32_t* __restrict__ gslab,
-                                  const T* __restrict__ x_slabs,
-                                  const int32_t* __restrict__ gidx,
-                                  const T* __restrict__ gvals,
-                                  O* __restrict__ out) {
-  const int64_t t = blockIdx.x;
-  pdl_wait();
-  const T* slab = x_slabs + static_cast<int64_t>(gslab[t]) * kSlab;
-  const int64_t base = t * kSlab;
-#pragma unroll
-  for (int k = 0; k < kPerBlock / kThreads; ++k) {
-    const int e = blockIdx.y * kPerBlock + k * kThreads + threadIdx.x;
-    const int64_t s = base + e;
-    const int row = e >> 7;
-    out[s] = narrow<O>(widen(gvals[s]) *
-                       widen(slab[(row << 7) | (gidx[s] & 127)]));
-  }
-}
-
-template <typename T, typename O>
 __global__ void tile_gather_kernel(const T* __restrict__ x_tiles,
                                    const int32_t* __restrict__ gidx,
                                    const T* __restrict__ gvals,
@@ -191,21 +169,13 @@ __global__ void tile_gather_kernel(const T* __restrict__ x_tiles,
 
 template <typename T, typename O = T>
 int launch(const int32_t* gslab, const T* x_slabs, const int32_t* gidx,
-           const T* gvals, O* out, int64_t n_tiles, int64_t vector,
-           void* stream) {
+           const T* gvals, O* out, int64_t n_tiles, void* stream) {
   if (n_tiles > 0) {
-    if (vector) {
-      sblas::launch_pdl(slab_gather_rows<T, O>,
-                        dim3(static_cast<unsigned int>(
-                            n_tiles * (kLanes / (kWarps<T> * kPerWarp<T>)))),
-                        dim3(kWarps<T> * 32), stream, gslab, x_slabs,
-                        gidx, gvals, out);
-    } else {
-      sblas::launch_pdl(slab_gather_slots<T, O>,
-                        dim3(static_cast<unsigned int>(n_tiles), kChunks),
-                        dim3(kThreads), stream, gslab, x_slabs, gidx, gvals,
-                        out);
-    }
+    sblas::launch_pdl(slab_gather_rows<T, O>,
+                      dim3(static_cast<unsigned int>(
+                          n_tiles * (kLanes / (kWarps<T> * kPerWarp<T>)))),
+                      dim3(kWarps<T> * 32), stream, gslab, x_slabs, gidx,
+                      gvals, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,37 +197,34 @@ int launch_tiles(const T* x_tiles, const int32_t* gidx, const T* gvals,
 extern "C" {
 
 // gslab (n_tiles,); x_slabs (n_slabs, 128, 128); gidx, gvals, out
-// (n_tiles, 128, 128); all contiguous on the device of `stream`.
-// vector: 1 for the row body (gidx, gvals and out on its vectors: the
-// wrapper checks), 0 for the slot body.
+// (n_tiles, 128, 128); all contiguous on the device of `stream`, gidx,
+// gvals and out starting on the row body's vector (the wrapper sees to
+// it).
 int sblas_slab_gather_f32(const int32_t* gslab, const float* x_slabs,
                           const int32_t* gidx, const float* gvals, float* out,
-                          int64_t n_tiles, int64_t vector, void* stream) {
-  return launch<float>(gslab, x_slabs, gidx, gvals, out, n_tiles, vector,
-                       stream);
+                          int64_t n_tiles, void* stream) {
+  return launch<float>(gslab, x_slabs, gidx, gvals, out, n_tiles, stream);
 }
 
 int sblas_slab_gather_f64(const int32_t* gslab, const double* x_slabs,
                           const int32_t* gidx, const double* gvals,
-                          double* out, int64_t n_tiles, int64_t vector,
-                          void* stream) {
-  return launch<double>(gslab, x_slabs, gidx, gvals, out, n_tiles, vector,
-                        stream);
+                          double* out, int64_t n_tiles, void* stream) {
+  return launch<double>(gslab, x_slabs, gidx, gvals, out, n_tiles, stream);
 }
 
 int sblas_slab_gather_bf16(const int32_t* gslab, const __nv_bfloat16* x_slabs,
                            const int32_t* gidx, const __nv_bfloat16* gvals,
                            __nv_bfloat16* out, int64_t n_tiles,
-                           int64_t vector, void* stream) {
-  return launch(gslab, x_slabs, gidx, gvals, out, n_tiles, vector, stream);
+                           void* stream) {
+  return launch(gslab, x_slabs, gidx, gvals, out, n_tiles, stream);
 }
 
 // f32 values and x, bf16 contributions (bf16 route transport)
 int sblas_slab_gather_f32_bf16(const int32_t* gslab, const float* x_slabs,
                                const int32_t* gidx, const float* gvals,
                                __nv_bfloat16* out, int64_t n_tiles,
-                               int64_t vector, void* stream) {
-  return launch(gslab, x_slabs, gidx, gvals, out, n_tiles, vector, stream);
+                               void* stream) {
+  return launch(gslab, x_slabs, gidx, gvals, out, n_tiles, stream);
 }
 
 // x_tiles, gidx, gvals, out (n_tiles, 128, 128); all contiguous on the

@@ -30,12 +30,13 @@ import torch
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from ..ops import spmm
 from ..ops.plans import fold, host_value_dtype, sum_dtype, value_itemsize
 from ..utils import trace
 from ..utils.errors import ShapeError, require
 from . import host
-from .host import (_band_matmul, _choose_band_kind, build_band_plan,
-                   host_placed, probe_band_dims, tensor_fields)
+from .host import (_choose_band_kind, build_band_plan, host_placed,
+                   probe_band_dims, tensor_fields)
 
 
 @dataclasses.dataclass
@@ -267,7 +268,7 @@ def spmm_um_hostdense(grid: HostResidentGrid, B: HostDense, alpha, beta,
     def on_cell(idx: int, cell, Bj) -> None:
         nonlocal acc
         advance(keys[idx][0])
-        prod = _band_matmul(grid.kind, cell, Bj)
+        prod = spmm(cell, Bj)
         prod = prod.to(sum_dtype(prod.dtype))
         acc = prod if acc is None else acc + prod
 

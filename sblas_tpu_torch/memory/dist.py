@@ -42,13 +42,13 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
+from ..ops import spmm, spmv
 from ..ops.plans import fold, sum_dtype, value_itemsize
 from ..parallel.mesh import Mesh, all_reduce
 from ..parallel.planned import _local, _row_boundaries
 from ..utils.errors import PartitionError, ShapeError, require
-from .host import (_INFLIGHT, HostResidentPlan, _band_matmul, _band_matvec,
-                   _choose_band_kind, build_band_plan, each_band,
-                   probe_band_dims, spmm_um)
+from .host import (_INFLIGHT, HostResidentPlan, _choose_band_kind,
+                   build_band_plan, each_band, probe_band_dims, spmm_um)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -223,7 +223,7 @@ def spmv_um_dist(hs: HostResidentShards, x, alpha, beta, y, mesh: Mesh,
     partial = torch.zeros(hs.shape[0] + hs.band_rows,
                           dtype=sum_dtype(x.dtype), device=x.device)
     ax = _summed(hs, mesh, tuning, partial,
-                 lambda band: _band_matvec(hs.kind, band, x))
+                 lambda band: spmv(band, x))
     return fold(alpha, ax, beta, y, hs.local(mesh.rank).dtype)
 
 
@@ -236,7 +236,7 @@ def spmm_um_dist(hs: HostResidentShards, B, alpha, beta, C, mesh: Mesh,
     partial = torch.zeros((hs.shape[0] + hs.band_rows, B.shape[1]),
                           dtype=sum_dtype(B.dtype), device=B.device)
     ab = _summed(hs, mesh, tuning, partial,
-                 lambda band: _band_matmul(hs.kind, band, B))
+                 lambda band: spmm(band, B))
     return fold(alpha, ab, beta, C, hs.local(mesh.rank).dtype)
 
 

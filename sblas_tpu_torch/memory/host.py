@@ -52,12 +52,11 @@ import torch
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..ops.bsr import BsrPlan, spmm_bsr, spmv_bsr
+from ..ops import spmm, spmv
+from ..ops.bsr import BsrPlan
 from ..ops.plans import (CooPlan, EllPlan, fold, host_value_dtype,
                          value_itemsize)
-from ..ops.spmm import spmm_coo, spmm_ell
-from ..ops.spmv import spmv_coo, spmv_ell
-from ..ops.wcoo import WcooPlan, spmm_wcoo, spmv_wcoo
+from ..ops.wcoo import WcooPlan
 from ..utils.errors import PartitionError, ShapeError, require
 from ..utils import trace
 
@@ -357,22 +356,6 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
     raise PartitionError(f"unknown band kind {kind!r}")
 
 
-def _band_matmul(kind: str, band_plan, B):
-    z = torch.zeros((band_plan.shape[0], B.shape[1]), dtype=band_plan.dtype,
-                    device=B.device)
-    fn = {"bsr": spmm_bsr, "ell": spmm_ell, "wcoo": spmm_wcoo,
-          "coo": spmm_coo}[kind]
-    return fn(band_plan, B, 1.0, 0.0, z)
-
-
-def _band_matvec(kind: str, band_plan, x):
-    z = torch.zeros(band_plan.shape[0], dtype=band_plan.dtype,
-                    device=x.device)
-    fn = {"bsr": spmv_bsr, "ell": spmv_ell, "wcoo": spmv_wcoo,
-          "coo": spmv_coo}[kind]
-    return fn(band_plan, x, 1.0, 0.0, z)
-
-
 # ---------------------------------------------------------------------------
 # The streaming executor
 # ---------------------------------------------------------------------------
@@ -496,7 +479,7 @@ def spmm_um(hplan: HostResidentPlan, B, alpha, beta, C,
 
     def compute(i: int, band) -> None:
         r0, r1 = i * br, min((i + 1) * br, m)
-        part = _band_matmul(hplan.kind, band, B)
+        part = spmm(band, B)
         fold(alpha, part[:r1 - r0], beta, C[r0:r1], hplan.dtype,
              out=out[r0:r1])
 
@@ -517,7 +500,7 @@ def spmv_um(hplan: HostResidentPlan, x, alpha, beta, y,
 
     def compute(i: int, band) -> None:
         r0, r1 = i * br, min((i + 1) * br, m)
-        part = _band_matvec(hplan.kind, band, x)
+        part = spmv(band, x)
         fold(alpha, part[:r1 - r0], beta, y[r0:r1], hplan.dtype,
              out=out[r0:r1])
 

@@ -6,8 +6,8 @@ Port of `sblas_tpu/ops/__init__.py`.  Six device layouts, chosen by
 * DIA diagonal (shift-and-FMA) — banded structure;
 * Routed (gather/route/stack engine, kernels K1 and K2) — large
   unstructured matrices, SpMV planning;
-* BELL block-sparse (batched matmuls; kernel K4 for SpMM at K >= 256) —
-  block-friendly structure;
+* BELL block-sparse (batched matmuls; kernel K4 for SpMM at K >= 256,
+  `bsr.takes_k4`) — block-friendly structure;
 * ELL (gather + row sum) — balanced row occupancy;
 * windowed COO (kernel K3 for SpMM) — unstructured;
 * padded COO (gather + `index_add_`) — the universal fallback and tier-0
@@ -24,13 +24,11 @@ import torch
 
 from . import cpu_reference  # noqa: F401
 from .bsr import BsrPlan, bell_stats, spmm_bsr, spmv_bsr
-from .bsr_pallas import spmm_bsr_pallas
 from .dia import DiaPlan, dia_stats, spmm_dia, spmv_dia  # noqa: F401
 from .elementwise import axpby, plus_scalar  # noqa: F401
 from .plans import CooPlan, EllPlan
 from .rspmv import RoutedPlan, spmv_routed
-from .spmm import spmm as _spmm_tier0
-from .spmm import spmm_coo, spmm_ell  # noqa: F401
+from .spmm import spmm_coo, spmm_ell
 from .spmv import spmv_coo, spmv_ell
 from .wcoo import WcooPlan, spmm_wcoo, spmv_wcoo, wcoo_fill_ratio
 
@@ -45,19 +43,6 @@ _BSR_SPMM_BLOWUP_LIMIT = 512.0
 _BSR_SPMM_BYTES_CAP = 1 << 30
 _BSR_DIA_SPMM_BYTES = 256 << 20
 _BSR_SPMV_BLOWUP = 8.0
-# B width from which BELL SpMM takes kernel K4.  The JAX package gates
-# its Pallas kernel on K >= 256 and a TPU backend; the port gates K4 on
-# K >= 256, B on CUDA and the plan's blocks being K4's 128 x 128, so the
-# CPU and other block shapes take `spmm_bsr`, as the JAX package's CPU
-# backend does.
-_BSR_PALLAS_MIN_K = 256
-
-
-def takes_k4(plan, k: int, on_cuda: bool) -> bool:
-    """Whether `spmm` over BELL plan `plan` with a K-wide B runs kernel K4
-    (a choice on the plan's block shape, K and the device)."""
-    return (on_cuda and k >= _BSR_PALLAS_MIN_K
-            and tuple(plan.block) == (128, 128))
 
 
 def choose_kind(A, dtype=torch.float32, config=DEFAULT, op=None) -> str:
@@ -130,8 +115,14 @@ def make_plan_fast(A, dtype=None, config=DEFAULT, *, device):
                         device=device)
 
 
+# The one place that picks each product's function (and, through it, its
+# kernel) by plan type: every path that multiplies a plan, whole or a
+# part of a distributed or streamed operand, comes through `spmv` or
+# `spmm`.
 _SPMV = {DiaPlan: spmv_dia, RoutedPlan: spmv_routed, BsrPlan: spmv_bsr,
          WcooPlan: spmv_wcoo, EllPlan: spmv_ell, CooPlan: spmv_coo}
+_SPMM = {DiaPlan: spmm_dia, BsrPlan: spmm_bsr, WcooPlan: spmm_wcoo,
+         EllPlan: spmm_ell, CooPlan: spmm_coo}
 
 
 def spmv(plan, x, alpha=1.0, beta=1.0, y=None):
@@ -151,22 +142,17 @@ def spmv(plan, x, alpha=1.0, beta=1.0, y=None):
 def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
     """C' = beta*C + alpha*A@B, dispatched on plan type (`C=None` drops the
     beta term).  B and C are (rows, K) tensors on the plan's device."""
-    if isinstance(plan, RoutedPlan):
-        raise TypeError(
-            "RoutedPlan is SpMV-only (its contribution routing has no "
-            "K-wide analog); build an SpMM plan with make_plan(A) or "
-            "make_plan(A, op='spmm')")
+    fn = _SPMM.get(type(plan))
+    if fn is None:
+        if isinstance(plan, RoutedPlan):
+            raise TypeError(
+                "RoutedPlan is SpMV-only (its contribution routing has no "
+                "K-wide analog); build an SpMM plan with make_plan(A) or "
+                "make_plan(A, op='spmm')")
+        raise TypeError(f"unsupported plan type {type(plan).__name__}")
     with trace.span("sblas.spmm", plan=type(plan).__name__):
         if C is None:
             C = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
                             device=plan.device)
             beta = 0.0
-        if isinstance(plan, DiaPlan):
-            return spmm_dia(plan, B, alpha, beta, C)
-        if isinstance(plan, BsrPlan):
-            if takes_k4(plan, B.shape[1], B.is_cuda):
-                return spmm_bsr_pallas(plan, B, alpha, beta, C)
-            return spmm_bsr(plan, B, alpha, beta, C)
-        if isinstance(plan, WcooPlan):
-            return spmm_wcoo(plan, B, alpha, beta, C)
-        return _spmm_tier0(plan, B, alpha, beta, C)
+        return fn(plan, B, alpha, beta, C)

@@ -11,7 +11,9 @@ The per-slot products are a plain large matrix product that the JAX
 package leaves to XLA; here they are `torch.baddbmm`.  f32 must be true
 f32, as the JAX package's `Precision.HIGHEST` is, so on CUDA the f32 path
 raises `KernelError` while torch is set to use TF32 for float32 products.
-The hand-written kernel K4 for large K is in `bsr_pallas.py`.
+`spmm_bsr` runs the hand-written kernel K4 (`bsr_pallas.py`) where
+`takes_k4` says, on every path that multiplies a BELL plan: a single
+device, a shard, a band, a mode-1 block.
 """
 
 from __future__ import annotations
@@ -25,8 +27,11 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..utils.errors import KernelError, require
-from .plans import Plan, _round_up, host_value_dtype
+from .bsr_pallas import spmm_bsr_pallas
+from .plans import Plan, _round_up, host_value_dtype, require_true_f32
+
+# B width from which a BELL SpMM takes kernel K4 (`takes_k4`)
+_K4_MIN_K = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +121,6 @@ def bell_stats(A: CsrMatrix, block: Tuple[int, int] = (128, 128)) -> dict:
     }
 
 
-def require_true_f32(t: torch.Tensor) -> None:
-    """Raise `KernelError` for a float32 CUDA product that torch would run
-    in TF32 (about three decimal digits), the JAX package's HIGHEST
-    precision being true f32."""
-    if t.is_cuda and t.dtype == torch.float32:
-        require(not torch.backends.cuda.matmul.allow_tf32
-                and torch.get_float32_matmul_precision() == "highest",
-                KernelError,
-                "torch is set to run float32 products in TF32; BELL needs "
-                "true f32: set torch.backends.cuda.matmul.allow_tf32 = "
-                "False and torch.set_float32_matmul_precision('highest')")
-
-
 def _b_blocks(plan: BsrPlan, B: torch.Tensor) -> torch.Tensor:
     """Zero-pad B's rows to the block grid and view as (n_bcols, C, K)."""
     C = plan.block[1]
@@ -150,9 +142,29 @@ def bsr_matmul(plan: BsrPlan, B: torch.Tensor) -> torch.Tensor:
     return acc.reshape(n_brows * R, B.shape[1])[: plan.shape[0]]
 
 
+def takes_k4(plan: BsrPlan, k: int, on_cuda: bool) -> bool:
+    """Whether `spmm_bsr` over `plan` with a K-wide B runs kernel K4: B on
+    CUDA, K >= 256 and the plan's blocks K4's 128 x 128.  The JAX package
+    gates its Pallas kernel on K >= 256 and a TPU backend, so the CPU and
+    other block shapes take the batched matmuls, as its CPU backend
+    does."""
+    return (on_cuda and k >= _K4_MIN_K
+            and tuple(plan.block) == (128, 128))
+
+
+def spmm_bsr_plain(plan: BsrPlan, B: torch.Tensor, alpha, beta,
+                   C: torch.Tensor) -> torch.Tensor:
+    """C' = beta*C + alpha*A@B by the batched matmuls (`bsr_matmul`)."""
+    return beta * C + alpha * bsr_matmul(plan, B)
+
+
 def spmm_bsr(plan: BsrPlan, B: torch.Tensor, alpha, beta,
              C: torch.Tensor) -> torch.Tensor:
-    return beta * C + alpha * bsr_matmul(plan, B)
+    """C' = beta*C + alpha*A@B: kernel K4 where `takes_k4`, else the
+    batched matmuls (`spmm_bsr_plain`)."""
+    if takes_k4(plan, B.shape[1], B.is_cuda):
+        return spmm_bsr_pallas(plan, B, alpha, beta, C)
+    return spmm_bsr_plain(plan, B, alpha, beta, C)
 
 
 def bsr_matvec(plan: BsrPlan, x: torch.Tensor) -> torch.Tensor:

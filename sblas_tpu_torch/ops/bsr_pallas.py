@@ -19,8 +19,8 @@ operands allow it, else (`bf16_ragged`) in 8-row groups that the
 consumers shift into place, on the column tiles `ragged_column_tiles`
 names.
 
-`make_plan`'s dispatcher takes this path for K >= 256 on CUDA
-(`ops.spmm`); below that, `bsr.spmm_bsr`'s batched matmuls serve.
+`bsr.spmm_bsr` takes this path for K >= 256 on CUDA (`bsr.takes_k4`);
+below that, `bsr.spmm_bsr_plain`'s batched matmuls serve.
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .bsr import BsrPlan, require_true_f32
-from .plans import _round_up
+from .plans import _round_up, require_true_f32
 
 BLOCK = 128   # K4's block edge: R = C = 128
 RAGGED_MAX_TILE = 192   # K4[bf16_ragged]'s widest column tile: n128 + n64
@@ -146,10 +145,10 @@ def bell_spmm(vals, bcol, B, C, alpha, beta, out=None) -> torch.Tensor:
 bell_spmm.launches = 0   # K4 launches since the last reset
 
 
-def spmm_bsr_pallas(plan: BsrPlan, B: torch.Tensor, alpha, beta,
+def spmm_bsr_pallas(plan, B: torch.Tensor, alpha, beta,
                     C: torch.Tensor) -> torch.Tensor:
-    """C' = beta*C + alpha*A@B with A in BELL layout, through K4.  Same
-    semantics as `bsr.spmm_bsr`."""
+    """C' = beta*C + alpha*A@B with A a `bsr.BsrPlan`, through K4.  Same
+    semantics as `bsr.spmm_bsr_plain`."""
     dt = plan.dtype
     return bell_spmm(plan.vals, plan.bcol, B.to(dt).contiguous(),
                      C.to(dt).contiguous(), alpha, beta)

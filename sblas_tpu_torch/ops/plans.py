@@ -30,7 +30,7 @@ import torch
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
 from ..utils import trace
-from ..utils.errors import PlanError, require
+from ..utils.errors import KernelError, PlanError, require
 
 # value dtype -> the host layout's: bf16 plans are laid out in f32
 HOST_VALUE = {torch.float32: np.float32, torch.float64: np.float64,
@@ -63,6 +63,20 @@ def value_itemsize(dtype: torch.dtype) -> int:
     counts, as the JAX package's `jnp.dtype(dtype).itemsize` does."""
     host_value_dtype(dtype)
     return torch.empty((), dtype=dtype).element_size()
+
+
+def require_true_f32(t: torch.Tensor) -> None:
+    """Raise `KernelError` for a float32 CUDA product that torch would run
+    in TF32 (about three decimal digits), the JAX package's HIGHEST
+    precision being true f32 (BELL's batched matmuls and K4's plain
+    version)."""
+    if t.is_cuda and t.dtype == torch.float32:
+        require(not torch.backends.cuda.matmul.allow_tf32
+                and torch.get_float32_matmul_precision() == "highest",
+                KernelError,
+                "torch is set to run float32 products in TF32; BELL needs "
+                "true f32: set torch.backends.cuda.matmul.allow_tf32 = "
+                "False and torch.set_float32_matmul_precision('highest')")
 
 
 def fold(alpha, ab, beta, Y, dtype, out=None) -> torch.Tensor:

@@ -411,9 +411,9 @@ def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx in
     [0, 128): int32, or int16 with bf16 values.  CPU tensors take the
     plain version; CUDA tensors launch kernel K1 (csrc/route_kernels.cu)
-    or raise: its row body where x2d, idx and out start on the body's
-    vectors (`_kernels.row_vectors`), else its element body, each launch
-    counted by body in `_kernels.BODIES`."""
+    or raise.  K1 reads x2d and idx as 16-byte vectors (8 at 16-bit
+    values): one not on 16 bytes (no port path gives one) is first copied
+    to fresh storage."""
     if x2d.device.type == "cpu":
         return lane_shuffle_plain(x2d, idx)
     from ..utils.errors import KernelError, require
@@ -428,14 +428,12 @@ def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             f"{tuple(x2d.shape)}")
     _kernels.check_operand(x2d, "x2d", x2d.dtype, x2d.shape, x2d.device)
     _kernels.check_operand(idx, "idx", idx.dtype, x2d.shape, x2d.device)
+    if x2d.data_ptr() % 16:
+        x2d = x2d.clone()
+    if idx.data_ptr() % 16:
+        idx = idx.clone()
     out = torch.empty_like(x2d)
-    at = (x2d.data_ptr(), idx.data_ptr(), out.data_ptr())
-    width = x2d.element_size()
-    vector = _kernels.row_vectors((at[0], width), (at[1], idx.element_size()),
-                                  (at[2], width))
-    _kernels.launch(fn, x2d.device, *at, x2d.numel(), int(vector))
-    _kernels.BODIES["lane_shuffle.vector" if vector
-                    else "lane_shuffle.scalar"] += 1
+    _kernels.launch(fn, x2d.device, x2d, idx, out, x2d.numel())
     lane_shuffle.launches += 1
     return out
 

@@ -710,9 +710,9 @@ def slab_gather_plain(gslab, x_slabs, gidx, gvals,
 def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None) -> torch.Tensor:
     """Slab-bucket gather (see `slab_gather_plain`) over (T_g, 128, 128)
     tiles.  CPU tensors take the plain version; CUDA tensors launch kernel
-    K2 (csrc/rspmv_kernels.cu) or raise: its row body where gidx, gvals
-    and out start on the body's vectors (`_kernels.row_vectors`), else its
-    slot body, each launch counted by body in `_kernels.BODIES`."""
+    K2 (csrc/rspmv_kernels.cu) or raise.  K2 reads gidx and gvals as
+    16-byte vectors (8 at bf16): one not on 16 bytes (no port path gives
+    one) is first copied to fresh storage."""
     if x_slabs.device.type == "cpu":
         return slab_gather_plain(gslab, x_slabs, gidx, gvals, out_dtype)
     from ..utils.errors import KernelError, require
@@ -730,14 +730,13 @@ def slab_gather(gslab, x_slabs, gidx, gvals, out_dtype=None) -> torch.Tensor:
                            dev)
     _kernels.check_operand(gidx, "gidx", torch.int32, tile_shape, dev)
     _kernels.check_operand(gvals, "gvals", x_slabs.dtype, tile_shape, dev)
+    if gidx.data_ptr() % 16:
+        gidx = gidx.clone()
+    if gvals.data_ptr() % 16:
+        gvals = gvals.clone()
     out = torch.empty(tile_shape, dtype=out_dtype or x_slabs.dtype,
                       device=dev)
-    at = (gidx.data_ptr(), gvals.data_ptr(), out.data_ptr())
-    vector = _kernels.row_vectors((at[0], 4), (at[1], gvals.element_size()),
-                                  (at[2], out.element_size()))
-    _kernels.launch(fn, dev, gslab, x_slabs, *at, T_g, int(vector))
-    _kernels.BODIES["slab_gather.vector" if vector
-                    else "slab_gather.scalar"] += 1
+    _kernels.launch(fn, dev, gslab, x_slabs, gidx, gvals, out, T_g)
     slab_gather.launches += 1
     return out
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .plans import CooPlan, EllPlan, sum_dtype
+from .plans import CooPlan, EllPlan, fold, sum_dtype
 
 # Cap on the materialised gather intermediate, in elements (1 GiB of f32).
 _MAX_GATHER_ELEMS = 256 * 1024 * 1024
@@ -46,11 +46,20 @@ def segment_spmm(rows, cols, vals, B, m: int, n_chunks: int = 1,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _auto_chunks(plan: CooPlan, k: int) -> int:
+    total = plan.vals.shape[0] * k
+    return max(1, (total + _MAX_GATHER_ELEMS - 1) // _MAX_GATHER_ELEMS)
+
+
 def spmm_coo(plan: CooPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
-             n_chunks: int = 1) -> torch.Tensor:
+             n_chunks: int = None) -> torch.Tensor:
+    """COO SpMM over `n_chunks` column chunks (None: `_auto_chunks`); a
+    bf16 plan's sums stay in f32 into the epilogue, which rounds once
+    (`plans.fold`)."""
     ab = segment_spmm(plan.rows, plan.cols, plan.vals, B, plan.shape[0],
-                      n_chunks=n_chunks)
-    return beta * C + alpha * ab
+                      n_chunks=n_chunks or _auto_chunks(plan, B.shape[1]),
+                      keep_sum=True)
+    return fold(alpha, ab, beta, C, plan.dtype)
 
 
 def spmm_ell(plan: EllPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
@@ -74,21 +83,3 @@ def spmm_ell(plan: EllPlan, B: torch.Tensor, alpha, beta, C: torch.Tensor,
     return beta * C + alpha * ab[:m]
 
 
-def _auto_chunks(plan: CooPlan, k: int) -> int:
-    total = plan.vals.shape[0] * k
-    return max(1, (total + _MAX_GATHER_ELEMS - 1) // _MAX_GATHER_ELEMS)
-
-
-def spmm(plan, B, alpha=1.0, beta=1.0, C=None):
-    """Dispatch on plan type (COO or ELL).  `C=None` drops the beta
-    term."""
-    if C is None:
-        C = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
-                        device=plan.device)
-        beta = 0.0
-    if isinstance(plan, EllPlan):
-        return spmm_ell(plan, B, alpha, beta, C)
-    if isinstance(plan, CooPlan):
-        return spmm_coo(plan, B, alpha, beta, C,
-                        n_chunks=_auto_chunks(plan, B.shape[1]))
-    raise TypeError(f"unsupported plan type {type(plan).__name__}")

@@ -37,12 +37,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.bsr import BsrPlan, spmm_bsr
-from ..ops.dia import DiaPlan, spmm_dia
-from ..ops.plans import EllPlan, fold
-from ..ops.spmm import segment_spmm, spmm_ell
+from ..ops import spmm
+from ..ops.plans import fold
+from ..ops.spmm import segment_spmm
 from ..ops.spmv import segment_spmv
-from ..ops.wcoo import WcooPlan, spmm_wcoo
 from ..partition import CooSegments, RowBlocks
 from ..utils.errors import PartitionError, ShapeError, require
 from .mesh import Mesh, all_reduce, reduce_scatter, ring_exchange
@@ -78,20 +76,6 @@ def _check_shards(n_shards: int, mesh: Mesh, what: str = "segments"):
             f"{what} built for {n_shards} shards, mesh has {mesh.size}")
 
 
-def _mode1_local(plan, B_blk, C_blk, alpha, beta):
-    if isinstance(plan, BsrPlan):
-        return spmm_bsr(plan, B_blk, alpha, beta, C_blk)
-    if isinstance(plan, DiaPlan):
-        return spmm_dia(plan, B_blk, alpha, beta, C_blk)
-    if isinstance(plan, WcooPlan):
-        return spmm_wcoo(plan, B_blk, alpha, beta, C_blk)
-    if isinstance(plan, EllPlan):
-        return spmm_ell(plan, B_blk, alpha, beta, C_blk)
-    ab = segment_spmm(plan.rows, plan.cols, plan.vals, B_blk, plan.shape[0],
-                      keep_sum=True)
-    return fold(alpha, ab, beta, C_blk, plan.dtype)
-
-
 def spmm_mode1(plan, B, alpha, beta, C, mesh: Mesh) -> torch.Tensor:
     """C' = beta*C + alpha*A@B with B/C split by columns, A replicated:
     the rank's column block.
@@ -109,7 +93,7 @@ def spmm_mode1(plan, B, alpha, beta, C, mesh: Mesh) -> torch.Tensor:
     cols = slice(mesh.rank * kb, (mesh.rank + 1) * kb)
     B_blk = F.pad(B, (0, k_pad - k))[:, cols].contiguous()
     C_blk = F.pad(C, (0, k_pad - k))[:, cols]
-    out = _mode1_local(plan, B_blk, C_blk, alpha, beta)
+    out = spmm(plan, B_blk, alpha, beta, C_blk)
     return out[:, : max(min(kb, k - mesh.rank * kb), 0)]
 
 

@@ -36,11 +36,11 @@ import torch
 
 from ..config import DEFAULT, SBlasConfig
 from ..containers import CsrMatrix
-from ..ops.bsr import BsrPlan, bell_arrays, bell_stats, spmm_bsr, spmv_bsr
-from ..ops.dia import DiaPlan, dia_arrays, spmm_dia, spmv_dia
+from ..ops import spmm, spmv
+from ..ops.bsr import BsrPlan, bell_arrays, bell_stats
+from ..ops.dia import DiaPlan, dia_arrays
 from ..ops.plans import EllPlan, ell_arrays, fold, host_value_dtype
-from ..ops.spmm import spmm_coo, spmm_ell
-from ..ops.spmv import spmv_coo, spmv_ell
+from ..ops.rspmv import spmv_routed
 from ..partition import partition_row_blocks
 from ..utils import trace
 from ..utils.errors import PartitionError, ShapeError, require
@@ -251,23 +251,21 @@ def partition_row_plans(A: CsrMatrix, n_shards: int, dtype=torch.float32,
 
 
 def _local_spmm(kind, plan, B):
-    from ..ops.wcoo import spmm_wcoo
-    z = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
-                    device=B.device)
-    fn = {"bsr": spmm_bsr, "ell": spmm_ell, "dia": spmm_dia,
-          "coo": spmm_coo, "wcoo": spmm_wcoo}[kind]
-    return fn(plan, B, 1.0, 0.0, z)
+    """The shard's (band_rows, K) product A_s @ B: `ops.spmm` as this
+    module imported it (a later replacement of `ops.spmm` does not reach
+    here), which picks the function by the plan's type."""
+    return spmm(plan, B)
 
 
 def _local_spmv(kind, plan, x):
-    from ..ops.rspmv import spmv_routed
-    from ..ops.wcoo import spmv_wcoo
-    z = torch.zeros(plan.shape[0], dtype=plan.dtype, device=x.device)
+    """The shard's product A_s @ x: a routed shard through kernel K2'
+    (`pregather`, the JAX package's per-shard kernel), every other kind
+    through `ops.spmv`."""
     if kind == "routed":
-        return spmv_routed(plan, x, 1.0, 0.0, z, pregather=True)
-    fn = {"bsr": spmv_bsr, "ell": spmv_ell, "dia": spmv_dia,
-          "coo": spmv_coo, "wcoo": spmv_wcoo}[kind]
-    return fn(plan, x, 1.0, 0.0, z)
+        return spmv_routed(plan, x, 1.0, 0.0,
+                           torch.zeros(plan.shape[0], dtype=plan.dtype,
+                                       device=x.device), pregather=True)
+    return spmv(plan, x)
 
 
 def full_height(local, offset: int, m_full: int) -> torch.Tensor:
@@ -407,9 +405,8 @@ def spmv_halo_planned(shards: HaloDiaShards, x, alpha, beta, y, mesh: Mesh
     the rank's row block."""
     plan, x_ext = _halo_window(shards, x, mesh)
     m_pad = shards.rows_per_shard * mesh.size
-    z = torch.zeros(plan.shape[0], dtype=plan.dtype, device=x.device)
-    out = fold(alpha, spmv_dia(plan, x_ext, 1.0, 0.0, z), beta,
-               row_block(y, mesh, m_pad), plan.dtype)
+    out = fold(alpha, spmv(plan, x_ext), beta, row_block(y, mesh, m_pad),
+               plan.dtype)
     return own_rows(out, mesh, shards.shape[0])
 
 
@@ -423,8 +420,6 @@ def spmm_halo_planned(shards: HaloDiaShards, B, alpha, beta, C, mesh: Mesh
             "halo SpMM needs square A (B rows follow A's row partition)")
     plan, B_ext = _halo_window(shards, B, mesh)
     m_pad = shards.rows_per_shard * mesh.size
-    z = torch.zeros((plan.shape[0], B.shape[1]), dtype=plan.dtype,
-                    device=B.device)
-    out = fold(alpha, spmm_dia(plan, B_ext, 1.0, 0.0, z), beta,
-               row_block(C, mesh, m_pad), plan.dtype)
+    out = fold(alpha, spmm(plan, B_ext), beta, row_block(C, mesh, m_pad),
+               plan.dtype)
     return own_rows(out, mesh, shards.shape[0])

@@ -12,9 +12,8 @@ f64 and bf16 values on the int32 table, bf16 on the table as int16); K2
 (f32, f64, bf16, f32 stored as bf16).  Each line: device ms, bitwise
 equality with the plain version, the bound (each operand read once and
 the output written once, over 3.35 TB/s) and share, `torch.gather`'s ms
-beside K1, the host microseconds a launch costs the caller (100
-launches enqueued back to back), and the launches by body where the
-package counts them.
+beside K1, and the host microseconds a launch costs the caller (100
+launches enqueued back to back).
 Then K1 as the routes launch it: the n=4 and n=16 shards' whole main
 route (`apply_route`: its K1 layers with a transpose copy between each
 pair); the stock SpMV of each shard (`spmv_routed`) and of the full plan
@@ -40,7 +39,6 @@ import time
 import numpy as np
 import torch
 
-from .. import _kernels
 from ..ops import spmv
 from ..ops.route import LANES, apply_route, lane_shuffle, lane_shuffle_plain
 from ..ops.rspmv import (SLAB, slab_gather, slab_gather_plain, spmv_routed)
@@ -86,18 +84,6 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bodies(fn) -> str:
-    """Launches by body of one `fn()` call, where the package counts
-    them (`_kernels.BODIES`); "not counted" where it does not."""
-    bodies = getattr(_kernels, "BODIES", None)
-    if bodies is None:
-        return "not_counted"
-    bodies.clear()
-    fn()
-    torch.cuda.synchronize()
-    return ",".join(f"{k}:{v}" for k, v in sorted(bodies.items()))
-
-
 def k1_operands(plan, dt, it, gen):
     """K1 on the plan's first main-route layer: (x2d, idx)."""
     idx = plan.tables[0].reshape(-1, LANES).to(it)
@@ -121,8 +107,8 @@ def kernel_line(title, kernel, variant, run, plain, moved, lib=None):
     extra = f" gather_ms={_ms(lib):.5f}" if lib is not None else ""
     print(f"{kernel}[{variant}] {title}: shape={tuple(got.shape)} "
           f"ms={ms:.5f} bitwise_equal={same} bound_ms={bnd:.5f} "
-          f"share={bnd / ms:.3f}{extra} host_us={host_us(run):.2f} "
-          f"bodies={_bodies(run)}", flush=True)
+          f"share={bnd / ms:.3f}{extra} host_us={host_us(run):.2f}",
+          flush=True)
     return same
 
 

@@ -17,10 +17,8 @@ through L1 after its idx (two round trips), K1 exchanging the row by
 warp shuffles, K2's slab row loaded as vectors and exchanged in shared
 memory or by shuffles; the PDL trigger after the stores instead of
 after the loads; the tables (K1's idx, K2's gslab and gidx) loaded
-before the wait; the row body launched plainly; the replaced
-one-thread-an-element body with the PDL launch and plainly (the body
-and launch the row body replaced).  Every copy's result must equal the
-plain version bitwise.  `patched_sources()` applies every patch without
+before the wait; the row body launched plainly.  Every copy's result
+must equal the plain version bitwise.  `patched_sources()` applies every patch without
 a compiler, so a CPU test catches a patch that no longer matches.
 
 Prints one line per copy and value variant: the registers of the copy's
@@ -94,18 +92,11 @@ _K1_IDX_FIRST = """  if (r < rows) {
   }
 """
 _K1_IDX_LOAD = "      iv[n] = *reinterpret_cast<const Idx*>(idx + at);\n"
-_K1_END = ("\n}\n\ntemplate <typename T, typename I>\n"
-           "__global__ void lane_shuffle_elems(")
-_K1_ROWS_LAUNCH = """      sblas::launch_pdl(lane_shuffle_rows<T, I>,
-                        dim3(static_cast<unsigned int>(
-                            (rows + kWarps<T> - 1) / kWarps<T>)),
-                        dim3(kWarps<T> * 32), stream, x, idx, out, rows);"""
-_K1_ELEMS_LAUNCH = """      sblas::launch_pdl(lane_shuffle_elems<T, I>,
-                        dim3(static_cast<unsigned int>(
-                            (n + kThreads - 1) / kThreads)),
-                        dim3(kThreads), stream, x, idx, out, n);"""
-# the launcher's choice of body (the wrapper passes vector = 1)
-_PICK = "if (vector) {"
+_K1_END = "\n}\n\ntemplate <typename T, typename I>\nint launch("
+_K1_ROWS_LAUNCH = """    sblas::launch_pdl(lane_shuffle_rows<T, I>,
+                      dim3(static_cast<unsigned int>(
+                          (rows + kWarps<T> - 1) / kWarps<T>)),
+                      dim3(kWarps<T> * 32), stream, x, idx, out, rows);"""
 
 # ---- K2 (rspmv_kernels.cu) ----
 _K2_WAIT = """  pdl_wait();
@@ -169,16 +160,12 @@ _K2_TRIGGER = ("  pdl_trigger();\n#pragma unroll\n"
                "    for (int n = 0; n < S::kVecs; ++n) {\n"
                "      sblas::store_vec(")
 _K2_END = ("\n}\n\ntemplate <typename T, typename O>\n"
-           "__global__ void slab_gather_slots(")
-_K2_ROWS_LAUNCH = """      sblas::launch_pdl(slab_gather_rows<T, O>,
-                        dim3(static_cast<unsigned int>(
-                            n_tiles * (kLanes / (kWarps<T> * kPerWarp<T>)))),
-                        dim3(kWarps<T> * 32), stream, gslab, x_slabs,
-                        gidx, gvals, out);"""
-_K2_SLOTS_LAUNCH = """      sblas::launch_pdl(slab_gather_slots<T, O>,
-                        dim3(static_cast<unsigned int>(n_tiles), kChunks),
-                        dim3(kThreads), stream, gslab, x_slabs, gidx, gvals,
-                        out);"""
+           "__global__ void tile_gather_kernel(")
+_K2_ROWS_LAUNCH = """    sblas::launch_pdl(slab_gather_rows<T, O>,
+                      dim3(static_cast<unsigned int>(
+                          n_tiles * (kLanes / (kWarps<T> * kPerWarp<T>)))),
+                      dim3(kWarps<T> * 32), stream, gslab, x_slabs, gidx,
+                      gvals, out);"""
 
 
 def _shape(warps: int = None, per_warp: int = None) -> list:
@@ -197,23 +184,17 @@ def _shape(warps: int = None, per_warp: int = None) -> list:
 def _plain(launch: str, kernel: str, grid: str, block: str,
            args: str) -> tuple:
     """A patch launching `kernel` with <<<>>> instead of `launch_pdl`."""
-    return (launch, f"      {kernel}<<<{grid}, {block}, 0, "
+    return (launch, f"    {kernel}<<<{grid}, {block}, 0, "
             f"static_cast<cudaStream_t>(stream)>>>({args});")
 
 
 _K1_NO_PDL = _plain(_K1_ROWS_LAUNCH, "lane_shuffle_rows<T, I>",
                     "static_cast<unsigned int>((rows + kWarps<T> - 1) / "
                     "kWarps<T>)", "kWarps<T> * 32", "x, idx, out, rows")
-_K1_ELEMS_PLAIN = _plain(_K1_ELEMS_LAUNCH, "lane_shuffle_elems<T, I>",
-                         "static_cast<unsigned int>((n + kThreads - 1) / "
-                         "kThreads)", "kThreads", "x, idx, out, n")
 _K2_NO_PDL = _plain(_K2_ROWS_LAUNCH, "slab_gather_rows<T, O>",
                     "static_cast<unsigned int>(n_tiles * (kLanes / "
                     "(kWarps<T> * kPerWarp<T>)))", "kWarps<T> * 32",
                     "gslab, x_slabs, gidx, gvals, out")
-_K2_SLOTS_PLAIN = _plain(_K2_SLOTS_LAUNCH, "slab_gather_slots<T, O>",
-                         "dim3(static_cast<unsigned int>(n_tiles), kChunks)",
-                         "kThreads", "gslab, x_slabs, gidx, gvals, out")
 
 VARIANTS_OF = {"lane_shuffle": K1_VARIANTS,
                         "slab_gather": K2_VARIANTS}
@@ -239,8 +220,6 @@ VARIANTS = {
     "k1_tables_first": (*_K1, [(_K1_IDX_LOAD, ""),
                                (_K1_WAIT, _K1_IDX_FIRST + _K1_WAIT)]),
     "k1_no_pdl": (*_K1, [_K1_NO_PDL]),
-    "k1_elems_pdl": (*_K1, [(_PICK, "if (false) {")]),
-    "k1_elems_plain": (*_K1, [(_PICK, "if (false) {"), _K1_ELEMS_PLAIN]),
     "k2": (*_K2, []),
     "k2_p1": (*_K2, _shape(None, 1)),
     "k2_w4": (*_K2, _shape(4, 1)),
@@ -260,8 +239,6 @@ VARIANTS = {
     "k2_tables_first": (*_K2, [(_K2_GIDX_LOAD, ""),
                                (_K2_WAIT, _K2_GIDX_FIRST)]),
     "k2_no_pdl": (*_K2, [_K2_NO_PDL]),
-    "k2_slots_pdl": (*_K2, [(_PICK, "if (false) {")]),
-    "k2_slots_plain": (*_K2, [(_PICK, "if (false) {"), _K2_SLOTS_PLAIN]),
 }
 
 
@@ -289,16 +266,14 @@ def patched_sources() -> dict:
 
 
 def _registers(report: str, kernel: str) -> str:
-    """Registers of the copy's f32 kernels (the row and scalar bodies)."""
+    """Registers of the copy's f32 kernel."""
     tag = {"lane_shuffle": "IfiE", "slab_gather": "IffE"}[kernel]
     out = []
     for entry in report.split("Compiling entry function")[1:]:
         head = entry.splitlines()[0]
         if tag in head:
             regs = re.search(r"Used (\d+) registers", entry)
-            body = re.search(r"(rows|elems|slots)", head)
-            out.append(f"{body.group(1) if body else '?'}:"
-                       f"{regs.group(1) if regs else '?'}")
+            out.append(regs.group(1) if regs else "?")
     return ",".join(out)
 
 
@@ -322,12 +297,11 @@ def _time_copy(fn, kernel, variant, args, out) -> tuple:
     tensor operands, `out` its output."""
     if kernel == "lane_shuffle":
         x2d, idx = args
-        argv = [x2d.data_ptr(), idx.data_ptr(), out.data_ptr(), x2d.numel(),
-                1]
+        argv = [x2d.data_ptr(), idx.data_ptr(), out.data_ptr(), x2d.numel()]
         want = lane_shuffle_plain(x2d, idx)
     else:
         argv = [t.data_ptr() for t in args] + [out.data_ptr(),
-                                               args[0].shape[0], 1]
+                                               args[0].shape[0]]
         want = slab_gather_plain(*args, K2_VARIANTS[variant][1])
     argv.append(torch.cuda.current_stream().cuda_stream)
 

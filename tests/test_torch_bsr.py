@@ -168,7 +168,7 @@ def test_k4_gate_follows_the_block_shape(block, k, on_cuda, k4):
     blocks at K >= 256 on CUDA; other blocks take `spmm_bsr`, as the CPU
     does (K4 raises for them)."""
     _, tp = _plans("banded", block)
-    assert tops.takes_k4(tp, k, on_cuda) is k4
+    assert tb.takes_k4(tp, k, on_cuda) is k4
 
 
 @pytest.mark.parametrize("k,offset,slots,variant", [

@@ -37,12 +37,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _bodies_of(kernel: str) -> dict:
-    """Launches of K1 (`lane_shuffle`) or K2 (`slab_gather`) by body since
-    `_kernels.BODIES` was last cleared."""
+def _launched_of(kernel: str) -> dict:
+    """Launches of K1 (`lane_shuffle`) or K2 (`slab_gather`) by variant
+    since `_kernels.LAUNCHED` was last cleared."""
     from sblas_tpu_torch import _kernels
-    return {k[len(kernel) + 1:]: v for k, v in _kernels.BODIES.items()
-            if k.startswith(kernel + ".")}
+    pre = f"sblas_{kernel}_"
+    return {k[len(pre):]: v for k, v in _kernels.LAUNCHED.items()
+            if k.startswith(pre)}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -54,11 +55,11 @@ def test_lane_shuffle_kernel_matches_plain(dev, dtype, rows):
     idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
                         dtype=torch.int32)
     before = troute.lane_shuffle.launches
-    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
     got = troute.lane_shuffle(x, idx)
     torch.cuda.synchronize()
     assert troute.lane_shuffle.launches == before + 1
-    assert _bodies_of("lane_shuffle") == {"vector": 1}
+    assert _launched_of("lane_shuffle") == {_kernels.SUFFIX[dtype]: 1}
     assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
 
 
@@ -77,11 +78,11 @@ def test_slab_gather_kernel_matches_plain(dev, dtype, n_tiles, n_slabs):
                         dtype=dtype)
     from sblas_tpu_torch import _kernels
     before = tr.slab_gather.launches
-    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
     got = tr.slab_gather(gslab, x_slabs, gidx, gvals)
     torch.cuda.synchronize()
     assert tr.slab_gather.launches == before + 1
-    assert _bodies_of("slab_gather") == {"vector": 1}
+    assert _launched_of("slab_gather") == {_kernels.SUFFIX[dtype]: 1}
     assert torch.equal(got, tr.slab_gather_plain(gslab, x_slabs, gidx,
                                                  gvals))
 
@@ -325,6 +326,52 @@ def test_bell_spmm_kernel_matches_plain(dev, dtype, n, half_band, k, case):
         torch.testing.assert_close(got, beta * C, rtol=0, atol=0)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("path", ["mode1", "planned", "bands"])
+def test_bell_parts_take_k4(dev, path):
+    """A mode-1 block, a planned shard and the streamed bands of a BELL
+    plan with 128 x 128 blocks at K = 256 each run K4 (`ops.spmm`'s one
+    gate): one f32 launch a block, shard or band, within 1e-5 normwise of
+    the batched matmuls (`spmm_bsr_plain`) over the whole plan."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.io.generate import fem_banded_like
+    from sblas_tpu_torch.memory import host_resident_plan, spmm_um
+    from sblas_tpu_torch.ops.bsr import BsrPlan, spmm_bsr_plain
+    from sblas_tpu_torch.parallel import (Mesh, partition_row_plans,
+                                          spmm_mode1,
+                                          spmm_mode2_planned_nocomm)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    A = fem_banded_like(n=3000, half_band=36)
+    k, mesh = 256, Mesh(None, 0, 1, dev)
+    plan = BsrPlan.from_csr(A, device=dev)
+    g = torch.Generator(device=dev).manual_seed(256)
+    B = torch.rand((A.shape[1], k), generator=g, device=dev)
+    C = torch.rand((A.shape[0], k), generator=g, device=dev)
+    alpha, beta = 3.0, 4.0
+    if path == "mode1":
+        run, launches = (lambda: spmm_mode1(plan, B, alpha, beta, C, mesh)), 1
+    elif path == "planned":
+        sh = partition_row_plans(A, 1, kind="bsr", device=dev)
+        assert tuple(sh.local(0).block) == (128, 128)
+        C = torch.zeros_like(C)
+        alpha, beta = 1.0, 0.0
+        run, launches = (lambda: spmm_mode2_planned_nocomm(sh, B, mesh)
+                         [: A.shape[0]]), 1
+    else:
+        hp = host_resident_plan(A, kind="bsr", hbm_budget_bytes=2 << 20,
+                                device=dev)
+        assert hp.n_bands > 1
+        run = lambda: spmm_um(hp, B, alpha, beta, C)   # noqa: E731
+        launches = hp.n_bands
+    _kernels.LAUNCHED.clear()
+    got = run()
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHED) == {"sblas_bell_spmm_f32": launches}
+    want = spmm_bsr_plain(plan, B, alpha, beta, C)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert rel <= 1e-5, rel
 
 
 def test_bell_spmm_f64_has_no_spill(dev):
@@ -1181,11 +1228,12 @@ def test_lane_shuffle_bf16_kernel_matches_plain(dev, idx_dtype, rows):
                         dtype=torch.int32).to(idx_dtype)
     from sblas_tpu_torch import _kernels
     before = troute.lane_shuffle.launches
-    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
     got = troute.lane_shuffle(x, idx)
     torch.cuda.synchronize()
     assert troute.lane_shuffle.launches == before + 1
-    assert _bodies_of("lane_shuffle") == {"vector": 1}
+    assert _launched_of("lane_shuffle") == {
+        "bf16_i16" if idx_dtype == torch.int16 else "bf16": 1}
     assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
 
 
@@ -1214,14 +1262,14 @@ def test_gather_bf16_kernels_match_plain(dev, variant, n_tiles, n_slabs):
     gvals = torch.randn(shape, generator=g, device=dev).to(dt)
     from sblas_tpu_torch import _kernels
     before = (tr.slab_gather.launches, tr.tile_gather.launches)
-    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
     got = tr.slab_gather(gslab, x_slabs, gidx, gvals, BF16)
     tiles = torch.index_select(x_slabs, 0, gslab)
     got_t = tr.tile_gather(tiles, gidx, gvals, BF16)
     torch.cuda.synchronize()
     assert (tr.slab_gather.launches, tr.tile_gather.launches) == (
         before[0] + 1, before[1] + 1)
-    assert _bodies_of("slab_gather") == {"vector": 1}
+    assert _launched_of("slab_gather") == {variant: 1}
     assert got.dtype == got_t.dtype == BF16
     assert torch.equal(got, tr.slab_gather_plain(gslab, x_slabs, gidx,
                                                  gvals, BF16))
@@ -1712,7 +1760,7 @@ def _bf16_dist_case(name, dev, mesh, mesh2):
 
 
 BF16_DIST = {   # the kernels each path may launch, by variant
-    "mode1_wcoo": {"window_reduce_bf16"}, "mode1_bsr": set(),
+    "mode1_wcoo": {"window_reduce_bf16"}, "mode1_bsr": {"bell_spmm_bf16"},
     "mode2": set(), "dist": set(),
     "planned_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
     "hier_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
@@ -1728,8 +1776,8 @@ def test_bf16_dist_and_streamed_paths_on_card(dev, nccl1, name):
     """Each distributed and streamed path over bf16 containers on the
     card: a bf16 result within the JAX package's bound of the f64 oracle
     (rtol = atol = 0.15), launching only the bf16 variants named (K3's
-    `bf16`, never `bf16_ragged`, at K = 64; K2', never K2; no K4 on the
-    BELL path) and each of them."""
+    `bf16`, never `bf16_ragged`, at K = 64; K2', never K2; K4 `bf16` on
+    the BELL mode-1 block at K = 256) and each of them."""
     from sblas_tpu_torch import _kernels
     from sblas_tpu_torch.containers import DenseMatrix
     from sblas_tpu_torch.ops.cpu_reference import spmm_cpu, spmv_cpu
@@ -2155,8 +2203,7 @@ def test_window_reduce_bf16_ragged_without_entries(dev, width, off, k):
                        (4.0 * C[:, 3:3 + width].float()).to(BF16))
 
 
-# ---- K1 and K2: the scalar body, and PDL launches back to back ----
-
+# ---- K1 and K2: unaligned operands, and PDL launches back to back ----
 
 
 def _one_in(t: torch.Tensor) -> torch.Tensor:
@@ -2167,12 +2214,28 @@ def _one_in(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_bases(monkeypatch) -> list:
+    """Every launch's tensor operands' base addresses mod 16, recorded by
+    a `_kernels.launch` that then launches as before."""
+    from sblas_tpu_torch import _kernels
+    seen, launch = [], _kernels.launch
+
+    def recording(fn_name, device, *args):
+        seen.append([a.data_ptr() % 16 for a in args
+                     if isinstance(a, torch.Tensor)])
+        return launch(fn_name, device, *args)
+    monkeypatch.setattr(_kernels, "launch", recording)
+    return seen
+
+
 @pytest.mark.parametrize("operand", ["x", "idx"])
 @pytest.mark.parametrize("variant", list(K1_VARIANTS))
 def test_lane_shuffle_unaligned_base_runs_scalar_body(dev, variant,
-                                                      operand):
-    """An x or idx one element off the row body's vector runs K1's scalar
-    body: bitwise the plain version, counted apart in `BODIES`."""
+                                                      operand,
+                                                      monkeypatch):
+    """An x or idx one element off the row body's vector (K1's one body)
+    reaches the kernel copied to fresh storage, every base on 16 bytes:
+    one launch, bitwise the plain version."""
     from sblas_tpu_torch import _kernels
     dt, it = K1_VARIANTS[variant]
     g = torch.Generator(device=dev).manual_seed(3)
@@ -2183,11 +2246,11 @@ def test_lane_shuffle_unaligned_base_runs_scalar_body(dev, variant,
         x = _one_in(x)
     else:
         idx = _one_in(idx)
-    _kernels.BODIES.clear()
+    bases = _launch_bases(monkeypatch)
     _kernels.LAUNCHED.clear()
     got = troute.lane_shuffle(x, idx)
     torch.cuda.synchronize()
-    assert _bodies_of("lane_shuffle") == {"scalar": 1}
+    assert bases == [[0, 0, 0]]
     assert dict(_kernels.LAUNCHED) == {f"sblas_lane_shuffle_{variant}": 1}
     assert torch.equal(got, troute.lane_shuffle_plain(x, idx))
 
@@ -2195,10 +2258,11 @@ def test_lane_shuffle_unaligned_base_runs_scalar_body(dev, variant,
 @pytest.mark.parametrize("operand", ["gidx", "gvals", "x_slabs"])
 @pytest.mark.parametrize("variant", list(K2_VARIANTS))
 def test_slab_gather_unaligned_base_runs_scalar_body(dev, variant,
-                                                     operand):
-    """A gidx or gvals one element off the row body's vector runs K2's
-    scalar body, bitwise, counted apart; x_slabs is read by element, so
-    an offset x_slabs keeps the row body."""
+                                                     operand, monkeypatch):
+    """A gidx or gvals one element off the row body's vector (K2's one
+    body) reaches the kernel copied to fresh storage, on 16 bytes; x_slabs
+    is read by element, so an offset x_slabs is passed as it is.  One
+    launch, bitwise the plain version."""
     from sblas_tpu_torch import _kernels
     dt, ot = K2_VARIANTS[variant]
     g = torch.Generator(device=dev).manual_seed(4)
@@ -2211,13 +2275,13 @@ def test_slab_gather_unaligned_base_runs_scalar_body(dev, variant,
     gvals = torch.randn(shape, generator=g, device=dev).to(dt)
     ops = dict(x_slabs=x_slabs, gidx=gidx, gvals=gvals)
     ops[operand] = _one_in(ops[operand])
-    _kernels.BODIES.clear()
+    bases = _launch_bases(monkeypatch)
     _kernels.LAUNCHED.clear()
     got = tr.slab_gather(gslab, ops["x_slabs"], ops["gidx"], ops["gvals"],
                          ot)
     torch.cuda.synchronize()
-    body = "vector" if operand == "x_slabs" else "scalar"
-    assert _bodies_of("slab_gather") == {body: 1}
+    x_at = ops["x_slabs"].data_ptr() % 16
+    assert bases == [[0, x_at, 0, 0, 0]]
     assert dict(_kernels.LAUNCHED) == {f"sblas_slab_gather_{variant}": 1}
     assert torch.equal(got, tr.slab_gather_plain(
         gslab, ops["x_slabs"], ops["gidx"], ops["gvals"], ot))
@@ -2266,12 +2330,12 @@ def test_k1_k2_chain_back_to_back_bitwise(dev, variant):
     from sblas_tpu_torch import _kernels
     run, x = _k1_k2_chain(variant, dev)
     want = run(False)
-    _kernels.BODIES.clear()
+    _kernels.LAUNCHED.clear()
     outs = [run(True) for _ in range(8)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
-    assert set(_kernels.BODIES) == {"lane_shuffle.vector",
-                                    "slab_gather.vector"}
+    assert all(k.startswith(("sblas_lane_shuffle_", "sblas_slab_gather_"))
+               for k in _kernels.LAUNCHED)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):

@@ -248,12 +248,12 @@ def test_is_profitable_matches_jax():
 
 # ---- K1 and K2 on the port's own paths take their row bodies ----
 #
-# On the card K1's and K2's wrappers launch their row body only where
-# every vector operand (K1's x, idx and out; K2's gidx, gvals and out)
-# starts on the body's vector (16 bytes; 8 for 16-bit values and int16
-# indices: `_kernels.row_vectors`), else their counted scalar body.  Each
-# path below records every operand its K1 and K2 calls get (here the
-# plain versions run them), and must give only aligned ones.
+# K1's and K2's one body, the row body, reads and writes its vector
+# operands (K1's x, idx and out; K2's gidx, gvals and out) as vectors, and
+# on the card their wrappers copy one that does not start on 16 bytes to
+# fresh storage first.  Each path below records every operand its K1 and
+# K2 calls get (here the plain versions run them), and must give only
+# operands on 16 bytes, so that no port path pays the copy.
 
 @functools.lru_cache(maxsize=None)
 def _web20k():
@@ -263,16 +263,14 @@ def _web20k():
 
 @pytest.fixture
 def kernel_bases(monkeypatch):
-    """(kernel, operand, byte offset mod 16, on the row body's vector) of
-    every K1 and K2 call the test makes, through every module that calls
-    them."""
+    """(kernel, operand, byte offset mod 16) of every K1 and K2 call the
+    test makes, through every module that calls them."""
     from sblas_tpu_torch.experiments import stage_fuse_probe as sfp
     seen = []
     k1, k2 = troute.lane_shuffle, tr.slab_gather
 
     def record(kernel, **operands):
-        seen.extend((kernel, name, t.data_ptr() % 16,
-                     _kernels.row_vectors((t.data_ptr(), t.element_size())))
+        seen.extend((kernel, name, t.data_ptr() % 16)
                     for name, t in operands.items())
 
     def lane_shuffle(x2d, idx):
@@ -337,8 +335,8 @@ def test_port_paths_give_k1_k2_row_aligned_bases(kernel_bases, path):
     _paths_run(path)
     kernels = {k for k, *_ in kernel_bases}
     assert kernels == {"K1", "K2"}
-    off = [rec for rec in kernel_bases if not rec[3]]
-    assert not off, f"operands off the row bodies' vectors: {off[:5]}"
+    off = [rec for rec in kernel_bases if rec[2]]
+    assert not off, f"operands off 16 bytes: {off[:5]}"
 
 
 @pytest.mark.parametrize("variant", sorted(k1k2_variants.VARIANTS))

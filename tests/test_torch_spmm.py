@@ -29,7 +29,6 @@ from sblas_tpu_torch.cli import spmm_test
 from sblas_tpu_torch.containers import CsrMatrix
 from sblas_tpu_torch.io.mmio import write_mtx
 from sblas_tpu_torch.ops.spmm import _auto_chunks, spmm_coo, spmm_ell
-from sblas_tpu_torch.ops.spmm import spmm as spmm_tier0
 from sblas_tpu_torch.utils.errors import PlanError
 from sblas_tpu_torch.utils.timing import spmm_flops, spmv_flops
 from sblas_tpu_torch.utils.verify import check_equal
@@ -192,8 +191,6 @@ def test_spmm_rejects_routed_and_unknown_plans():
     for fn in (tops.spmv, tops.spmm):
         with pytest.raises(TypeError, match="unsupported plan type"):
             fn(object(), torch.zeros(4, 4), 1.0, 0.0, torch.zeros(4, 4))
-    with pytest.raises(TypeError):
-        spmm_tier0(routed, torch.zeros(A.width, 4))
 
 
 def test_plans_refuse_other_value_types():
