@@ -373,19 +373,116 @@ def variant_launches(title, expect: dict) -> dict:
 def k1_k2_launches(title, launches: dict) -> dict:
     """The last `launches_of` run's K1 and K2 launches by variant
     (launcher name without its `sblas_` prefix), whose sums by kernel
-    must be `launches`.  Each kernel has one body, launched with
+    must be `launches` (`lane_shuffle`, K1's row body, apart from its
+    transposed store `lane_shuffle_transposed`).  Each is launched with
     programmatic dependent launch (`csrc/row_io.cuh`'s `launch_pdl`); no
     query reads the launch mode back, so none is printed."""
     from sblas_tpu_torch import _kernels
     got = {k[len("sblas_"):]: v for k, v in _kernels.LAUNCHED.items()
            if k.startswith(("sblas_lane_shuffle_", "sblas_slab_gather_"))}
-    summed = {name: sum(v for k, v in got.items()
-                        if k.startswith(name + "_"))
+    summed = {name: sum(got.get(f"{name}_{v}", 0)
+                        for v in _kernels.LAUNCHERS[name][1])
               for name in launches}
     if summed != launches:
         raise AssertionError(f"{title}: K1/K2 launches by variant {got}, "
                              f"expected {launches} by kernel")
     return got
+
+
+def k1_split(*schedules, n: int = 1) -> dict:
+    """K1's launches by counter in `n` runs of the routes `schedules` on
+    the card, as `route_steps` pairs them: the transposed store
+    (`lane_shuffle_transposed`) at each gather it pairs with the
+    transpose after it, the row body (`lane_shuffle`) at the others."""
+    from sblas_tpu_torch.ops.route import route_steps
+    kinds = [op[0] for s in schedules for op in route_steps(tuple(s), True)]
+    return {"lane_shuffle": n * kinds.count("gather"),
+            "lane_shuffle_transposed": n * kinds.count("gather_t")}
+
+
+def routes_of(*plans) -> tuple:
+    """Each routed plan's three route schedules: x relabel, main, unrank."""
+    return tuple(s for p in plans for s in (
+        p.xroute_schedule, p.schedule, p.unrank_schedule))
+
+
+def k1_variants(variant: str, *schedules) -> dict:
+    """`k1_split` by variant (launcher name without `sblas_`, as
+    `variant_launches` reads them), zero counts left out."""
+    return {f"{k}_{variant}": v for k, v in k1_split(*schedules).items()
+            if v}
+
+
+def k1_transposed_phase(plan, kernels, variant="f32",
+                        main_only=False) -> None:
+    """[K1 transposed]: K1's transposed store in `variant` at every
+    transpose of `plan`'s routes (the main route alone with `main_only`)
+    that the SpMV stores inside K1, on the plan's own tables and random
+    values: bitwise the row body followed by the permute copy (the route
+    before the transposed store) and the plain version, with the kernel's
+    ms, the row body's and the row body plus copy's, the plain version's,
+    the bound (x, idx and out once: 12 bytes an f32 element) and the
+    share.  Records the first main-route transpose as
+    `kernels["lane_shuffle_transposed"]` (f32) or
+    `kernels["lane_shuffle_transposed[<variant>]"]`; the launches are
+    filled in from the path's own run."""
+    from sblas_tpu_torch.ops.route import (LANE_SHUFFLE_VARIANTS,
+                                           lane_shuffle,
+                                           lane_shuffle_transposed,
+                                           lane_shuffle_transposed_plain,
+                                           route_steps)
+    card = card_line()
+    dev = plan.gslab.device
+    dt, it = LANE_SHUFFLE_VARIANTS[variant]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + len(variant))
+    key = ("lane_shuffle_transposed" if variant == "f32"
+           else f"lane_shuffle_transposed[{variant}]")
+    routes = [("main", plan.schedule, plan.tables)]
+    if not main_only:
+        routes += [("x relabel", plan.xroute_schedule, plan.xroute_tables),
+                   ("unrank", plan.unrank_schedule, plan.unrank_tables)]
+    for route, sched, tables in routes:
+        for op in route_steps(tuple(sched), True):
+            if op[0] != "gather_t":
+                continue
+            idx, shape = tables[op[1]], op[2]
+            if idx.dtype != it:
+                raise AssertionError(f"K1 transposed[{variant}] {route}: "
+                                     f"tables are {idx.dtype}, not {it}")
+            x2d = torch.rand(idx.shape, generator=gen, device=dev).to(dt)
+
+            def unfused(x2d=x2d, idx=idx, shape=shape):
+                return lane_shuffle(x2d, idx).reshape(shape).permute(
+                    0, 2, 1).contiguous()
+            err, _, ms, plain_ms = compare(
+                f"K1 transposed[{variant}] {route} {shape}",
+                lambda: lane_shuffle_transposed(x2d, idx, shape),
+                lambda: lane_shuffle_transposed_plain(x2d, idx, shape),
+                lane_shuffle_transposed)
+            if not torch.equal(lane_shuffle_transposed(x2d, idx, shape),
+                               unfused()):
+                raise AssertionError(f"K1 transposed[{variant}] {route} "
+                                     f"{shape}: differs from K1 and the "
+                                     f"copy")
+            row_ms = _device_ms(lambda: lane_shuffle(x2d, idx))
+            unfused_ms = _device_ms(unfused)
+            lane_shuffle.launches = lane_shuffle_transposed.launches = 0
+            bnd = bound(nbytes(x2d, idx, x2d), 0)
+            phase("K1 transposed", variant=variant, route=route,
+                  shape=shape, bitwise_equal=True, ms=f"{ms:.5f}",
+                  k1_ms=f"{row_ms:.5f}", k1_copy_ms=f"{unfused_ms:.5f}",
+                  plain_ms=f"{plain_ms:.5f}",
+                  bound_ms=f"{bnd['bound_ms']:.5f}",
+                  share=f"{bnd['bound_ms'] / ms:.3f}",
+                  gain=f"{unfused_ms / ms:.2f}x", card=card)
+            if key not in kernels:
+                kernels[key] = dict(
+                    kernel_rec("lane_shuffle_transposed", variant,
+                               "route_kernels.cu",
+                               "sblas_tpu/ops/route.py:388", err, ms,
+                               plain_ms, plain_ms, bnd), name=key)
+            del x2d
 
 
 def checked_bf16(title, got, want, bar=None):
@@ -553,7 +650,8 @@ def main() -> int:
     from sblas_tpu_torch.ops.cpu_reference import spmv_cpu
     from sblas_tpu_torch.ops.dia import dia_spmm, dia_spmv
     from sblas_tpu_torch.ops.route import (LANES, lane_shuffle,
-                                           lane_shuffle_plain)
+                                           lane_shuffle_plain,
+                                           lane_shuffle_transposed)
     from sblas_tpu_torch.ops.rspmv import (SLAB, RoutedPlan, slab_gather,
                                            slab_gather_plain, tile_gather)
     from sblas_tpu_torch.ops.wcoo import k_chunk_width, window_reduce
@@ -562,7 +660,9 @@ def main() -> int:
     from sblas_tpu_torch.experiments.wcoo_gather_probe import (
         window_lane_gather)
 
-    counters = {"lane_shuffle": lane_shuffle, "slab_gather": slab_gather,
+    counters = {"lane_shuffle": lane_shuffle,
+                "lane_shuffle_transposed": lane_shuffle_transposed,
+                "slab_gather": slab_gather,
                 "tile_gather": tile_gather, "window_reduce": window_reduce,
                 "bell_spmm": bell_spmm, "dia_spmm": dia_spmm,
                 "dia_spmv": dia_spmv,
@@ -622,6 +722,7 @@ def main() -> int:
         plain_ms=plain_ms, library_ms=plain_ms,
         **bound(3 * nbytes(x2d), 0))
     del x2d, idx
+    k1_transposed_phase(plan, kernels)
 
     # ---- K2: slab gather at the main path's T_g, with the plan's tables
     n_slabs = -(-A.shape[1] // SLAB)
@@ -655,15 +756,23 @@ def main() -> int:
     xd = torch.from_numpy(x.values).to(dev)
     yd = torch.from_numpy(y.values).to(dev)
     want = spmv_cpu(A, x, ALPHA, BETA, y)
-    out, counts = launches_of(counters,
-                              lambda: spmv(plan, xd, ALPHA, BETA, yd))
-    expect_launches("routed SpMV", counts, dict(
-        none, lane_shuffle=plan.n_route_gathers, slab_gather=1))
-    ran = k1_k2_launches("routed SpMV", dict(
-        lane_shuffle=plan.n_route_gathers, slab_gather=1))
-    for name in ("lane_shuffle", "slab_gather"):
+    from sblas_tpu_torch.utils import trace
+    k1 = k1_split(*routes_of(plan))
+    with trace.recording() as rec:
+        out, counts = launches_of(counters,
+                                  lambda: spmv(plan, xd, ALPHA, BETA, yd))
+    expect_launches("routed SpMV", counts, dict(none, **k1, slab_gather=1))
+    ran = k1_k2_launches("routed SpMV", dict(**k1, slab_gather=1))
+    transposes = (rec.counters.get("route_transposes_fused", 0),
+                  rec.counters.get("route_transpose_copies", 0))
+    if transposes != (counts["lane_shuffle_transposed"], 0):
+        raise AssertionError(f"routed SpMV: transposes (fused, copies) "
+                             f"{transposes}, K1 launches {counts}")
+    for name in ("lane_shuffle", "lane_shuffle_transposed", "slab_gather"):
         kernels[name]["launches"] = counts[name]
     phase("main path", plan="RoutedPlan", launches=counts,
+          by_variant=ran, transposes_fused=transposes[0],
+          transpose_copies=transposes[1],
           check=checked("routed SpMV", out, want),
           **call_times(lambda: spmv(plan, xd, ALPHA, BETA, yd), A.nnz))
     k1k2 = k1_k2_at("K1/K2 variants", "webbase-1M plan", plan, ran)
@@ -1132,7 +1241,6 @@ def f64_routed(A, plan, xd, yd, want, k1k2, counters, none,
                              "does not choose routed")
     p64 = cast_plan(plan, f64)
     x64, y64 = xd.double(), yd.double()
-    n_k1 = p64.n_route_gathers
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 64)
     x_slabs = torch.rand((-(-A.shape[1] // SLAB), 128, 128), generator=gen,
@@ -1162,38 +1270,48 @@ def f64_routed(A, plan, xd, yd, want, k1k2, counters, none,
             name, "f64", src, at, r["max_abs_err"], r["ms"], r["plain_ms"],
             r["library_ms"], {k: r[k] for k in ("bound_ms", "bound_by")})
 
+    k1_transposed_phase(p64, kernels, "f64")
+
+    routes = routes_of(p64)
+    k1 = k1_split(*routes)
     out, counts = launches_of(counters,
                               lambda: spmv(p64, x64, ALPHA, BETA, y64))
     expect_launches("routed SpMV f64", counts,
-                    dict(none, lane_shuffle=n_k1, slab_gather=1))
+                    dict(none, **k1, slab_gather=1))
     by_variant = variant_launches("routed SpMV f64", {
-        "lane_shuffle_f64": n_k1, "slab_gather_f64": 1})
-    k1_k2_launches("routed SpMV f64",
-                   dict(lane_shuffle=n_k1, slab_gather=1))
-    kernels["lane_shuffle[f64]"]["launches"] = n_k1
-    kernels["slab_gather[f64]"]["launches"] = 1
+        **k1_variants("f64", *routes), "slab_gather_f64": 1})
+    k1_k2_launches("routed SpMV f64", dict(**k1, slab_gather=1))
+    for name in ("lane_shuffle", "lane_shuffle_transposed", "slab_gather"):
+        kernels[f"{name}[f64]"]["launches"] = by_variant.get(f"{name}_f64",
+                                                            0)
     phase("f64", path="spmv RoutedPlan webbase-1M f64", launches=counts,
           by_variant=by_variant, check=checked("routed SpMV f64", out, want),
           **call_times(lambda: spmv(p64, x64, ALPHA, BETA, y64), A.nnz))
-    for title, run, kname in (
+    # P1 does the main route's first gather (the peeled rows' part of it
+    # stays a K1 row body): the rest of that route starts with a
+    # transpose, which stays a copy
+    for title, run, kname, k1_routes, peel in (
             ("spmv_routed f64 pregather (K2prime)",
              lambda: spmv_routed(p64, x64, ALPHA, BETA, y64, pregather=True),
-             "tile_gather"),
+             "tile_gather", routes, 0),
             ("spmv_routed_fused1 f64 (P1)",
              lambda: spmv_routed_fused1(p64, x64, ALPHA, BETA, y64),
-             "stage_fuse_gather")):
+             "stage_fuse_gather", (routes[0], routes[1][1:], routes[2]),
+             int(p64.n_prows > 0))):
         out, counts = launches_of(counters, run)
         if (counts[kname] != 1 or counts["slab_gather"]
                 or counts["lane_shuffle"] < 1):
             raise AssertionError(f"{title}: kernel launches {counts}")
-        variant_launches(title, {f"{kname}_f64": 1,
-                                 "lane_shuffle_f64": counts["lane_shuffle"]})
+        want_k1 = k1_variants("f64", *k1_routes)
+        want_k1["lane_shuffle_f64"] = want_k1.get("lane_shuffle_f64",
+                                                  0) + peel
+        variant_launches(title, {f"{kname}_f64": 1, **want_k1})
         kernels[f"{kname}[f64]"]["launches"] = 1
         phase("f64", path=f"{title} webbase-1M", launches=counts,
               check=checked(title, out, want), **call_times(run, A.nnz))
     del out
-    for name in ("lane_shuffle", "slab_gather", "tile_gather",
-                 "stage_fuse_gather"):
+    for name in ("lane_shuffle", "lane_shuffle_transposed", "slab_gather",
+                 "tile_gather", "stage_fuse_gather"):
         f64_line(name, kernels[f"{name}[f64]"], card=card_line())
     F64_SECONDS["routed"] = time.perf_counter() - t0
 
@@ -1440,7 +1558,7 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
         replaces="sblas_tpu/ops/rspmv.py:592", library_ms=None,
         **k2p(p1, "world-1 shard of webbase-1M"))
 
-    routed = dict(none, lane_shuffle=p1.n_route_gathers, tile_gather=1)
+    routed = dict(none, **k1_split(*routes_of(p1)), tile_gather=1)
     for reduce in ("psum", "psum_scatter"):
         out, counts = launches_of(counters, lambda: spmv_dist_planned(
             sh1, xd, ALPHA, BETA, yd, mesh, reduce=reduce))
@@ -1501,8 +1619,7 @@ def dist_phases(A, xd, yd, want, mesh, mesh2, gen, counters, none,
 
     out, counts = launches_of(counters, run4)
     expect_launches("shards4", counts, dict(
-        none, tile_gather=4,
-        lane_shuffle=sum(p.n_route_gathers for p in sh4.plans)))
+        none, tile_gather=4, **k1_split(*routes_of(*sh4.plans))))
     phase("shards4", kind=sh4.kind, band_rows=sh4.band_rows,
           n_gtiles_shared=sh4.local(0).n_gtiles, n_gtiles_natural=natural,
           build_s=f"{build_s:.2f}", launches=counts,
@@ -1527,8 +1644,6 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
                                            tile_gather, tile_gather_plain)
     dev = xd.device
     plan16 = plan.with_transport("bf16")
-    main_gathers = sum(op[0] == "gather" for op in plan16.schedule)
-    other_gathers = plan16.n_route_gathers - main_gathers
 
     def k1(p, variant, title):
         """K1 at `p`'s first main-route table; its library call is
@@ -1578,21 +1693,26 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
     # ---- [bf16-kernels] at the bf16-transport plan's tables ----
     n_slabs = -(-A.shape[1] // SLAB)
     k1(plan16, "bf16_i16", "webbase-1M main route, bf16 transport")
+    k1_transposed_phase(plan16, kernels, "bf16_i16", main_only=True)
     x_slabs = torch.rand((n_slabs, LANES, LANES), generator=gen, device=dev)
     k2(plan16, x_slabs, "f32_bf16", "webbase-1M plan")
 
     # ---- [bf16-transport]: the routed SpMV, f32 and bf16 in turns ----
+    k1n = k1_split(*routes_of(plan16))
     out, counts = launches_of(counters,
                               lambda: spmv(plan16, xd, ALPHA, BETA, yd))
-    expect_launches("routed SpMV bf16 transport", counts, dict(
-        none, lane_shuffle=plan16.n_route_gathers, slab_gather=1))
+    expect_launches("routed SpMV bf16 transport", counts,
+                    dict(none, **k1n, slab_gather=1))
     by_variant = variant_launches("routed SpMV bf16 transport", {
-        "lane_shuffle_bf16_i16": main_gathers,
-        "lane_shuffle_f32": other_gathers, "slab_gather_f32_bf16": 1})
-    k1_k2_launches("routed SpMV bf16 transport", dict(
-        lane_shuffle=plan16.n_route_gathers, slab_gather=1))
-    kernels["lane_shuffle[bf16_i16]"]["launches"] = by_variant[
-        "lane_shuffle_bf16_i16"]
+        **k1_variants("bf16_i16", plan16.schedule),
+        **k1_variants("f32", plan16.xroute_schedule,
+                      plan16.unrank_schedule),
+        "slab_gather_f32_bf16": 1})
+    k1_k2_launches("routed SpMV bf16 transport",
+                   dict(**k1n, slab_gather=1))
+    for name in ("lane_shuffle", "lane_shuffle_transposed"):
+        kernels[f"{name}[bf16_i16]"]["launches"] = by_variant.get(
+            f"{name}_bf16_i16", 0)
     kernels["slab_gather[f32_bf16]"]["launches"] = 1
     check = checked_bf16("routed SpMV bf16 transport", out, want,
                          bar=BF16_TRANSPORT_BAR)
@@ -1617,22 +1737,25 @@ def bf16_routed_phases(A, plan, x, xd, yd, want, gen, counters, none,
         raise AssertionError(f"bf16 webbase SpMV plan {type(pv).__name__} "
                              f"{pv.dtype}, expected a bf16 RoutedPlan")
     k1(pv, "bf16", "webbase-1M main route, bf16 values")
+    k1_transposed_phase(pv, kernels, "bf16")
     k2(pv, x_slabs.to(BF16), "bf16", "webbase-1M bf16-valued plan")
     del x_slabs
     x16, y16 = xd.to(BF16), yd.to(BF16)
+    k1n = k1_split(*routes_of(pv))
     for pregather, kname in ((False, "slab_gather"), (True, "tile_gather")):
         out, counts = launches_of(counters, lambda: spmv_routed(
             pv, x16, ALPHA, BETA, y16, pregather=pregather))
-        expect_launches("routed SpMV bf16 values", counts, dict(
-            none, lane_shuffle=pv.n_route_gathers, **{kname: 1}))
+        expect_launches("routed SpMV bf16 values", counts,
+                        dict(none, **k1n, **{kname: 1}))
         by_variant = variant_launches("routed SpMV bf16 values", {
-            "lane_shuffle_bf16": pv.n_route_gathers, f"{kname}_bf16": 1})
+            **k1_variants("bf16", *routes_of(pv)), f"{kname}_bf16": 1})
         kernels[f"{kname}[bf16]"]["launches"] = 1
         if not pregather:
-            k1_k2_launches("routed SpMV bf16 values", dict(
-                lane_shuffle=pv.n_route_gathers, slab_gather=1))
-            kernels["lane_shuffle[bf16]"]["launches"] = by_variant[
-                "lane_shuffle_bf16"]
+            k1_k2_launches("routed SpMV bf16 values",
+                           dict(**k1n, slab_gather=1))
+            for name in ("lane_shuffle", "lane_shuffle_transposed"):
+                kernels[f"{name}[bf16]"]["launches"] = by_variant.get(
+                    f"{name}_bf16", 0)
         phase("bf16-plans", path=f"spmv_routed bf16 values webbase-1M"
               f"{' pregather (K2prime)' if pregather else ''}",
               build_s=f"{build_s:.2f}", launches=counts,
@@ -2224,13 +2347,12 @@ def bf16_transport_dist(A, xd, yd, want, mesh, counters, none, kernels,
         raise AssertionError(f"{title}: shards {shards.kind} at transport "
                              f"{getattr(p, 'transport', None)}, expected "
                              f"routed bf16")
-    main = sum(op[0] == "gather" for op in p.schedule)
     out, counts = launches_of(counters, lambda: run(shards))
     expect_launches(title, counts, dict(
-        none, lane_shuffle=p.n_route_gathers, tile_gather=1))
+        none, **k1_split(*routes_of(p)), tile_gather=1))
     by_variant = variant_launches(title, {
-        "lane_shuffle_bf16_i16": main,
-        "lane_shuffle_f32": p.n_route_gathers - main,
+        **k1_variants("bf16_i16", p.schedule),
+        **k1_variants("f32", p.xroute_schedule, p.unrank_schedule),
         "tile_gather_f32_bf16": 1})
     kernels["tile_gather[f32_bf16]"]["launches"] = 1
     phase("bf16-transport", path=f"{title} (world 1)",
@@ -2319,8 +2441,8 @@ def k1_k2_at(title, where, plan, ran) -> dict:
 def shard_k1_k2(plan, n, ran) -> None:
     """[xfoot-shard kernels]: the stock shard SpMV's kernels on the n-way
     worst shard's own tables (`k1_k2_at`), then the shard's whole main
-    route as the SpMV launches it (its K1 layers, a transpose copy
-    between each pair)."""
+    route as the SpMV launches it (its K1 layers, each transpose stored by
+    the K1 launch before it)."""
     from sblas_tpu_torch.ops.route import apply_route
     k1_k2_at("xfoot-shard kernels", f"n={n} shard", plan, ran)
     gen = torch.Generator(device=plan.gslab.device)
@@ -2379,7 +2501,7 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
         raise AssertionError(f"world-1 xfoot shards are {xs1.kind}, "
                              f"expected routed")
     p1 = xs1.local(0).plan
-    routed = dict(none, lane_shuffle=p1.n_route_gathers, tile_gather=1)
+    routed = dict(none, **k1_split(*routes_of(p1)), tile_gather=1)
     run = lambda: spmv_xfoot(xs1, xd, ALPHA, BETA, yd, mesh)  # noqa: E731
     out, counts = launches_of(counters, run)
     expect_launches("spmv_xfoot", counts, routed)
@@ -2417,7 +2539,7 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
             packed, counts = launches_of(counters, run)
             k1 = sum(op[0] == "gather" for op in sh.xroute_schedule)
             expect_launches(f"extraction {engine} n={n}", counts,
-                            dict(none, lane_shuffle=k1))
+                            dict(none, **k1_split(sh.xroute_schedule)))
             res[engine] = (packed, _device_ms(run), k1)
         (pf, ms_f, _), (pr, ms_r, k1) = res["flat"], res["route"]
         if not torch.equal(pf[used], pr[used]):
@@ -2457,19 +2579,23 @@ def xfoot_phases(A, x, xd, yd, want, mesh, counters, none,
         runs = {"stock": lambda: spmv_routed(plan, xl, ALPHA, BETA, yl),
                 "fused": lambda: spmv_routed_fused1(plan, xl, ALPHA, BETA,
                                                     yl)}
-        expect = {"stock": dict(none, lane_shuffle=plan.n_route_gathers,
-                                slab_gather=1),
-                  "fused": dict(none, stage_fuse_gather=1,
-                                lane_shuffle=plan.n_route_gathers - 1
-                                + (1 if plan.n_prows else 0))}
+        # P1 does the main route's first gather (the peeled rows' part
+        # of it stays a K1 row body): the rest of that route starts with
+        # a transpose, which stays a copy
+        k1_stock = k1_split(*routes_of(plan))
+        k1_fused = k1_split(plan.xroute_schedule, plan.schedule[1:],
+                            plan.unrank_schedule)
+        k1_fused["lane_shuffle"] += 1 if plan.n_prows else 0
+        expect = {"stock": dict(none, **k1_stock, slab_gather=1),
+                  "fused": dict(none, stage_fuse_gather=1, **k1_fused)}
         checks, launched = {}, {}
         for name, run in runs.items():
             out, launched[name] = launches_of(counters, run)
             expect_launches(f"xfoot-shard {name} n={n}", launched[name],
                             expect[name])
             if name == "stock":
-                ran = k1_k2_launches(f"xfoot-shard stock n={n}", dict(
-                    lane_shuffle=plan.n_route_gathers, slab_gather=1))
+                ran = k1_k2_launches(f"xfoot-shard stock n={n}",
+                                     dict(**k1_stock, slab_gather=1))
             checks[name] = checked(f"xfoot-shard {name} n={n}", out, want_l)
         if not torch.equal(stage_fuse_gather(*pass1_operands(plan, xl)),
                            pass1_tiles_stock(plan, xl)):
@@ -2782,7 +2908,7 @@ def solve_phases(A, mesh, counters, none) -> None:
 
     def routed_expect(plan, matvecs):
         return dict(none, slab_gather=matvecs,
-                    lane_shuffle=matvecs * plan.n_route_gathers)
+                    **k1_split(*routes_of(plan), n=matvecs))
 
     def residual_check(S, b, bar):
         def check(res):
@@ -3151,8 +3277,8 @@ def bf16_dist_webbase(A, wp, wplan, Bd, Cd, want_mm, mesh, counters,
         if sh.kind != "routed" or p.dtype != BF16:
             raise AssertionError(f"{title}: {sh.kind} shards of {p.dtype}")
         bf16_dist_run(title, lambda: run(sh), want_mv, counters, none,
-                      dict(lane_shuffle=p.n_route_gathers, tile_gather=1),
-                      {"lane_shuffle_bf16": p.n_route_gathers,
+                      dict(**k1_split(*routes_of(p)), tile_gather=1),
+                      {**k1_variants("bf16", *routes_of(p)),
                        "tile_gather_bf16": 1}, F32_RECORD[f32_path], A.nnz,
                       build_s=f"{build_s:.2f}", k1_per_spmv=p.n_route_gathers)
         del sh, p

@@ -9,8 +9,10 @@ variant: `sblas_<kernel>_<variant>`, the variant naming the value type
 (`f32`, `f64`, `bf16`) and, for a mixed one, the second type (K1's
 `bf16_i16` takes int16 indices, K2's `f32_bf16` stores bf16); K3's and
 K4's `bf16_ragged` is their bf16 kernel for any stride and alignment,
-where `bf16` needs 16-byte rows and bases.  K1, K2 and K6 are launched
-with programmatic dependent launch (`row_io.cuh`).  At first
+where `bf16` needs 16-byte rows and bases.  K1's transposed store, its
+second body, has launchers of its own (`lane_shuffle_transposed`).  K1,
+K2 and K6 are launched with programmatic dependent launch
+(`row_io.cuh`).  At first
 use each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all
 started together, and the objects are linked into one shared library,
 loaded with ctypes: nothing is built or imported when the package is
@@ -55,6 +57,8 @@ _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # kernel -> (argument types before the stream, its variants)
 LAUNCHERS = {
     "lane_shuffle": ([_p, _p, _p, _i64], ("f32", "f64", "bf16", "bf16_i16")),
+    "lane_shuffle_transposed": ([_p, _p, _p, _i64, _i64, _i64],
+                                ("f32", "f64", "bf16", "bf16_i16")),
     "slab_gather": ([_p] * 5 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "tile_gather": ([_p] * 4 + [_i64], ("f32", "f64", "bf16", "f32_bf16")),
     "window_reduce": ([_p] * 11 + [_i64] * 7 + [_f64, _f64],

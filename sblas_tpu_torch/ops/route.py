@@ -17,10 +17,15 @@ The port keeps the layer program exactly: `build_route` and its helpers
 are the JAX package's numpy code, carried over so the tables are
 byte-identical.  The device executor `apply_route` runs in torch: each
 `gather` layer is kernel K1 (`lane_shuffle`, csrc/route_kernels.cu), each
-`view_transpose` a reshape/permute/contiguous, each `mix` a
-`torch.gather` along the block-row axis.  Whether routing still pays on a
-GPU, which has a fast arbitrary gather, is an open question the H100
-numbers in PERF.md answer first.
+`mix` a `torch.gather` along the block-row axis.  On CUDA a `gather`
+directly followed by a `view_transpose` is one K1 launch that stores its
+outputs at their transposed places (`lane_shuffle_transposed`); every
+`build_route` transpose is such a pair, so no transpose is a copy there.
+A transpose the kernel's tile cannot cover, or with no gather before it,
+and every transpose on the CPU, stays a reshape/permute/contiguous copy
+(`route_steps` pairs them, once per schedule).  Whether routing still
+pays on a GPU, which has a fast arbitrary gather, is an open question
+the H100 numbers in PERF.md answer first.
 
 Tables are int32, or int16 for the main route under the bf16 transport
 (lane indices are below 128 and mix ranks below the layer arity, exact in
@@ -31,6 +36,7 @@ them to int32 at use, since `torch.gather` takes no int16 index.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -407,38 +413,95 @@ def lane_shuffle_plain(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x2d, 1, _index(idx))
 
 
-def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx in
-    [0, 128): int32, or int16 with bf16 values.  CPU tensors take the
-    plain version; CUDA tensors launch kernel K1 (csrc/route_kernels.cu)
-    or raise.  K1 reads x2d and idx as 16-byte vectors (8 at 16-bit
-    values): one not on 16 bytes (no port path gives one) is first copied
-    to fresh storage."""
-    if x2d.device.type == "cpu":
-        return lane_shuffle_plain(x2d, idx)
+def lane_shuffle_transposed_plain(x2d: torch.Tensor, idx: torch.Tensor,
+                                  shape: Tuple) -> torch.Tensor:
+    """Plain PyTorch K1 with the transposed store: the shuffle viewed as
+    `shape` (nb, P, Q), transposed to (nb, Q, P)."""
+    return lane_shuffle_plain(x2d, idx).reshape(shape).permute(
+        0, 2, 1).contiguous()
+
+
+def _k1_operands(kernel: str, x2d: torch.Tensor, idx: torch.Tensor):
+    """K1's launcher for `x2d` and `idx` and the two operands as it
+    reads them, or raise: (R, 128) contiguous CUDA tensors, idx int32,
+    or int16 with bf16 values.  K1 reads x2d and idx as 16-byte vectors
+    (8 at 16-bit values): one not on 16 bytes (no port path gives one)
+    is first copied to fresh storage."""
     from ..utils.errors import KernelError, require
     require(x2d.device.type == "cuda", KernelError,
-            f"lane_shuffle runs on cpu or cuda, not {x2d.device}")
+            f"{kernel} launches K1 on cuda, not on {x2d.device}")
     require(idx.dtype in (torch.int32, torch.int16), KernelError,
             f"idx has dtype {idx.dtype}, expected int32 or int16")
-    fn = _kernels.launcher("lane_shuffle", _kernels.value_suffix(x2d.dtype)
+    fn = _kernels.launcher(kernel, _kernels.value_suffix(x2d.dtype)
                            + ("_i16" if idx.dtype == torch.int16 else ""))
     require(x2d.dim() == 2 and x2d.shape[1] == LANES, KernelError,
-            f"lane_shuffle takes an (R, {LANES}) view, got "
-            f"{tuple(x2d.shape)}")
+            f"{kernel} takes an (R, {LANES}) view, got {tuple(x2d.shape)}")
     _kernels.check_operand(x2d, "x2d", x2d.dtype, x2d.shape, x2d.device)
     _kernels.check_operand(idx, "idx", idx.dtype, x2d.shape, x2d.device)
     if x2d.data_ptr() % 16:
         x2d = x2d.clone()
     if idx.data_ptr() % 16:
         idx = idx.clone()
+    return fn, x2d, idx
+
+
+def lane_shuffle(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, j] = x2d[r, idx[r, j]] over (R, 128) tensors, idx in
+    [0, 128): int32, or int16 with bf16 values.  CPU tensors take the
+    plain version; CUDA tensors launch kernel K1 (csrc/route_kernels.cu)
+    or raise (`_k1_operands`)."""
+    if x2d.device.type == "cpu":
+        return lane_shuffle_plain(x2d, idx)
+    fn, x2d, idx = _k1_operands("lane_shuffle", x2d, idx)
     out = torch.empty_like(x2d)
     _kernels.launch(fn, x2d.device, x2d, idx, out, x2d.numel())
     lane_shuffle.launches += 1
     return out
 
 
-lane_shuffle.launches = 0   # K1 launches since the last reset
+lane_shuffle.launches = 0   # K1 row-body launches since the last reset
+
+
+def transposable(shape: Tuple, axes: Tuple) -> bool:
+    """Whether K1's transposed store covers a `view_transpose` of
+    `shape` and `axes`, for every value type: (nb, P, Q) -> (nb, Q, P),
+    Q a multiple of 128 or one of 16, 32, 64, P a multiple of 16.  The
+    one gate of the transposed store: `route_steps` pairs and
+    `lane_shuffle_transposed` launches only what it admits, and the
+    launcher (csrc/route_kernels.cu's `tile_shape`) derives its tile
+    from such a shape, refusing others only as a guard.  Every transpose
+    that `build_route` emits is one: its sides are 128 and a block's row
+    count A > `_MIX_MAX_A`, which is 16, 32, 64 or a multiple of 128."""
+    if len(shape) != 3 or tuple(axes) != (0, 2, 1):
+        return False
+    _, P, Q = shape
+    return P > 0 and P % 16 == 0 and (Q % LANES == 0 or Q in (16, 32, 64))
+
+
+def lane_shuffle_transposed(x2d: torch.Tensor, idx: torch.Tensor,
+                            shape: Tuple) -> torch.Tensor:
+    """`lane_shuffle(x2d, idx)` viewed as `shape` (nb, P, Q) and
+    transposed to a contiguous (nb, Q, P), in one K1 launch on CUDA: the
+    gather layer and the route's next op, a `view_transpose` that
+    `transposable` admits, with no copy between.  CUDA tensors only
+    (routes on the CPU keep the copy, `route_steps`); the operands are
+    `lane_shuffle`'s, and `lane_shuffle_transposed_plain` is the plain
+    version."""
+    from ..utils.errors import ShapeError, require
+    fn, x2d, idx = _k1_operands("lane_shuffle_transposed", x2d, idx)
+    nb, P, Q = shape
+    require(transposable(shape, (0, 2, 1)) and nb * P * Q == x2d.numel(),
+            ShapeError, f"lane_shuffle_transposed cannot store {x2d.numel()} "
+            f"elements as the transpose of {tuple(shape)}")
+    out = torch.empty((nb, Q, P), dtype=x2d.dtype, device=x2d.device)
+    _kernels.launch(fn, x2d.device, x2d, idx, out, x2d.numel(), P, Q)
+    lane_shuffle_transposed.launches += 1
+    return out
+
+
+lane_shuffle_transposed.launches = 0   # transposed-store launches
+
+
 # K1's variants: launcher suffix -> (value dtype, index dtype)
 LANE_SHUFFLE_VARIANTS = {
     "f32": (torch.float32, torch.int32), "f64": (torch.float64, torch.int32),
@@ -456,32 +519,76 @@ def route_tables(prog: RouteProgram, device, index_dtype=np.int32
                  for op in prog.ops if op[0] in ("gather", "mix"))
 
 
-def apply_route(prog_or_schedule, x: torch.Tensor, tables) -> torch.Tensor:
-    """Execute the layer program.  `x` must already be padded to the
-    program's element count; returns the permuted tensor."""
-    sched = (prog_or_schedule.schedule
-             if isinstance(prog_or_schedule, RouteProgram)
-             else prog_or_schedule)
+@functools.lru_cache(maxsize=256)
+def route_steps(schedule: Tuple, fuse: bool) -> Tuple:
+    """The steps `execute_steps` runs for `schedule`, each with the index
+    of its table: ("gather", ti), ("mix", ti, A), the schedule's own
+    ("view_transpose", shape, axes) (a copy), and, with `fuse`,
+    ("gather_t", ti, shape) for a gather directly followed by a
+    transpose that `transposable` admits (one K1 launch with the
+    transposed store).  A property of the schedule alone, computed once
+    a schedule."""
+    steps = []
+    ti = i = 0
+    while i < len(schedule):
+        op = schedule[i]
+        nxt = schedule[i + 1] if i + 1 < len(schedule) else None
+        if op[0] == "gather":
+            if (fuse and nxt is not None and nxt[0] == "view_transpose"
+                    and transposable(nxt[1], nxt[2])):
+                steps.append(("gather_t", ti, nxt[1]))
+                i += 1
+            else:
+                steps.append(("gather", ti))
+            ti += 1
+        elif op[0] == "mix":
+            steps.append(("mix", ti, op[1]))
+            ti += 1
+        else:
+            steps.append(op)
+        i += 1
+    return tuple(steps)
+
+
+def execute_steps(steps: Tuple, x: torch.Tensor, tables) -> torch.Tensor:
+    """Run `route_steps` on `x` (padded to the program's element count)
+    with the program's tables; counts each transpose as
+    `route_transposes_fused` (inside K1) or `route_transpose_copies`."""
     n = x.shape[0]
     cur = x
-    ti = 0
-    for op in sched:
-        if op[0] == "gather":
-            idx = tables[ti]
-            ti += 1
+    for op in steps:
+        kind = op[0]
+        if kind == "gather":
+            idx = tables[op[1]]
             cur = lane_shuffle(cur.reshape(idx.shape), idx).reshape(-1)
-        elif op[0] == "mix":
+        elif kind == "gather_t":
+            idx = tables[op[1]]
+            cur = lane_shuffle_transposed(cur.reshape(idx.shape), idx,
+                                          op[2]).reshape(-1)
+            trace.count("route_transposes_fused")
+        elif kind == "mix":
             # out[b*A+j, c] = in[b*A + rho[b*A+j, c], c]: a gather along the
             # block-row axis (the JAX package's A-way select chain computes
             # the same selection)
-            A = op[1]
-            rho = tables[ti]
-            ti += 1
+            _, ti, A = op
             nb = n // (A * LANES)
             cur = torch.gather(cur.reshape(nb, A, LANES), 1,
-                               _index(rho).reshape(nb, A, LANES)
+                               _index(tables[ti]).reshape(nb, A, LANES)
                                ).reshape(-1)
         else:
             _, shape, axes = op
             cur = cur.reshape(shape).permute(axes).contiguous().reshape(-1)
+            trace.count("route_transpose_copies")
     return cur
+
+
+def apply_route(prog_or_schedule, x: torch.Tensor, tables) -> torch.Tensor:
+    """Execute the layer program.  `x` must already be padded to the
+    program's element count; returns the permuted tensor.  On CUDA each
+    gather + transpose pair is one K1 launch (`route_steps`); elsewhere
+    every transpose is a copy."""
+    sched = (prog_or_schedule.schedule
+             if isinstance(prog_or_schedule, RouteProgram)
+             else prog_or_schedule)
+    return execute_steps(route_steps(sched, x.device.type == "cuda"), x,
+                         tables)

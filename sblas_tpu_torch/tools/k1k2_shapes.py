@@ -15,8 +15,8 @@ the output written once, over 3.35 TB/s) and share, `torch.gather`'s ms
 beside K1, and the host microseconds a launch costs the caller (100
 launches enqueued back to back).
 Then K1 as the routes launch it: the n=4 and n=16 shards' whole main
-route (`apply_route`: its K1 layers with a transpose copy between each
-pair); the stock SpMV of each shard (`spmv_routed`) and of the full plan
+route (`apply_route`: its K1 layers, on the card each transpose stored
+by the K1 launch before it; in an older checkout a copy); the stock SpMV of each shard (`spmv_routed`) and of the full plan
 (`spmv`), in device ms and in wall ms per synchronous call (the call and
 a synchronize, median of 50 after 5 warm-ups); and a 1-element `zero_`,
 the floor of back-to-back launches.

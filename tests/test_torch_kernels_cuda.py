@@ -28,6 +28,7 @@ from sblas_tpu_torch.utils.errors import KernelError, ShapeError
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.float64]
+BF16 = torch.bfloat16
 
 
 @pytest.fixture
@@ -35,6 +36,18 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _reset_k1() -> None:
+    troute.lane_shuffle.launches = 0
+    troute.lane_shuffle_transposed.launches = 0
+
+
+def _k1_launches() -> int:
+    """K1 launches of both bodies (the row body and the transposed
+    store, each counted by its own wrapper) since `_reset_k1`."""
+    return (troute.lane_shuffle.launches
+            + troute.lane_shuffle_transposed.launches)
 
 
 def _launched_of(kernel: str) -> dict:
@@ -119,10 +132,10 @@ def test_spmv_routed_on_card_matches_cpu(dev, dtype, np_dtype):
     y = torch.ones(A.height, dtype=dtype)
     want = spmv(plan, x, 3.0, 4.0, y)
     on_card = plan.to(dev)
-    troute.lane_shuffle.launches = 0
+    _reset_k1()
     tr.slab_gather.launches = 0
     got = spmv(on_card, x.to(dev), 3.0, 4.0, y.to(dev)).cpu()
-    assert troute.lane_shuffle.launches == plan.n_route_gathers
+    assert _k1_launches() == plan.n_route_gathers
     assert tr.slab_gather.launches == 1
     # the card may sum in another order than the CPU
     tol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -131,6 +144,237 @@ def test_spmv_routed_on_card_matches_cpu(dev, dtype, np_dtype):
     torch.testing.assert_close(spmv(coo, x.to(dev), 3.0, 4.0,
                                     y.to(dev)).cpu(), want,
                                rtol=tol, atol=tol)
+
+
+# ---- K1's transposed store: a route's gather and the transpose after it
+
+# the transposes of the webbase-1M PageRank plan's routes: the main route
+# (4,194,304 elements), then the x relabel and the unrank (1,048,576)
+CELL_TRANSPOSES = [(1, 32768, 128), (128, 256, 128), (128, 128, 256),
+                   (1, 128, 32768), (1, 8192, 128), (128, 64, 128),
+                   (128, 128, 64), (1, 128, 8192)]
+_rng = np.random.RandomState(24)
+SMALL_TRANSPOSES = [(1, 16, 128), (3, 16, 128), (2, 128, 16),
+                    (1, 128, 32), (5, 48, 128), (2, 128, 384),
+                    (1, 384, 128), (7, 64, 64), (1, 1040, 128)] + [
+    (int(_rng.randint(1, 5)), 16 * int(_rng.randint(1, 40)),
+     int(_rng.choice([16, 32, 64, 128, 256, 384]))) for _ in range(6)]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bytes, for a bitwise comparison."""
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", CELL_TRANSPOSES + SMALL_TRANSPOSES)
+@pytest.mark.parametrize("variant", list(K1_VARIANTS))
+def test_lane_shuffle_transposed_matches_unfused(dev, variant, shape):
+    """K1 with the transposed store: one launch, bitwise the row body
+    followed by `permute().contiguous()` and the plain version."""
+    from sblas_tpu_torch import _kernels
+    dt, it = K1_VARIANTS[variant]
+    nb, P, Q = shape
+    rows = nb * P * Q // 128
+    g = torch.Generator(device=dev).manual_seed(rows + P)
+    x = torch.randn((rows, 128), generator=g, device=dev).to(dt)
+    idx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
+                        dtype=torch.int32).to(it)
+    before = (troute.lane_shuffle.launches,
+              troute.lane_shuffle_transposed.launches)
+    _kernels.LAUNCHED.clear()
+    got = troute.lane_shuffle_transposed(x, idx, shape)
+    torch.cuda.synchronize()
+    assert (troute.lane_shuffle.launches,
+            troute.lane_shuffle_transposed.launches) == (before[0],
+                                                         before[1] + 1)
+    assert dict(_kernels.LAUNCHED) == {
+        f"sblas_lane_shuffle_transposed_{variant}": 1}
+    assert got.shape == (nb, Q, P) and got.is_contiguous()
+    unfused = troute.lane_shuffle(x, idx).reshape(shape).permute(
+        0, 2, 1).contiguous()
+    assert torch.equal(_bits(got), _bits(unfused))
+    assert torch.equal(_bits(got), _bits(
+        troute.lane_shuffle_transposed_plain(x, idx, shape)))
+
+
+def test_lane_shuffle_transposed_refuses_what_it_cannot_store(dev):
+    x = torch.zeros((64, 128), device=dev)
+    idx = torch.zeros((64, 128), device=dev, dtype=torch.int32)
+    with pytest.raises(ShapeError):
+        troute.lane_shuffle_transposed(x, idx, (1, 8, 1024))
+    with pytest.raises(ShapeError):
+        troute.lane_shuffle_transposed(x, idx, (2, 16, 128))
+    with pytest.raises(KernelError):
+        troute.lane_shuffle_transposed(x, idx.long(), (1, 64, 128))
+    with pytest.raises(KernelError):
+        troute.lane_shuffle_transposed(x.half(), idx, (1, 64, 128))
+
+
+_ROUTES = {}
+
+
+def _route(n: int):
+    """A route of a seeded random permutation of n, and the permutation."""
+    if n not in _ROUTES:
+        perm = np.random.RandomState(n).permutation(n)
+        _ROUTES[n] = (perm, troute.build_route(perm))
+    return _ROUTES[n]
+
+
+# 300 -> a mix layer only; 16384 -> A = 128; 40000 -> 128^2 * 3, a mix
+# level inside; 81920 = 128^2 * 5; 262144 -> two transpose levels; 1M ->
+# the cell's x relabel; 128^3 * 2 -> the cell's main route
+@pytest.mark.parametrize("n", [300, 16384, 40000, 81920, 262144, 1_000_000,
+                               2 * 128 ** 3])
+@pytest.mark.parametrize("variant", list(K1_VARIANTS))
+def test_apply_route_fused_matches_numpy(dev, variant, n):
+    """`apply_route` on the card stores every transpose inside K1: one K1
+    launch a gather, one transposed store a transpose, no copy, and the
+    numpy mirror's answer bitwise (int16 tables under `bf16_i16`)."""
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.utils import trace
+    dt, it = K1_VARIANTS[variant]
+    perm, prog = _route(n)
+    x = torch.from_numpy(np.random.RandomState(1).standard_normal(n)
+                         ).to(dt)
+    x_pad = torch.nn.functional.pad(x, (0, prog.n - n)).to(dev)
+    tables = troute.route_tables(
+        prog, dev, np.int16 if it == torch.int16 else np.int32)
+    n_vt = sum(op[0] == "view_transpose" for op in prog.ops)
+    _reset_k1()
+    _kernels.LAUNCHED.clear()
+    with trace.recording() as rec:
+        got = troute.apply_route(prog.schedule, x_pad, tables)
+    torch.cuda.synchronize()
+    assert troute.lane_shuffle.launches == prog.n_gathers - n_vt
+    assert troute.lane_shuffle_transposed.launches == n_vt
+    assert _kernels.LAUNCHED[f"sblas_lane_shuffle_transposed_{variant}"
+                             ] == n_vt
+    assert _kernels.LAUNCHED[f"sblas_lane_shuffle_{variant}"
+                             ] == prog.n_gathers - n_vt
+    assert rec.counters.get("route_transposes_fused", 0) == n_vt
+    assert "route_transpose_copies" not in rec.counters
+    wide = torch.float32 if dt == BF16 else dt
+    want = troute.apply_route_np(prog, x.to(wide).numpy())
+    assert np.array_equal(got[:n].cpu().to(wide).numpy(), want)
+    assert torch.equal(_bits(got[:n].cpu()), _bits(x[perm]))
+
+
+def _pagerank_cell_plan(dev):
+    """P^T of `webbase_like()` (1M pages, f32) on a routed plan: the
+    PageRank cell's matrix as `examples.pagerank.transition` builds it."""
+    from sblas_tpu_torch.examples.pagerank import transition
+    PT, _ = transition(webbase_like(), np.float32)
+    return make_plan(PT, dtype=torch.float32, op="spmv", device=dev)
+
+
+def _fusions(plan) -> tuple:
+    """(gathers, transposes) over the plan's three routes."""
+    scheds = (plan.xroute_schedule, plan.schedule, plan.unrank_schedule)
+    return (sum(op[0] == "gather" for s in scheds for op in s),
+            sum(op[0] == "view_transpose" for s in scheds for op in s))
+
+
+def test_routed_spmv_fuses_every_transpose(dev):
+    """The PageRank cell's routed SpMV: 16 K1 launches, 12 of them with
+    the transposed store, no permute (so no copy kernel) for a transpose;
+    `route_transposes_fused` 12, `route_transpose_copies` 0."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from sblas_tpu_torch import _kernels
+    from sblas_tpu_torch.utils import trace
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    plan = _pagerank_cell_plan(dev)
+    assert isinstance(plan, tr.RoutedPlan)
+    assert _fusions(plan) == (16, 12) == (plan.n_route_gathers, 12)
+    x = torch.rand(plan.shape[1], device=dev)
+    y = torch.rand(plan.shape[0], device=dev)
+    spmv(plan, x, 0.85, 0.0, y)
+    torch.cuda.synchronize()
+    _reset_k1()
+    _kernels.LAUNCHED.clear()
+    with trace.recording() as rec, Ops() as ops:
+        spmv(plan, x, 0.85, 0.0, y)
+    torch.cuda.synchronize()
+    assert _k1_launches() == 16
+    assert (troute.lane_shuffle.launches,
+            troute.lane_shuffle_transposed.launches) == (4, 12)
+    assert _kernels.LAUNCHED["sblas_lane_shuffle_transposed_f32"] == 12
+    assert _kernels.LAUNCHED["sblas_lane_shuffle_f32"] == 4
+    assert rec.counters.get("route_transposes_fused") == 12
+    assert rec.counters.get("route_transpose_copies", 0) == 0
+    assert not [op for op in ops.seen if "permute" in op]
+
+
+def _unfused(schedule, x, tables):
+    """`apply_route` with every transpose a copy: the route as K1's row
+    body and the permute copies ran it before the transposed store."""
+    return troute.execute_steps(troute.route_steps(tuple(schedule), False),
+                                x, tables)
+
+
+def _routed_case(dev, case: str):
+    """A routed plan of webbase 100k on the card and its operands: f32,
+    f64 and bf16 values, or f32 under the bf16 route transport."""
+    dt = {"f64": torch.float64, "bf16": BF16}.get(case, torch.float32)
+    A = webbase_like(n=100_000, avg_deg=4.0,
+                     dtype=np.float64 if case == "f64" else np.float32)
+    plan = make_plan(A, dtype=dt, op="spmv", device=dev)
+    assert isinstance(plan, tr.RoutedPlan)
+    if case == "transport":
+        plan = plan.with_transport("bf16")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(A.width, generator=g, device=dev).to(dt)
+    y = torch.randn(A.height, generator=g, device=dev).to(dt)
+    return plan, x, y
+
+
+@pytest.mark.parametrize("case", ["f32", "f64", "bf16", "transport"])
+def test_routed_spmv_fused_is_bitwise_unfused(dev, case, monkeypatch):
+    """The routed SpMV with the transposed store gives the bits of the
+    route run as K1 and permute copies, in every value type and under
+    the bf16 transport."""
+    plan, x, y = _routed_case(dev, case)
+    assert _fusions(plan)[1] > 0
+    fused = spmv(plan, x, 3.0, 4.0, y)
+    monkeypatch.setattr(tr, "apply_route", _unfused)
+    unfused = spmv(plan, x, 3.0, 4.0, y)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(fused), _bits(unfused))
+
+
+@pytest.mark.parametrize("case", ["f32", "transport"])
+def test_routed_spmv_graph_replay_is_bitwise_eager(dev, case):
+    """The routed SpMV captured in a CUDA graph (the transposed stores'
+    PDL launches become programmatic edges) replays the eager bits, and
+    again after new input."""
+    plan, x, y = _routed_case(dev, case)
+    want = spmv(plan, x, 3.0, 4.0, y)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        spmv(plan, x, 3.0, 4.0, y)      # warm-up off the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = spmv(plan, x, 3.0, 4.0, y)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    x.copy_(torch.flip(x, (0,)))
+    want = spmv(plan, x, 3.0, 4.0, y)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
 
 
 # ---- K2' (tile_gather) and the distributed routed SpMV ----
@@ -1009,13 +1253,14 @@ def test_pagerank_graph_through_k1_k2_equals_eager(dev, strict_capture):
     solvers = strict_capture
     plan, dang = _pagerank_system(dev)
     n = plan.shape[0]
-    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    _reset_k1()
+    tr.slab_gather.launches = 0
     g = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200,
                          graph=True, chunk=16)
     # the warm-up step and the 16 captured iterations call the wrappers;
     # the replays run on the card alone
     assert tr.slab_gather.launches == 17
-    assert troute.lane_shuffle.launches == 17 * plan.n_route_gathers
+    assert _k1_launches() == 17 * plan.n_route_gathers
     e = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200,
                          graph=False)
     assert g.converged and g.iterations == e.iterations > 16
@@ -1028,10 +1273,11 @@ def test_second_solve_replays_the_captured_graph(dev, strict_capture):
     n = plan.shape[0]
     first = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200)
     assert solvers.captures() == 1
-    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    _reset_k1()
+    tr.slab_gather.launches = 0
     again = solvers.pagerank(plan, n, dangling=dang, tol=1e-7, maxiter=200)
     assert solvers.captures() == 1
-    assert troute.lane_shuffle.launches == tr.slab_gather.launches == 0
+    assert _k1_launches() == tr.slab_gather.launches == 0
     assert again.iterations == first.iterations
     assert torch.equal(again.x, first.x)
     _, splan, b = _spd_system(dev, torch.float64)
@@ -1207,9 +1453,6 @@ def test_spmm_um_wcoo_counts_k3_per_band_and_chunk(dev):
 
 # ---- the 16-bit variants: K1 on bf16 lanes, K2/K2' storing bf16, K3 and
 # K4 in bf16, and the paths that take them ----
-
-BF16 = torch.bfloat16
-
 
 def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     """Per-element distance in bf16 ulps (ordered bit patterns)."""
@@ -1645,9 +1888,10 @@ def test_spmv_routed_bf16_transport_on_card(dev):
     y = torch.ones(A.height)
     want = spmv(plan, x, 3.0, 4.0, y)
     on_card = plan.to(dev)
-    troute.lane_shuffle.launches = tr.slab_gather.launches = 0
+    _reset_k1()
+    tr.slab_gather.launches = 0
     got = spmv(on_card, x.to(dev), 3.0, 4.0, y.to(dev)).cpu()
-    assert troute.lane_shuffle.launches == plan.n_route_gathers
+    assert _k1_launches() == plan.n_route_gathers
     assert tr.slab_gather.launches == 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert check_equal(got.numpy(), spmv_cpu(
@@ -1762,9 +2006,12 @@ def _bf16_dist_case(name, dev, mesh, mesh2):
 BF16_DIST = {   # the kernels each path may launch, by variant
     "mode1_wcoo": {"window_reduce_bf16"}, "mode1_bsr": {"bell_spmm_bf16"},
     "mode2": set(), "dist": set(),
-    "planned_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
-    "hier_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
-    "xfoot_routed": {"tile_gather_bf16", "lane_shuffle_bf16"},
+    "planned_routed": {"tile_gather_bf16", "lane_shuffle_bf16",
+                       "lane_shuffle_transposed_bf16"},
+    "hier_routed": {"tile_gather_bf16", "lane_shuffle_bf16",
+                    "lane_shuffle_transposed_bf16"},
+    "xfoot_routed": {"tile_gather_bf16", "lane_shuffle_bf16",
+                     "lane_shuffle_transposed_bf16"},
     "planned_wcoo": {"window_reduce_bf16"}, "halo_planned": set(),
     "um": {"window_reduce_bf16"}, "um_dist": {"window_reduce_bf16"},
     "um_mode1": {"window_reduce_bf16"}, "um_spmv_dist": set(),
